@@ -1,0 +1,129 @@
+"""Configuration tree of the fused inference path.
+
+The port's own copy of the dataclasses and the ZJU / NTU presets of the
+JAX package's configuration, cut to the fields the fused path reads
+(training, evaluation and mesh settings are left out).  All shapes are
+static: frame size, patch size, the radar-point bucket and the SML
+network input are part of the config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetConfig:
+    """Frame geometry.  ZJU thermal: 480x640; NTU thermal: 512x640."""
+
+    name: str = "zju"
+    image_shape: Tuple[int, int] = (480, 640)
+    # Fixed radar-point bucket (static shapes).
+    max_points: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignmentConfig:
+    """Stage-1 global scale alignment of the mono prior.
+
+    ``mode`` 's' is the bounded 1-D scale search; bounds depend on whether
+    the prior is inverse ('inv') or positive ('pos') depth.
+    """
+
+    mode: str = "s"
+    mono_type: str = "inv"
+    bounds_inv: Tuple[float, float] = (0.01, 0.3)
+    bounds_pos: Tuple[float, float] = (0.5, 1.6)
+    iterations: int = 64                # golden-section iterations
+    # Clamps of the aligned inverse depth: <= 1/min_pred, >= 1/max_pred.
+    min_pred: float = 0.1
+    max_pred: float = 255.0
+    # Input-depth validity window.
+    min_depth: float = 0.0
+    max_depth: float = 100.0
+    # Static bound on valid alignment-target pixels per frame; when it
+    # fits the gather bucket the L1 solve runs on the gathered pixels.
+    max_valid_pixels: Optional[int] = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class SMLConfig:
+    """Scale Map Learner (MiDaS-small topology, efficientnet-lite3)."""
+
+    features: int = 64
+    expand: bool = True
+    in_channels: int = 3                # (int_depth, int_scales, gray)
+    align_corners: bool = True          # fusion-block upsample convention
+    net_shape: Tuple[int, int] = (288, 384)
+    regress_mode: str = "scale"         # 'scale' | 'depth'
+    min_pred: float = 0.1
+    max_pred: float = 255.0
+    int_depth_mean: float = 0.729
+    int_depth_std: float = 0.210
+    int_scales_mean: float = 0.404
+    int_scales_std: float = 0.117
+
+
+@dataclasses.dataclass(frozen=True)
+class RCNetConfig:
+    """RC-Net radar-pixel correspondence network."""
+
+    patch_size: Tuple[int, int] = (240, 100)        # ZJU; NTU (150, 50)
+    input_channels_image: int = 3
+    input_channels_depth: int = 3
+    n_filters_encoder_image: Tuple[int, ...] = (32, 64, 128, 128, 128)
+    n_neurons_encoder_depth: Tuple[int, ...] = (32, 64, 128, 128, 128)
+    n_filters_decoder: Tuple[int, ...] = (256, 128, 64, 32, 16)
+    n_resolution: int = 1
+    attention_layers: int = 4                       # x (self, cross)
+    attention_heads: int = 8
+    use_batch_norm: bool = True
+    activation: str = "leaky_relu"                  # negative_slope 0.2
+    response_threshold: float = 0.1                 # NTU: 0.4
+    threshold_decay: float = 0.05
+    max_threshold_retries: int = 8
+    adaptive_composition: bool = True
+
+    @property
+    def encoder_downsample(self) -> int:
+        """Total encoder stride, 2^n_stages (/32 for 5 stages)."""
+        return 2 ** len(self.n_filters_encoder_image)
+
+    @property
+    def latent_shape(self) -> Tuple[int, int]:
+        d = self.encoder_downsample
+        return (self.patch_size[0] // d, self.patch_size[1] // d)
+
+
+@dataclasses.dataclass(frozen=True)
+class RidersConfig:
+    dataset: DatasetConfig = dataclasses.field(default_factory=DatasetConfig)
+    alignment: AlignmentConfig = dataclasses.field(
+        default_factory=AlignmentConfig)
+    sml: SMLConfig = dataclasses.field(default_factory=SMLConfig)
+    rcnet: RCNetConfig = dataclasses.field(default_factory=RCNetConfig)
+
+    def replace(self, **kw) -> "RidersConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def zju_config(**overrides) -> RidersConfig:
+    """ZJU-Multispectrum preset: 480x640 frames, 240x100 patches."""
+    cfg = RidersConfig(
+        dataset=DatasetConfig(name="zju", image_shape=(480, 640)),
+        sml=SMLConfig(net_shape=(288, 384)),
+        rcnet=RCNetConfig(patch_size=(240, 100), response_threshold=0.1),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def ntu_config(**overrides) -> RidersConfig:
+    """NTU4DRadLM preset: 512x640 frames, 150x50 patches, threshold 0.4."""
+    cfg = RidersConfig(
+        dataset=DatasetConfig(name="ntu", image_shape=(512, 640),
+                              max_points=96),
+        sml=SMLConfig(net_shape=(288, 352)),
+        rcnet=RCNetConfig(patch_size=(150, 50), response_threshold=0.4),
+    )
+    return cfg.replace(**overrides) if overrides else cfg

@@ -1,0 +1,198 @@
+"""Layer primitives of RC-Net (NCHW inside, channels_last on the card).
+
+Semantics follow the JAX package's layers, which follow torch:
+conv padding kernel_size // 2 symmetric, bias-free convs, leaky-relu
+slope 0.2, BatchNorm eps 1e-5, and UpConv = nearest resize to the target
+shape + conv.  Module and attribute names mirror the flax parameter tree
+so `models.from_jax` can load JAX variables by path.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from riders_tpu_torch.ops.kernels.stem import KERNEL_SIZE, stem_conv_pool
+from riders_tpu_torch.ops.resize import resize_nchw
+
+BN_EPS = 1e-5
+
+
+def activation_fn(name: str) -> Optional[Callable]:
+    """Activation factory: 'linear' -> None, leaky-relu slope 0.2."""
+    if "linear" in name:
+        return None
+    if "leaky_relu" in name:
+        return lambda x: F.leaky_relu(x, 0.2)
+    if "relu" in name:
+        return F.relu
+    if "elu" in name:
+        return F.elu
+    if "sigmoid" in name:
+        return torch.sigmoid
+    raise ValueError(f"Unsupported activation function: {name}")
+
+
+class ConvBlock(nn.Module):
+    """conv -> [batch norm] -> [activation]; the conv has no bias."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, activation: Optional[Callable] = None,
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, features, kernel_size, stride,
+                              kernel_size // 2, bias=False)
+        self.bn = (nn.BatchNorm2d(features, eps=BN_EPS)
+                   if use_batch_norm else None)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return self.activation(x) if self.activation is not None else x
+
+
+class FusedStemConv(nn.Module):
+    """7x7 stride-2 conv -> BN -> leaky-relu(0.2), plus MaxPool2d(3, 2, 1) of
+    its output, through the fused stem kernel (the plain version on CPU).
+
+    Takes the NHWC image and returns (conv map, pooled map) as NCHW
+    views of NHWC memory, i.e. channels_last tensors."""
+
+    def __init__(self, in_ch: int = 3, features: int = 32,
+                 activation_name: str = "leaky_relu"):
+        super().__init__()
+        if activation_name != "leaky_relu":
+            raise ValueError(f"stem activation {activation_name}: the fused "
+                             f"stem applies leaky-relu(0.2) only")
+        self.conv = nn.Conv2d(in_ch, features, KERNEL_SIZE, 2,
+                              KERNEL_SIZE // 2, bias=False)
+        self.bn = nn.BatchNorm2d(features, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        bn = self.bn
+        g = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+        b = bn.bias.float() - bn.running_mean.float() * g
+        out, pooled = stem_conv_pool(x.contiguous(), self.conv.weight, g, b)
+        return out.permute(0, 3, 1, 2), pooled.permute(0, 3, 1, 2)
+
+
+class UpConvBlock(nn.Module):
+    """Nearest resize to `shape`, then a ConvBlock."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
+                 activation: Optional[Callable] = None,
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.conv = ConvBlock(in_ch, features, kernel_size, 1, activation,
+                              use_batch_norm)
+
+    def forward(self, x: torch.Tensor, shape: Tuple[int, int]
+                ) -> torch.Tensor:
+        return self.conv(resize_nchw(x, shape, "nearest"))
+
+
+class FullyConnected(nn.Module):
+    """Linear (with bias) -> activation."""
+
+    def __init__(self, in_features: int, features: int,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        self.linear = nn.Linear(in_features, features, bias=True)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.linear(x)
+        return self.activation(x) if self.activation is not None else x
+
+
+class ResNetBlock(nn.Module):
+    """Basic residual block with a 1x1 projection on shape mismatch."""
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1,
+                 activation: Optional[Callable] = None,
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.conv1 = ConvBlock(in_ch, features, 3, stride, activation,
+                               use_batch_norm)
+        self.conv2 = ConvBlock(features, features, 3, 1, activation,
+                               use_batch_norm)
+        self.projection = (ConvBlock(in_ch, features, 1, stride)
+                           if in_ch != features or stride != 1 else None)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.conv1(x))
+        if self.projection is not None:
+            x = self.projection(x)
+        out = out + x
+        return self.activation(out) if self.activation else out
+
+
+class DecoderBlock(nn.Module):
+    """Nearest upsample to the skip's shape (or `shape`) + conv, concat the
+    skip after it, fusion conv."""
+
+    def __init__(self, in_ch: int, skip_ch: int, features: int,
+                 activation: Optional[Callable] = None,
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.deconv = UpConvBlock(in_ch, features, 3, activation,
+                                  use_batch_norm)
+        self.conv = ConvBlock(features + skip_ch, features, 3, 1, activation,
+                              use_batch_norm)
+
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                shape: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        target = tuple(skip.shape[-2:]) if skip is not None else tuple(shape)
+        h = self.deconv(x, target)
+        if skip is not None:
+            h = torch.cat([h, skip], dim=1)
+        return self.conv(h)
+
+
+@torch.no_grad()
+def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random weights for a model without a checkpoint: He-normal
+    conv and linear weights, small biases, and BatchNorm affine terms and
+    running statistics away from 0 / 1 so that BN folding is exercised.
+    Draws on the CPU from a torch.Generator, so every device gets the
+    same weights."""
+    g = torch.Generator().manual_seed(seed)
+
+    def fill(t: torch.Tensor, values: torch.Tensor) -> None:
+        t.copy_(values.to(t.dtype))
+
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            fill(m.weight, torch.randn(m.weight.shape, generator=g)
+                 * (2.0 / fan_in) ** 0.5)
+            if m.bias is not None:
+                fill(m.bias, 0.02 * torch.randn(m.bias.shape, generator=g))
+        elif isinstance(m, nn.BatchNorm2d):
+            n = m.num_features
+            fill(m.weight, 0.8 + 0.4 * torch.rand(n, generator=g))
+            fill(m.bias, 0.1 * torch.randn(n, generator=g))
+            fill(m.running_mean, 0.1 * torch.randn(n, generator=g))
+            fill(m.running_var, 0.5 + torch.rand(n, generator=g))
+        elif isinstance(m, nn.LayerNorm):
+            n = m.normalized_shape
+            fill(m.weight, 1.0 + 0.05 * torch.randn(n, generator=g))
+            fill(m.bias, 0.05 * torch.randn(n, generator=g))
+    return module
+
+
+def place(module: nn.Module, device: torch.device,
+          dtype: torch.dtype) -> nn.Module:
+    """Move a model to its device and dtype in eval mode; on the card its
+    4-D weights (and so its activations) use channels_last memory."""
+    module = module.to(device=device, dtype=dtype).eval()
+    if device.type == "cuda":
+        module = module.to(memory_format=torch.channels_last)
+    return module

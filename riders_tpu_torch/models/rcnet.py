@@ -1,0 +1,222 @@
+"""RC-Net: radar-pixel correspondence network.
+
+* ``ResNetEncoder``: full-image encoder whose 7x7/s2 stem and 3x3 max
+  pool run as one fused kernel; skips at /2, /4, /8, /16, latent at /32;
+* ``PointEncoder``: MLP lifting each radar (u, v, z) to a token grid;
+* ``MultiScaleDecoder``: U-Net decoder from the fused latent back to a
+  per-pixel logit map over the patch (the literal full-resolution path);
+* ``RCNet``: encode once per frame, RoI-pool every scale around each
+  point (one kernel launch per scale), LoFTR self / cross attention
+  between point and patch tokens, concat fusion, decode the B*K patches.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from riders_tpu_torch.core.config import RCNetConfig
+from riders_tpu_torch.core.device import resolve_device
+from riders_tpu_torch.models.attention import LocalFeatureTransformer
+from riders_tpu_torch.models.layers import (ConvBlock, DecoderBlock,
+                                            FullyConnected, FusedStemConv,
+                                            ResNetBlock, activation_fn,
+                                            place)
+from riders_tpu_torch.ops.kernels.roi_pool import roi_pool_pyramid
+
+
+class ResNetEncoder(nn.Module):
+    """ResNet-18-style encoder, two residual blocks per stage; forward
+    takes the NHWC image and returns (latent, [skips at /2, /4, ..]) as
+    NCHW tensors."""
+
+    def __init__(self, n_filters: Sequence[int] = (32, 64, 128, 128, 128),
+                 activation: str = "leaky_relu", use_batch_norm: bool = True,
+                 in_ch: int = 3):
+        super().__init__()
+        act = activation_fn(activation)
+        self.n_stages = len(n_filters)
+        self.conv1 = FusedStemConv(in_ch, n_filters[0], activation)
+        self.stage_blocks: List[List[str]] = []
+        prev = n_filters[0]
+        for si, feat in enumerate(n_filters[1:]):
+            names = []
+            for bi in range(2):
+                stride = (1 if si == 0 else 2) if bi == 0 else 1
+                name = f"blocks{si + 2}_{bi}"
+                self.add_module(name, ResNetBlock(prev, feat, stride, act,
+                                                  use_batch_norm))
+                names.append(name)
+                prev = feat
+            self.stage_blocks.append(names)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        h, pooled = self.conv1(x)
+        skips = [h]
+        h = pooled
+        for si, names in enumerate(self.stage_blocks):
+            for name in names:
+                h = getattr(self, name)(h)
+            if si < self.n_stages - 2:
+                skips.append(h)
+        return h, skips
+
+
+class PointEncoder(nn.Module):
+    """MLP radar-point encoder; every layer has the activation."""
+
+    def __init__(self, n_neurons: Sequence[int] = (32, 64, 128, 128, 128),
+                 latent_size: int = 128 * 7 * 3,
+                 activation: str = "leaky_relu", in_features: int = 3):
+        super().__init__()
+        act = activation_fn(activation)
+        self.n_layers = len(n_neurons)
+        prev = in_features
+        for i, feat in enumerate(n_neurons):
+            self.add_module(f"fc{i}", FullyConnected(prev, feat, act))
+            prev = feat
+        self.fc_out = FullyConnected(prev, latent_size, act)
+
+    def forward(self, points: torch.Tensor) -> torch.Tensor:
+        h = points
+        for i in range(self.n_layers):
+            h = getattr(self, f"fc{i}")(h)
+        return self.fc_out(h)
+
+
+class MultiScaleDecoder(nn.Module):
+    """U-Net decoder, single output resolution.
+
+    Walks the skips deep -> shallow; the last block upsamples to
+    `output_shape` (with skips[0] when the pyramid is as deep as the
+    decoder), then a linear 3x3 conv emits one logit channel."""
+
+    def __init__(self, in_ch: int, skip_channels: Sequence[int],
+                 n_filters: Sequence[int] = (256, 128, 64, 32, 16),
+                 output_shape: Tuple[int, int] = (240, 100),
+                 activation: str = "leaky_relu",
+                 use_batch_norm: bool = True, n_resolution: int = 1):
+        super().__init__()
+        if n_resolution != 1:
+            raise NotImplementedError(
+                "only the single-resolution decoder is ported")
+        act = activation_fn(activation)
+        depth = len(n_filters)
+        self.depth = depth
+        self.output_shape = tuple(output_shape)
+        self.n_skips = len(skip_channels)
+        prev = in_ch
+        for i, feat in enumerate(n_filters[:-1]):
+            d = depth - 1 - i
+            si = self.n_skips - 1 - i
+            skip_ch = skip_channels[si] if si >= 0 else 0
+            self.add_module(f"deconv{d}", DecoderBlock(
+                prev, skip_ch, feat, act, use_batch_norm))
+            prev = feat
+        skip0 = skip_channels[0] if self.n_skips == depth else 0
+        self.deconv0 = DecoderBlock(prev, skip0, n_filters[-1], act,
+                                    use_batch_norm)
+        self.output0 = ConvBlock(n_filters[-1], 1, 3, 1)
+
+    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]
+                ) -> torch.Tensor:
+        h = x
+        for i in range(self.depth - 1):
+            si = len(skips) - 1 - i
+            skip = skips[si] if si >= 0 else None
+            h = getattr(self, f"deconv{self.depth - 1 - i}")(h, skip=skip)
+        if len(skips) == self.depth:
+            h = self.deconv0(h, skip=skips[0])
+        else:
+            h = self.deconv0(h, shape=self.output_shape)
+        return self.output0(h)
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    """NHWC view of an NCHW tensor, contiguous (free for channels_last)."""
+    return t.permute(0, 2, 3, 1).contiguous()
+
+
+class RCNet(nn.Module):
+    """End-to-end RC-Net over a padded point bucket.
+
+    forward(image, points, boxes, point_mask):
+      image: (B, H, W, 3) edge-padded frame, NHWC;
+      points: (B, K, 3) radar (u, v, z) in padded-image coordinates;
+      boxes: (B, K, 4) [x1, y1, x2, y2] patch boxes, float32;
+      point_mask: (B, K) validity of the bucket.
+    Returns logits (B, K, ph, pw, 1), or masked sigmoid responses with
+    ``return_logits=False``.
+    """
+
+    def __init__(self, config: RCNetConfig = RCNetConfig(), device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = self.config = config
+        lh, lw = cfg.latent_shape
+        d_model = cfg.n_neurons_encoder_depth[-1]
+        filters = cfg.n_filters_encoder_image
+        if filters[-1] != d_model:
+            raise ValueError("the shared attention layers need the image "
+                             "latent width to equal the point width")
+        self.encoder_image = ResNetEncoder(
+            filters, cfg.activation, cfg.use_batch_norm,
+            in_ch=cfg.input_channels_image)
+        self.encoder_depth = PointEncoder(
+            cfg.n_neurons_encoder_depth, d_model * lh * lw, cfg.activation,
+            in_features=cfg.input_channels_depth)
+        self.attention = LocalFeatureTransformer(
+            d_model, cfg.attention_heads, ("self", "cross"),
+            cfg.attention_layers)
+        self.decoder = MultiScaleDecoder(
+            filters[-1] + d_model, filters[:-1], cfg.n_filters_decoder,
+            cfg.patch_size, cfg.activation, cfg.use_batch_norm,
+            cfg.n_resolution)
+        place(self, resolve_device(device), dtype)
+
+    def forward(self, image: torch.Tensor, points: torch.Tensor,
+                boxes: torch.Tensor,
+                point_mask: Optional[torch.Tensor] = None,
+                return_logits: bool = True) -> torch.Tensor:
+        cfg = self.config
+        B, K = points.shape[:2]
+        lh, lw = cfg.latent_shape
+        ph, pw = cfg.patch_size
+        dtype = self.decoder.output0.conv.weight.dtype
+
+        latent, skips = self.encoder_image(image.to(dtype))
+        pooled_latent, pooled_skips = roi_pool_pyramid(
+            _nhwc(latent), [_nhwc(s) for s in skips],
+            boxes.float().contiguous(), cfg.patch_size)
+        # (B, K, h, w, C) -> (B*K, C, h, w) views of NHWC memory
+        flat = lambda t: t.reshape((B * K,) + t.shape[2:]).permute(0, 3, 1, 2)
+        pooled_skips = [flat(s) for s in pooled_skips]
+
+        # Point branch: MLP -> (B*K, lh*lw, d) tokens, channel-major.
+        point_latent = self.encoder_depth(
+            points.reshape(B * K, points.shape[-1]).to(dtype))
+        d_model = cfg.n_neurons_encoder_depth[-1]
+        point_tokens = point_latent.reshape(B * K, d_model,
+                                            lh * lw).transpose(1, 2)
+        image_tokens = pooled_latent.reshape(B * K, lh * lw, -1)
+        point_tokens, image_tokens = self.attention(point_tokens,
+                                                    image_tokens)
+
+        # Concat fusion: image features first.
+        fused = torch.cat([image_tokens.reshape(B * K, lh, lw, -1),
+                           point_tokens.reshape(B * K, lh, lw, -1)], dim=-1)
+        logits = self.decoder(fused.permute(0, 3, 1, 2), pooled_skips)
+        logits = logits.permute(0, 2, 3, 1).reshape(B, K, ph, pw, -1)
+        if point_mask is None:
+            return logits if return_logits else torch.sigmoid(logits)
+        keep = point_mask[:, :, None, None, None] > 0
+        fill = -1e4 if return_logits else 0.0
+        logits = torch.where(keep, logits,
+                             torch.full_like(logits, fill))
+        if return_logits:
+            return logits
+        return torch.sigmoid(logits) * point_mask[:, :, None, None,
+                                                  None].to(logits.dtype)

@@ -1,0 +1,126 @@
+"""Stage-1 global alignment of a monocular depth prior to sparse radar.
+
+Batched over frames: maps are (B, H, W) and each frame gets its own
+scale.  The bounded scale-only L1 solve is a golden-section search with
+a fixed iteration count, the same update rule (`fc < fd`) and the same
+valid-pixel gather as the JAX package, so both converge to the same
+point.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+# 1/phi and 1/phi^2 for golden-section interval reduction.
+_INVPHI = 0.6180339887498949
+_INVPHI2 = 0.3819660112501051
+
+
+def _l1_objective(s: torch.Tensor, p: torch.Tensor, t: torch.Tensor,
+                  m: torch.Tensor) -> torch.Tensor:
+    """sum(m * |s * p - t|) per frame; s is (B,), p/t/m are (B, N)."""
+    return torch.sum(m * torch.abs(s[:, None] * p - t), dim=1)
+
+
+def optimize_scale(prediction: torch.Tensor,
+                   target: torch.Tensor,
+                   mask: torch.Tensor,
+                   bounds: Tuple[float, float],
+                   iterations: int = 64,
+                   gather_bucket: int = 512,
+                   max_valid: int | None = None) -> torch.Tensor:
+    """Bounded scale-only solve per frame; returns (B,) scales.
+
+    When `max_valid` bounds the valid pixels and fits `gather_bucket`,
+    the objective runs on the `gather_bucket` pixels with the largest
+    mask, lowest index first among ties (the order of JAX's top_k).
+    """
+    B = prediction.shape[0]
+    p = prediction.float().reshape(B, -1)
+    t = target.float().reshape(B, -1)
+    m = mask.float().reshape(B, -1)
+    gatherable = (gather_bucket and max_valid is not None
+                  and max_valid <= gather_bucket
+                  and p.shape[1] > 2 * gather_bucket)
+    if gatherable:
+        idx = torch.sort(m, dim=1, descending=True,
+                         stable=True).indices[:, :gather_bucket]
+        p, t, m = p.gather(1, idx), t.gather(1, idx), m.gather(1, idx)
+    return _golden_section(p, t, m, bounds, iterations)
+
+
+def _golden_section(p, t, m, bounds, iterations) -> torch.Tensor:
+    B = p.shape[0]
+    lo = torch.full((B,), bounds[0], dtype=torch.float32, device=p.device)
+    hi = torch.full((B,), bounds[1], dtype=torch.float32, device=p.device)
+    c = lo + _INVPHI2 * (hi - lo)
+    d = lo + _INVPHI * (hi - lo)
+    fc = _l1_objective(c, p, t, m)
+    fd = _l1_objective(d, p, t, m)
+    for _ in range(iterations):
+        left = fc < fd
+        new_lo = torch.where(left, lo, c)
+        new_hi = torch.where(left, d, hi)
+        # One interior point carries over; the other is recomputed.
+        new_d = torch.where(left, c, d)
+        new_fd = torch.where(left, fc, fd)
+        new_c = new_lo + _INVPHI2 * (new_hi - new_lo)
+        new_fc = _l1_objective(new_c, p, t, m)
+        # Keep c < d: after shrinking right the carried point is c.
+        c_out = torch.where(left, new_c, new_d)
+        fc_out = torch.where(left, new_fc, new_fd)
+        d_probe = new_lo + _INVPHI * (new_hi - new_lo)
+        fd_probe = _l1_objective(d_probe, p, t, m)
+        d = torch.where(left, new_d, d_probe)
+        fd = torch.where(left, new_fd, fd_probe)
+        lo, hi, c, fc = new_lo, new_hi, c_out, fc_out
+    return 0.5 * (lo + hi)
+
+
+def clamp_inverse_depth(output: torch.Tensor,
+                        clamp_min: float | None = None,
+                        clamp_max: float | None = None) -> torch.Tensor:
+    """depth >= clamp_min => inv <= 1/clamp_min (when clamp_min > 0);
+    depth <= clamp_max => inv >= 1/clamp_max."""
+    if clamp_min is not None and clamp_min > 0:
+        output = torch.clamp(output, max=1.0 / clamp_min)
+    if clamp_max is not None:
+        output = torch.clamp(output, min=1.0 / clamp_max)
+    return output
+
+
+def validity_and_inverse(depth: torch.Tensor, min_depth: float,
+                         max_depth: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Validity window and guarded inversion: invalid entries map to 0.
+
+    Returns (inverse_depth, valid mask as float32)."""
+    valid = (depth < max_depth) & (depth > min_depth)
+    safe = torch.where(valid, depth, torch.ones_like(depth))
+    inv = torch.where(valid, 1.0 / safe, torch.zeros_like(depth))
+    return inv, valid.float()
+
+
+def align_mono_prior(mono_pred: torch.Tensor,
+                     target_inv: torch.Tensor,
+                     valid: torch.Tensor,
+                     mode: str = "s",
+                     mono_type: str = "inv",
+                     bounds_inv: Tuple[float, float] = (0.01, 0.3),
+                     bounds_pos: Tuple[float, float] = (0.5, 1.6),
+                     iterations: int = 64,
+                     min_pred: float | None = 0.1,
+                     max_pred: float | None = 255.0,
+                     max_valid: int | None = None) -> torch.Tensor:
+    """Stage-1 alignment of (B, H, W) priors; returns the aligned,
+    clamped inverse depth `int_depth`.  Only the scale-only mode 's' is
+    ported: both presets use it."""
+    if mode != "s":
+        raise ValueError(f"Unsupported alignment mode: {mode}")
+    bounds = bounds_inv if mono_type == "inv" else bounds_pos
+    scale = optimize_scale(mono_pred, target_inv, valid, bounds,
+                           iterations, max_valid=max_valid)
+    out = mono_pred * scale[:, None, None]
+    return clamp_inverse_depth(out, min_pred, max_pred)

@@ -1,0 +1,119 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small and awkward shapes (ragged tiles, boxes past the map, fractional
+and half-pixel coordinates, long point lists).  `chip_smoke.py` covers
+the fused path's own shapes.  These tests need a card: the `dev`
+fixture skips them without one.  Run them on the card with
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(`--noconftest`: tests/conftest.py imports JAX, which the machine with
+the card need not have.)
+"""
+
+import pytest
+import torch
+
+from riders_tpu_torch.ops import patches
+from riders_tpu_torch.ops.kernels import LAUNCHES, compose, roi_pool, stem
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("hw", [(17, 9), (37, 53), (64, 64), (130, 202)])
+def test_stem_kernel_matches_plain(dev, hw):
+    """Within one bf16 rounding step: both sum the same bf16 products in
+    f32, in different orders."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((2,) + hw + (3,), generator=g, device=dev).to(
+        torch.bfloat16)
+    w = 0.2 * torch.randn((32, 3, 7, 7), generator=g, device=dev)
+    scale = 0.5 + torch.rand(32, generator=g, device=dev)
+    bias = 0.1 * torch.randn(32, generator=g, device=dev)
+    before = LAUNCHES["stem"]
+    got = stem.stem_conv_pool(x, w, scale, bias)
+    assert LAUNCHES["stem"] == before + 1
+    want = stem.stem_conv_pool_plain(x, w, scale, bias)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        a, b = a.float(), b.float()
+        limit = 2 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-4
+        assert bool(((a - b).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("C,out_size,scale", [
+    (3, (7, 3), 1 / 32), (32, (37, 12), 0.25), (128, (18, 6), 0.125),
+    (8, (60, 25), 0.5)])
+def test_roi_pool_kernel_matches_plain(dev, C, out_size, scale):
+    """Bitwise: fractional, negative and out-of-map boxes included."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, K, H, W = 2, 9, 23, 31
+    feat = torch.randn((B, H, W, C), generator=g, device=dev).to(
+        torch.bfloat16)
+    ph, pw = out_size[0] / scale, out_size[1] / scale
+    x1 = (torch.rand((B, K), generator=g, device=dev) * 1.4 - 0.2) * W / scale
+    y1 = (torch.rand((B, K), generator=g, device=dev) * 1.4 - 0.2) * H / scale
+    x1[:, 0], y1[:, 0] = 0.0, 0.0
+    x1[:, 1], y1[:, 1] = W / scale + 5, H / scale + 5   # entirely outside
+    x1[:, 2] = torch.floor(x1[:, 2]) + 0.5              # half-pixel edge
+    boxes = torch.stack([x1, y1, x1 + pw, y1 + ph], -1).contiguous()
+    before = LAUNCHES["roi_pool"]
+    got = roi_pool.roi_max_pool(feat, boxes, scale, out_size)
+    assert LAUNCHES["roi_pool"] == before + 1
+    want = patches.roi_max_pool(feat, boxes, scale, out_size)
+    assert got.shape == want.shape == (B, K) + out_size + (C,)
+    assert torch.equal(got, want)
+    assert not bool(got[:, 1].any())          # empty bins are 0
+
+
+@pytest.mark.parametrize("K", [1, 7, 300])
+def test_compose_kernel_matches_plain(dev, K):
+    """Bitwise: half-pixel centres (round half to even), points outside
+    the frame (clipped), masked points, a negative threshold."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, H, W, ph, pw = 3, 45, 70, 30, 12
+    resp = torch.rand((B, K, ph, pw), generator=g, device=dev)
+    u = torch.rand((B, K), generator=g, device=dev) * (W + 2 * pw) - pw // 2
+    v = torch.rand((B, K), generator=g, device=dev) * (H + 2 * ph) - ph // 2
+    u[:, ::3] = torch.floor(u[:, ::3]) + 0.5
+    z = 1 + 50 * torch.rand((B, K), generator=g, device=dev)
+    pts = torch.stack([u, v, z], -1).contiguous()
+    mask = (torch.rand((B, K), generator=g, device=dev) > 0.3).float()
+    thr = torch.tensor([0.4, -0.3, 0.9], device=dev)
+    before = LAUNCHES["compose"]
+    got = compose.compose_patches(resp, pts, mask, (H, W), (ph, pw), thr)
+    assert LAUNCHES["compose"] == before + 1
+    want = patches.compose_patches(resp, pts, mask, (H, W), (ph, pw), thr)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    scalar = compose.compose_patches(resp, pts, mask, (H, W), (ph, pw), 0.5)
+    ref = patches.compose_patches(resp, pts, mask, (H, W), (ph, pw), 0.5)
+    assert all(torch.equal(a, b) for a, b in zip(scalar, ref))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.rand((1, 20, 20, 3), device=dev)
+    w = torch.randn((32, 3, 7, 7), device=dev)
+    one, zero = torch.ones(32, device=dev), torch.zeros(32, device=dev)
+    with pytest.raises(TypeError):
+        stem.stem_conv_pool(x, w, one, zero)               # f32 image
+    xb = torch.rand((1, 3, 20, 20), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        stem.stem_conv_pool(xb.permute(0, 2, 3, 1), w, one, zero)
+    with pytest.raises(ValueError):
+        stem.stem_conv_pool(x.to(torch.bfloat16), w.cpu(), one, zero)
+    feat = torch.rand((1, 8, 8, 4), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        roi_pool.roi_max_pool(feat, torch.zeros((1, 2, 4)), 0.5, (2, 2))
+    resp = torch.rand((1, 2, 4, 4), device=dev)
+    with pytest.raises(TypeError):
+        compose.compose_patches(resp.double(), torch.zeros((1, 2, 3),
+                                device=dev, dtype=torch.float64),
+                                torch.ones((1, 2), device=dev), (8, 8),
+                                (4, 4), 0.1)
