@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's fused inference path on one GPU.
+"""Drive the PyTorch / CUDA port's fused inference path and its RC-Net
+and SML training steps on one GPU.
 
     python3 chip_smoke.py             # all phases, report lines
-    python3 chip_smoke.py --profile   # also a torch.profiler breakdown
+    python3 chip_smoke.py --profile   # also torch.profiler breakdowns of
+                                      # a fused call and a training step
 
 Phases, each fatal on failure:
   1. set-up: the card, the versions, the nvcc build of csrc/*.cu;
@@ -14,9 +16,22 @@ Phases, each fatal on failure:
      launch counters reset just before, output checks, fps; then the ZJU
      geometry at B=4 the same way;
   4. agreement of the card's bf16 path with the port's f32 CPU path on a
-     small input with the same weights, within the CPU's own bf16 spread.
+     small input with the same weights, within the CPU's own bf16 spread;
+  5. training kernels at the NTU (B=24, K=40) and ZJU (B=4, K=30)
+     training shapes, f32: the RoI pool's forward (bitwise) and its
+     backward (within 1e-6 relative of the plain version, two launches
+     bitwise equal), with CUDA-event times and their bound;
+  6. training at full published widths on seeded random weights: three
+     RC-Net steps at the NTU preset (B=24, 40 points, 150x50 patches,
+     512x640 frames) and three SML steps (288x352, B=12), each with the
+     launch counters reset just before, finite loss, every parameter
+     moved, ms per step, frames/s and peak memory; then a checkpoint
+     save / restore round trip;
+  7. one RC-Net training step on the card in f32 against the port's f32
+     CPU step: loss to rtol 1e-4, each gradient within 1e-3 of its max
+     or within 3x the CPU's own spread under a one-ulp input nudge.
 Report lines: the card's name and power limit, one {"kernels": [...]}
-line, one end-to-end line; the last line is
+line, one fused line, one training line; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -229,16 +244,22 @@ def build_models(cfg, seed, device, dtype):
     """Full-width RC-Net and SML on seeded random weights.  The SML head's
     last conv is scaled down so the random network regresses scales near
     1, as a trained one does, and depth stays in the metric range."""
-    import torch
     from riders_tpu_torch.models.layers import init_random_
     from riders_tpu_torch.models.rcnet import RCNet
-    from riders_tpu_torch.models.sml import ScaleMapLearner
 
     rcnet = init_random_(RCNet(cfg.rcnet, device, dtype), seed)
-    sml = init_random_(ScaleMapLearner(cfg.sml, device, dtype), seed + 1)
+    return rcnet, build_sml(cfg, seed + 1, device, dtype)
+
+
+def build_sml(cfg, seed, device, dtype):
+    import torch
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.sml import ScaleMapLearner
+
+    sml = init_random_(ScaleMapLearner(cfg.sml, device, dtype), seed)
     with torch.no_grad():
         sml.output_conv.conv3.weight.mul_(1e-3)
-    return rcnet, sml
+    return sml
 
 
 def make_batch(seed, B, K, n_real, frame, device):
@@ -351,10 +372,393 @@ def reference_agreement(seed=3):
     return res
 
 
+def train_config(preset, **overrides):
+    from riders_tpu_torch.core.config import ntu_config, zju_config
+    return (ntu_config if preset == "ntu" else zju_config)(**overrides)
+
+
+def smooth_depth(g, B, frame, device):
+    """A depth field in [5, 55] m, smooth over ~32 pixels, so a patch
+    holds pixels near its point's depth (positives) and far from it."""
+    import torch
+    import torch.nn.functional as F
+    H, W = frame
+    coarse = torch.rand((B, 1, -(-H // 32) + 1, -(-W // 32) + 1),
+                        generator=g, device=device)
+    return 5.0 + 50.0 * F.interpolate(coarse, size=(H, W), mode="bilinear",
+                                      align_corners=False)[:, 0]
+
+
+def make_rcnet_train_batch(cfg, seed, device, B=None):
+    """A training batch as RCNetTrainDataset builds it: the frame edge-
+    padded by half a patch, points_per_frame radar points per frame at
+    integer pixels with their depth (+-0.3 m), shifted to padded
+    coordinates, their boxes, and zero-padded crops of a GT depth field
+    with half its pixels missing.  Every slot is real (mask 1)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=device).manual_seed(seed)
+    H, W = cfg.dataset.image_shape
+    B = B or cfg.rcnet_train.batch_size
+    K = cfg.rcnet_train.points_per_frame
+    ph, pw = cfg.rcnet.patch_size
+    py, px = ph // 2, pw // 2
+    image = torch.rand((B, 3, H, W), generator=g, device=device)
+    image = F.pad(image, (px, px, py, py), mode="replicate")
+    depth = smooth_depth(g, B, (H, W), device)
+    gt = depth * (torch.rand((B, H, W), generator=g, device=device) > 0.5)
+    u = torch.randint(0, W, (B, K), generator=g, device=device)
+    v = torch.randint(0, H, (B, K), generator=g, device=device)
+    bi = torch.arange(B, device=device)[:, None]
+    z = depth[bi, v, u] + 0.3 * torch.randn((B, K), generator=g,
+                                            device=device)
+    gt_pad = F.pad(gt, (px, px, py, py))
+    rows = (v[..., None] + torch.arange(ph, device=device))[..., :, None]
+    cols = (u[..., None] + torch.arange(pw, device=device))[..., None, :]
+    crops = gt_pad[bi[..., None, None], rows, cols][..., None]
+    u, v = u.float(), v.float()
+    return {"image": image.permute(0, 2, 3, 1).contiguous(),
+            "points": torch.stack([u + px, v + py, z], -1),
+            "boxes": torch.stack([u, v, u + 2 * px, v + 2 * py], -1),
+            "gt_crops": crops.contiguous(),
+            "point_mask": torch.ones((B, K), device=device)}
+
+
+def make_sml_train_batch(cfg, seed, device, B=None, n_radar=40):
+    """An SML training batch of full frames: image in [0, 1], the mono
+    inverse-depth prior with 10% noise, n_radar radar returns, sparse
+    lidar GT on 5% of the pixels, interpolated GT with 30% holes and the
+    quasi-dense RC-Net depth on 30% of the pixels."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    H, W = cfg.dataset.image_shape
+    B = B or cfg.sml_train.batch_size
+    depth = smooth_depth(g, B, (H, W), device)
+
+    def rand():
+        return torch.rand((B, H, W), generator=g, device=device)
+
+    radar = torch.zeros((B, H * W), device=device)
+    idx = torch.rand((B, H * W), generator=g, device=device).argsort(1)
+    idx = idx[:, :n_radar]
+    radar.scatter_(1, idx, depth.reshape(B, -1).gather(1, idx))
+    return {"image": torch.rand((B, H, W, 3), generator=g, device=device),
+            "mono_pred": (1.0 / depth) / 0.05 * (0.9 + 0.2 * rand()),
+            "radar": radar.reshape(B, H, W),
+            "gt_sparse": depth * (rand() < 0.05),
+            "gt_interp": depth * (rand() > 0.3),
+            "rcnet": depth * (rand() < 0.3)}
+
+
+def check_training_kernels(preset):
+    """The RoI pool's f32 forward (bitwise) and its backward kernel (B5,
+    within 1e-6 relative of the plain version summed in f64; two
+    launches bitwise equal) at the preset's training shape: its frame,
+    patch, batch and points per frame, f32 maps at the RC-Net widths.
+    Returns {kernel name: record}, times over the five scales of one
+    training step."""
+    import torch
+    from riders_tpu_torch.ops import patches
+    from riders_tpu_torch.ops.kernels import roi_pool
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    cfg = train_config(preset)
+    ph, pw = cfg.rcnet.patch_size
+    H, W = cfg.dataset.image_shape
+    batch = make_rcnet_train_batch(cfg, 8, dev)
+    boxes = batch["boxes"].contiguous()
+    maps, h, w_ = [], H + 2 * (ph // 2), W + 2 * (pw // 2)
+    for c in cfg.rcnet.n_filters_encoder_image:
+        h, w_ = -(-h // 2), -(-w_ // 2)
+        maps.append(torch.randn((boxes.shape[0], h, w_, c), generator=g,
+                                device=dev))
+    scales = [1.0 / 2 ** (i + 1) for i in range(len(maps))]
+    sizes = [(ph >> (i + 1), pw >> (i + 1)) for i in range(len(maps))]
+    out = {}
+
+    # ---- f32 forward: the five scales of the training pyramid
+    with torch.no_grad():
+        k_lat, k_sk = roi_pool.roi_pool_pyramid(maps[-1], maps[:-1], boxes,
+                                                (ph, pw))
+    p_lat, p_sk = patches.roi_pool_pyramid(maps[-1], maps[:-1], boxes,
+                                           (ph, pw))
+    torch.cuda.synchronize()
+    pooled = k_sk + [k_lat]                      # in the order of `maps`
+    err = 0.0
+    for a, b in zip(pooled, p_sk + [p_lat]):
+        err = max(err, float((a - b).abs().max()))
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"roi_pool f32 {preset}: not bitwise "
+                                 f"equal (max err {err})")
+    read = roi_read_bytes(maps, boxes, (ph, pw))
+    pooled_bytes = sum(4 * o.numel() for o in pooled)
+    nbytes = read + 4 * boxes.numel() + pooled_bytes
+    bnd, by = bound_ms(nbytes)
+
+    def kernel_forward():
+        with torch.no_grad():
+            return roi_pool.roi_pool_pyramid(maps[-1], maps[:-1], boxes,
+                                             (ph, pw))
+
+    out["roi_pool_f32"] = dict(
+        max_abs_err=err, tolerance="bitwise", ms=time_ms(kernel_forward),
+        plain_ms=time_ms(lambda: patches.roi_pool_pyramid(
+            maps[-1], maps[:-1], boxes, (ph, pw))),
+        library_ms=None, bound_ms=bnd, bound_by=by, bytes=nbytes,
+        launches_per_step=len(maps),
+        shapes=dict(maps=[list(m.shape) for m in maps],
+                    out=[list(o.shape) for o in pooled]))
+
+    # ---- backward (B5): d(feature) of every scale from random cotangents
+    grads = [torch.randn(o.shape, generator=g, device=dev) for o in pooled]
+    err, rel = 0.0, 0.0
+    for m, b_out, gr, s in zip(maps, pooled, grads, scales):
+        got = roi_pool.roi_max_pool_backward(m, boxes, b_out, gr, s)
+        again = roi_pool.roi_max_pool_backward(m, boxes, b_out, gr, s)
+        want = patches.roi_max_pool_backward(m, boxes, b_out, gr.double(), s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"roi_pool_bwd {preset}: two launches "
+                                 f"differ")
+        diff = (got.double() - want).abs()
+        err = max(err, float(diff.max()))
+        rel = max(rel, float((diff / (want.abs() + 1.0)).max()))
+        if not bool((diff <= 1e-6 * want.abs() + 1e-6).all()):
+            raise AssertionError(f"roi_pool_bwd {preset} scale {s}: max err "
+                                 f"{float(diff.max())} beyond 1e-6 |p| + 1e-6")
+        del got, again, want, diff
+    nbytes = (read + 4 * boxes.numel() + 2 * pooled_bytes
+              + sum(4 * m.numel() for m in maps))
+    bnd, by = bound_ms(nbytes)
+
+    def backward(fn):
+        return [fn(m, boxes, b_out, gr, s)
+                for m, b_out, gr, s in zip(maps, pooled, grads, scales)]
+
+    out["roi_pool_bwd"] = dict(
+        max_abs_err=err, max_err_over_1_plus_abs=rel,
+        tolerance="|k-p| <= 1e-6 |p| + 1e-6, p the plain version summed "
+                  "in f64; two launches bitwise equal",
+        ms=time_ms(lambda: backward(roi_pool.roi_max_pool_backward)),
+        plain_ms=time_ms(lambda: backward(patches.roi_max_pool_backward),
+                         n=5, warmup=1),
+        library_ms=None, bound_ms=bnd, bound_by=by, bytes=nbytes,
+        launches_per_step=len(maps),
+        shapes=dict(maps=[list(m.shape) for m in maps],
+                    grads=[list(o.shape) for o in grads]))
+    return out
+
+
+def _params(model):
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def _train_phase(name, state, step, batches, need, B):
+    """Three steps with the launch counters reset just before: finite
+    loss and aux, every kernel in `need` launched, every parameter
+    moved; then the median CUDA-event time of a step and its peak
+    memory."""
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    step(state, batches[0])                     # first call: cuDNN set-up
+    torch.cuda.synchronize()
+    before = _params(state.model)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    auxes = [step(state, b)[1] for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    for k in need:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"{name}: kernel {k} was not launched on "
+                                 f"the training path ({launches})")
+    aux = [{k: float(v) for k, v in a.items()} for a in auxes]
+    for a in aux:
+        bad = [k for k, v in a.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"{name}: non-finite {bad}: {a}")
+    after = _params(state.model)
+    grads = {k: p.grad for k, p in state.model.named_parameters()}
+    no_grad = [k for k, g in grads.items() if g is None or not bool(g.any())]
+    still = [k for k in before if k not in no_grad
+             and torch.equal(before[k], after[k])]
+    if still or len(no_grad) * 10 > len(before):
+        raise AssertionError(f"{name}: {len(still)} of {len(before)} "
+                             f"parameters did not move: {still[:8]}; "
+                             f"{len(no_grad)} have no gradient: "
+                             f"{no_grad[:8]}")
+    ms = time_ms(lambda: step(state, batches[1]), n=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batches[2])
+    torch.cuda.synchronize()
+    return dict(batch=B, launches=launches, wall_s_3_steps=wall, aux=aux,
+                ms_per_step=ms, frames_per_s=B / (ms / 1e3),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                step=state.step, n_params=len(before),
+                no_gradient=no_grad)
+
+
+def drive_training(seed=0, profile_dir=None):
+    """Both training steps at full published widths on seeded random
+    weights: RC-Net at the NTU preset (512x640 frames, 150x50 patches,
+    batch 24, 40 points), then SML at the NTU net shape 288x352 and
+    batch 12; then a checkpoint round trip of the SML state.  With
+    `profile_dir`, one more step of each under torch.profiler."""
+    import torch
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.pipelines import rcnet_training, sml_training
+
+    cfg = train_config("ntu")
+    model = init_random_(RCNet(cfg.rcnet, None, torch.float32), seed)
+    state = rcnet_training.init_rcnet_train_state(cfg, model, 1000)
+    batches = [make_rcnet_train_batch(cfg, seed + 20 + i, "cuda")
+               for i in range(3)]
+    step = rcnet_training.make_rcnet_train_step(cfg)
+    rcnet = _train_phase("rcnet", state, step, batches,
+                         ("roi_pool_f32", "roi_pool_bwd"),
+                         cfg.rcnet_train.batch_size)
+    if profile_dir is not None:
+        log(profile(lambda b: step(state, b), batches[1],
+                    profile_dir / "profile_rcnet_train.txt"))
+    rcnet.update(patch=list(cfg.rcnet.patch_size),
+                 frame=list(cfg.dataset.image_shape),
+                 points=cfg.rcnet_train.points_per_frame)
+    del state, model, batches
+    torch.cuda.empty_cache()
+
+    def sml_state(s):
+        return sml_training.init_train_state(
+            cfg, build_sml(cfg, s, None, torch.float32), 1000)
+
+    state = sml_state(seed)
+    batches = [make_sml_train_batch(cfg, seed + 30 + i, "cuda")
+               for i in range(3)]
+    step = sml_training.make_train_step(cfg)
+    sml = _train_phase("sml", state, step, batches, (),
+                       cfg.sml_train.batch_size)
+    if profile_dir is not None:
+        log(profile(lambda b: step(state, b), batches[1],
+                    profile_dir / "profile_sml_train.txt"))
+    sml.update(net_shape=list(cfg.sml.net_shape),
+               frame=list(cfg.dataset.image_shape))
+    return dict(rcnet=rcnet, sml=sml,
+                checkpoint=checkpoint_round_trip(state, sml_state(seed + 5)))
+
+
+def checkpoint_round_trip(state, template):
+    """save_train_state -> restore_train_state into a template state with
+    other weights; every model and optimizer tensor and the step must
+    come back equal."""
+    import shutil
+    import torch
+    from riders_tpu_torch.core import checkpoint
+
+    root = HERE / "chiprun_out" / "checkpoint_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        path = checkpoint.save_train_state(root, state)
+        save_s = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in path.iterdir())
+        t0 = time.perf_counter()
+        restored = checkpoint.restore_train_state(root, template)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if restored.step != state.step:
+        raise AssertionError(f"checkpoint step {restored.step} != "
+                             f"{state.step}")
+    want, got = state.model.state_dict(), restored.model.state_dict()
+    bad = [k for k in want if not torch.equal(want[k], got[k])]
+    o_want = state.optimizer.state_dict()["state"]
+    o_got = restored.optimizer.state_dict()["state"]
+    bad += [f"optimizer {i}.{k}" for i in o_want for k in o_want[i]
+            if not torch.equal(torch.as_tensor(o_want[i][k]).cpu(),
+                               torch.as_tensor(o_got[i][k]).cpu())
+            or torch.as_tensor(o_want[i][k]).device
+            != torch.as_tensor(o_got[i][k]).device]
+    if bad or len(o_got) != len(o_want):
+        raise AssertionError(f"checkpoint round trip differs: {bad[:8]}")
+    return dict(step=restored.step, bytes=size, save_s=save_s,
+                restore_s=restore_s, tensors=len(want) + len(o_want))
+
+
+def training_agreement(seed=5):
+    """One RC-Net training step on the card in f32 against the port's f32
+    CPU step: the same seeded weights at full NTU widths, a small frame,
+    B=2 with 4 points.  The loss to rtol 1e-4.  Each gradient's max abs
+    error, relative to its max abs, within 1e-3, or within 3x the CPU's
+    own spread for that tensor: the largest change of the CPU's gradient
+    when a random half of the input pixels moves by one f32 ulp (two
+    draws).  At random initialisation the train-mode network is that
+    sensitive: such a nudge moves some of the CPU's own gradients by
+    several percent.  The padded frame is random everywhere, not edge-
+    padded: edge padding makes exactly tied maxima in the border, where
+    the RoI backward sends each tied element the full cotangent, so any
+    rounding that breaks a tie moves a gradient by whole cotangents."""
+    import dataclasses
+    import torch
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.pipelines import rcnet_training
+
+    cfg = train_config("ntu")
+    cfg = cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, image_shape=(96, 128)),
+        rcnet_train=dataclasses.replace(cfg.rcnet_train, points_per_frame=4))
+    batch = make_rcnet_train_batch(cfg, seed, "cpu", B=2)
+    image = torch.rand(batch["image"].shape,
+                       generator=torch.Generator().manual_seed(seed))
+    step = rcnet_training.make_rcnet_train_step(cfg)
+
+    def run(device, img):
+        model = init_random_(RCNet(cfg.rcnet, device, torch.float32), seed)
+        state = rcnet_training.init_rcnet_train_state(cfg, model, 1000)
+        _, aux = step(state, dict(batch, image=img))
+        return float(aux["loss"]), {
+            k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+    def nudged(s):
+        pick = torch.rand(image.shape,
+                          generator=torch.Generator().manual_seed(s)) < 0.5
+        return torch.where(pick, torch.nextafter(
+            image, torch.full_like(image, 2.0)), image)
+
+    def rel_errs(g, ref):
+        return {k: float((g[k] - r).abs().max())
+                / max(float(r.abs().max()), 1e-30) for k, r in ref.items()}
+
+    loss_cpu, g_cpu = run("cpu", image)
+    loss_card, g_card = run(None, image)
+    card = rel_errs(g_card, g_cpu)
+    spread = {k: 0.0 for k in g_cpu}
+    for s in (1, 2):
+        for k, e in rel_errs(run("cpu", nudged(s))[1], g_cpu).items():
+            spread[k] = max(spread[k], e)
+    bad = [k for k in card if card[k] > max(1e-3, 3 * spread[k])]
+    worst = max(card, key=card.get)
+    res = dict(loss_cpu=loss_cpu, loss_card=loss_card,
+               loss_rel_err=abs(loss_card - loss_cpu) / abs(loss_cpu),
+               worst_grad_rel_err=card[worst], worst_grad=worst,
+               cpu_spread_there=spread[worst],
+               worst_cpu_spread=max(spread.values()),
+               grads_over_1e3=sum(e > 1e-3 for e in card.values()),
+               cpu_spreads_over_1e3=sum(e > 1e-3 for e in spread.values()),
+               median_grad_rel_err=sorted(card.values())[len(card) // 2],
+               n_grads=len(g_cpu), failing=bad)
+    if res["loss_rel_err"] > 1e-4 or bad:
+        raise AssertionError(f"card vs CPU training step: {res}")
+    return res
+
+
 def profile(fn, batch, path):
-    """Device time by kernel for one fused call (torch.profiler)."""
+    """Device time by kernel for one call of `fn` (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
+    path.parent.mkdir(exist_ok=True)
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         fn(batch)
@@ -411,24 +815,47 @@ def main(argv):
     agree = reference_agreement()
     log(f"reference agreement: {json.dumps(agree)}")
 
+    train_kernels = {p: check_training_kernels(p) for p in GEOMETRIES}
+    for p, recs in train_kernels.items():
+        for name, r in recs.items():
+            log(f"kernel {name} [{p} training]: max_abs_err "
+                f"{r['max_abs_err']} ({r['tolerance']}) kernel "
+                f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    training = drive_training(
+        profile_dir=HERE / "chiprun_out" if "--profile" in argv else None)
+    for name in ("rcnet", "sml"):
+        log(f"training {name}: {json.dumps(training[name])}")
+    log(f"checkpoint: {json.dumps(training['checkpoint'])}")
+    train_agree = training_agreement()
+    log(f"training agreement: {json.dumps(train_agree)}")
+
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
-               "compose": "riders_tpu_torch/csrc/compose.cu"}
+               "compose": "riders_tpu_torch/csrc/compose.cu",
+               "roi_pool_f32": "riders_tpu_torch/csrc/roi_pool.cu",
+               "roi_pool_bwd": "riders_tpu_torch/csrc/roi_pool.cu"}
     replaces = {"stem": "riders_tpu/ops/pallas/stem.py:95",
                 "roi_pool": "riders_tpu/ops/pallas/roi_pool.py:138",
-                "compose": "riders_tpu/ops/pallas/compose.py:35"}
+                "compose": "riders_tpu/ops/pallas/compose.py:35",
+                "roi_pool_f32": "riders_tpu/ops/pallas/roi_pool.py:138",
+                "roi_pool_bwd": "riders_tpu/ops/pallas/roi_pool.py:742"}
+    # inference kernels: launches of the fused NTU run; training kernels:
+    # launches of the three RC-Net training steps
     lines = []
-    for name in ("stem", "roi_pool", "compose"):
-        r = kernels["ntu"][name]
-        lines.append(dict(
-            name=name, route="cuda", source=sources[name],
-            replaces=replaces[name], launches=ntu["launches"][name],
-            max_abs_err=max(kernels[g][name]["max_abs_err"]
-                            for g in GEOMETRIES),
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
-            zju=dict((k, kernels["zju"][name][k]) for k in
-                     ("ms", "plain_ms", "library_ms", "bound_ms"))))
+    for recs, launches in ((kernels, ntu["launches"]),
+                           (train_kernels, training["rcnet"]["launches"])):
+        for name in recs["ntu"]:
+            r = recs["ntu"][name]
+            lines.append(dict(
+                name=name, route="cuda", source=sources[name],
+                replaces=replaces[name], launches=launches.get(name, 0),
+                max_abs_err=max(recs[g][name]["max_abs_err"]
+                                for g in GEOMETRIES),
+                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                zju=dict((k, recs["zju"][name][k]) for k in
+                         ("ms", "plain_ms", "library_ms", "bound_ms"))))
     if "--profile" in argv:
         out_dir = HERE / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
@@ -437,7 +864,9 @@ def main(argv):
     details = dict(card=smi, torch=torch.__version__,
                    cuda=torch.version.cuda,
                    build_seconds=build_s, kernels=kernels,
-                   fused=dict(ntu=ntu, zju=zju), reference=agree)
+                   fused=dict(ntu=ntu, zju=zju), reference=agree,
+                   training_kernels=train_kernels, training=training,
+                   training_agreement=train_agree)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -448,6 +877,12 @@ def main(argv):
                                   zju_fps_b4=zju["fps"],
                                   ref_median_rel_err=agree[
                                       "card_bf16_vs_cpu_f32"])}))
+    log(json.dumps({"training": dict(
+        card=smi, rcnet_ntu_b24_ms_per_step=training["rcnet"]["ms_per_step"],
+        rcnet_frames_per_s=training["rcnet"]["frames_per_s"],
+        sml_ntu_b12_ms_per_step=training["sml"]["ms_per_step"],
+        sml_frames_per_s=training["sml"]["frames_per_s"],
+        grad_rel_err_vs_cpu=train_agree["worst_grad_rel_err"])}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
-"""Configuration tree of the fused inference path.
+"""Configuration tree of the fused inference path and the training steps.
 
 The port's own copy of the dataclasses and the ZJU / NTU presets of the
-JAX package's configuration, cut to the fields the fused path reads
-(training, evaluation and mesh settings are left out).  All shapes are
-static: frame size, patch size, the radar-point bucket and the SML
-network input are part of the config.
+JAX package's configuration, cut to the fields the fused path and the
+RC-Net / SML training steps read (dataset layout, augmentation,
+evaluation and mesh settings are left out).  All shapes are static:
+frame size, patch size, the radar-point bucket and the SML network
+input are part of the config.
 """
 
 from __future__ import annotations
@@ -84,6 +85,7 @@ class RCNetConfig:
     threshold_decay: float = 0.05
     max_threshold_retries: int = 8
     adaptive_composition: bool = True
+    normalized_image_range: Tuple[float, float] = (0.0, 1.0)
 
     @property
     def encoder_downsample(self) -> int:
@@ -97,12 +99,52 @@ class RCNetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RCNetTrainConfig:
+    """RC-Net training step: batch, optimizer schedule and loss."""
+
+    batch_size: int = 4
+    learning_rates: Tuple[float, ...] = (2e-4,)
+    learning_schedule: Tuple[int, ...] = (100,)     # epoch boundaries
+    points_per_frame: int = 30                      # NTU: 40
+    w_positive_class: float = 2.5
+    max_distance_correspondence: float = 0.5        # metres
+    set_invalid_to_negative_class: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class SMLTrainConfig:
+    """SML training step: batch, optimizer schedule, loss and the GT
+    hygiene ops."""
+
+    batch_size: int = 12
+    learning_rates: Tuple[float, ...] = (1e-4, 5e-5)
+    learning_schedule: Tuple[int, ...] = (20, 200)
+    loss_func: str = "l1"
+    w_lidar_loss: float = 1.5                       # NTU: 1.0
+    w_smoothness: float = 0.2
+    w_edge: float = 0.0
+    w_unsupervised: float = 0.0
+    w_weight_decay: float = 0.0
+    sobel_filter_size: int = 7
+    gt_outlier_removal_kernel_size: int = 3
+    gt_outlier_removal_threshold: float = 1.5
+    gt_dilation_kernel_size: int = -1
+    # Scale-map knot source: 'rcnet_<thr>' feeds the quasi-dense stage-2
+    # depth; 'none' uses the raw radar knots only.
+    rcnet_interp: str = "rcnet_0.1"
+
+
+@dataclasses.dataclass(frozen=True)
 class RidersConfig:
     dataset: DatasetConfig = dataclasses.field(default_factory=DatasetConfig)
     alignment: AlignmentConfig = dataclasses.field(
         default_factory=AlignmentConfig)
     sml: SMLConfig = dataclasses.field(default_factory=SMLConfig)
     rcnet: RCNetConfig = dataclasses.field(default_factory=RCNetConfig)
+    rcnet_train: RCNetTrainConfig = dataclasses.field(
+        default_factory=RCNetTrainConfig)
+    sml_train: SMLTrainConfig = dataclasses.field(
+        default_factory=SMLTrainConfig)
 
     def replace(self, **kw) -> "RidersConfig":
         return dataclasses.replace(self, **kw)
@@ -114,16 +156,24 @@ def zju_config(**overrides) -> RidersConfig:
         dataset=DatasetConfig(name="zju", image_shape=(480, 640)),
         sml=SMLConfig(net_shape=(288, 384)),
         rcnet=RCNetConfig(patch_size=(240, 100), response_threshold=0.1),
+        rcnet_train=RCNetTrainConfig(points_per_frame=30, batch_size=4),
+        sml_train=SMLTrainConfig(w_lidar_loss=1.5, rcnet_interp="rcnet_0.1"),
     )
     return cfg.replace(**overrides) if overrides else cfg
 
 
 def ntu_config(**overrides) -> RidersConfig:
-    """NTU4DRadLM preset: 512x640 frames, 150x50 patches, threshold 0.4."""
+    """NTU4DRadLM preset: 512x640 frames, 150x50 patches, threshold 0.4;
+    RC-Net trains at batch 24 with 40 points, SML on rcnet_0.4 knots."""
     cfg = RidersConfig(
         dataset=DatasetConfig(name="ntu", image_shape=(512, 640),
                               max_points=96),
         sml=SMLConfig(net_shape=(288, 352)),
         rcnet=RCNetConfig(patch_size=(150, 50), response_threshold=0.4),
+        rcnet_train=RCNetTrainConfig(
+            points_per_frame=40, batch_size=24, learning_rates=(2e-4,)),
+        sml_train=SMLTrainConfig(
+            w_lidar_loss=1.0, rcnet_interp="rcnet_0.4",
+            learning_rates=(5e-5, 2e-5), learning_schedule=(10, 80)),
     )
     return cfg.replace(**overrides) if overrides else cfg

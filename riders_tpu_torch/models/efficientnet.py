@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from riders_tpu_torch.models.layers import BatchNorm2d
+
 LITE3_STAGES: Tuple[Tuple[int, int, int, int, int], ...] = (
     (3, 1, 1, 24, 1),
     (3, 2, 6, 32, 3),
@@ -63,9 +65,9 @@ class DepthwiseSeparable(nn.Module):
                  stride: int = 1):
         super().__init__()
         self.conv_dw = SameConv2d(in_ch, in_ch, kernel, stride, groups=in_ch)
-        self.bn1 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(in_ch, eps=BN_EPS)
         self.conv_pw = nn.Conv2d(in_ch, features, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(features, eps=BN_EPS)
         self.residual = stride == 1 and in_ch == features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -82,11 +84,11 @@ class MBConv(nn.Module):
         super().__init__()
         mid = in_ch * expand
         self.conv_pw = nn.Conv2d(in_ch, mid, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(mid, eps=BN_EPS)
         self.conv_dw = SameConv2d(mid, mid, kernel, stride, groups=mid)
-        self.bn2 = nn.BatchNorm2d(mid, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(mid, eps=BN_EPS)
         self.conv_pwl = nn.Conv2d(mid, features, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(features, eps=BN_EPS)
         self.residual = stride == 1 and in_ch == features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +109,7 @@ class EfficientNetLite3(nn.Module):
                  stem_features: int = 32):
         super().__init__()
         self.conv_stem = SameConv2d(in_ch, stem_features, 3, 2)
-        self.bn_stem = nn.BatchNorm2d(stem_features, eps=BN_EPS)
+        self.bn_stem = BatchNorm2d(stem_features, eps=BN_EPS)
         self.taps = tuple(taps)
         self.stage_blocks: List[List[str]] = []
         prev = stem_features

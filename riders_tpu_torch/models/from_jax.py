@@ -11,8 +11,10 @@ dots and renaming the leaf:
 * batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``.
 
 Variables arrive as nested dicts of numpy arrays (``jax.device_get`` of
-the flax variables); nothing here imports JAX.  A leaf the model does not
-have, or a model tensor no leaf fills, raises.
+the flax variables); a gradient tree shaped like `params` maps the same
+way (`torch_state_from_jax({"params": grads})`), so gradients can be
+held against `param.grad` by key.  Nothing here imports JAX.  A leaf the
+model does not have, or a model tensor no leaf fills, raises.
 """
 
 from __future__ import annotations

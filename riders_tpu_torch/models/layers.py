@@ -2,9 +2,10 @@
 
 Semantics follow the JAX package's layers, which follow torch:
 conv padding kernel_size // 2 symmetric, bias-free convs, leaky-relu
-slope 0.2, BatchNorm eps 1e-5, and UpConv = nearest resize to the target
-shape + conv.  Module and attribute names mirror the flax parameter tree
-so `models.from_jax` can load JAX variables by path.
+slope 0.2, BatchNorm eps 1e-5 with flax's running-statistics update
+(`BatchNorm2d`), and UpConv = nearest resize to the target shape + conv.
+Module and attribute names mirror the flax parameter tree so
+`models.from_jax` can load JAX variables by path.
 """
 
 from __future__ import annotations
@@ -15,10 +16,41 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from riders_tpu_torch.ops.kernels.stem import KERNEL_SIZE, stem_conv_pool
+from riders_tpu_torch.ops.kernels.stem import (KERNEL_SIZE, NEGATIVE_SLOPE,
+                                               stem_conv_pool)
 from riders_tpu_torch.ops.resize import resize_nchw
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1           # flax momentum 0.9: ra = 0.9 ra + 0.1 batch
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's semantics, used by every BN of RC-Net and SML.
+
+    In training it normalises with the batch's biased variance, as torch
+    does, and updates the running statistics as flax does:
+    ra = 0.9 ra + 0.1 batch, with the *biased* batch variance (torch's
+    own BatchNorm2d stores the unbiased one).  In eval it uses the
+    running statistics.  The eps is the module's (1e-5 for RC-Net and
+    the SML stem, 1e-3 for EfficientNet)."""
+
+    def __init__(self, num_features: int, eps: float = BN_EPS):
+        super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(
+                self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(
+                self.running_var.dtype), alpha=m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 def activation_fn(name: str) -> Optional[Callable]:
@@ -45,8 +77,7 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, features, kernel_size, stride,
                               kernel_size // 2, bias=False)
-        self.bn = (nn.BatchNorm2d(features, eps=BN_EPS)
-                   if use_batch_norm else None)
+        self.bn = BatchNorm2d(features) if use_batch_norm else None
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -58,10 +89,15 @@ class ConvBlock(nn.Module):
 
 class FusedStemConv(nn.Module):
     """7x7 stride-2 conv -> BN -> leaky-relu(0.2), plus MaxPool2d(3, 2, 1) of
-    its output, through the fused stem kernel (the plain version on CPU).
+    its output.
 
-    Takes the NHWC image and returns (conv map, pooled map) as NCHW
-    views of NHWC memory, i.e. channels_last tensors."""
+    In eval on a bf16 image it runs the fused stem kernel with the BN
+    running statistics folded in (its plain version on the CPU).  In
+    training, and in eval on an f32 image, it runs the library conv, the
+    BN (over the batch in training), the leaky relu and the max pool, as
+    the JAX stem does off its Pallas path.  Takes the NHWC image and
+    returns (conv map, pooled map) as NCHW tensors, channels_last on the
+    kernel path."""
 
     def __init__(self, in_ch: int = 3, features: int = 32,
                  activation_name: str = "leaky_relu"):
@@ -71,10 +107,14 @@ class FusedStemConv(nn.Module):
                              f"stem applies leaky-relu(0.2) only")
         self.conv = nn.Conv2d(in_ch, features, KERNEL_SIZE, 2,
                               KERNEL_SIZE // 2, bias=False)
-        self.bn = nn.BatchNorm2d(features, eps=BN_EPS)
+        self.bn = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.training or x.dtype != torch.bfloat16:
+            h = F.leaky_relu(self.bn(self.conv(x.permute(0, 3, 1, 2))),
+                             NEGATIVE_SLOPE)
+            return h, F.max_pool2d(h, 3, 2, 1)
         bn = self.bn
         g = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
         b = bn.bias.float() - bn.running_mean.float() * g
@@ -190,8 +230,9 @@ def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
 
 def place(module: nn.Module, device: torch.device,
           dtype: torch.dtype) -> nn.Module:
-    """Move a model to its device and dtype in eval mode; on the card its
-    4-D weights (and so its activations) use channels_last memory."""
+    """Move a model to its device and dtype in eval mode (a trainer puts
+    it in train mode); on the card its 4-D weights (and so its
+    activations) use channels_last memory."""
     module = module.to(device=device, dtype=dtype).eval()
     if device.type == "cuda":
         module = module.to(memory_format=torch.channels_last)

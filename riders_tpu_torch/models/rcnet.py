@@ -8,6 +8,11 @@
 * ``RCNet``: encode once per frame, RoI-pool every scale around each
   point (one kernel launch per scale), LoFTR self / cross attention
   between point and patch tokens, concat fusion, decode the B*K patches.
+
+In train mode the stem runs the library conv with batch BatchNorm, and
+the RoI pool carries its backward kernel.  Masked bucket slots are
+decoded like real ones, so they enter the BatchNorm batch statistics, as
+in the JAX model: the mask only sets their logits to -1e4.
 """
 
 from __future__ import annotations

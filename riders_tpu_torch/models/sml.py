@@ -22,7 +22,7 @@ from riders_tpu_torch.core.config import SMLConfig
 from riders_tpu_torch.core.device import resolve_device
 from riders_tpu_torch.models.efficientnet import (EfficientNetLite3,
                                                   LITE3_STAGES, LITE3_TAPS)
-from riders_tpu_torch.models.layers import place
+from riders_tpu_torch.models.layers import BatchNorm2d, place
 from riders_tpu_torch.ops.resize import resize_nchw
 
 
@@ -102,7 +102,7 @@ class ScaleMapLearner(nn.Module):
         f = cfg.features
         widths = (f, 2 * f, 4 * f, 8 * f) if cfg.expand else (f, f, f, f)
         self.first_conv = _conv3(cfg.in_channels, 3)
-        self.first_bn = nn.BatchNorm2d(3, eps=1e-5)
+        self.first_bn = BatchNorm2d(3)
         self.pretrained = EfficientNetLite3(3, backbone_stages,
                                             backbone_taps, backbone_stem)
         taps = [backbone_stages[t][3] for t in backbone_taps]

@@ -1,9 +1,10 @@
 """Fixed-size RoI max pooling and patch composition, in plain PyTorch.
 
-These are the plain versions of two of the fused path's CUDA kernels
-(ops/kernels/roi_pool.py, ops/kernels/compose.py): the kernel wrappers
-use them for tensors on the CPU, and the card holds the kernels against
-them.  Both are batched over frames (B) and radar points (K).
+These are the plain versions of the port's RoI pool (forward and
+backward) and composition CUDA kernels (ops/kernels/roi_pool.py,
+ops/kernels/compose.py): the kernel wrappers use them for tensors on the
+CPU, and the card holds the kernels against them.  All are batched over
+frames (B) and radar points (K).
 
 RoI pooling follows torchvision's `roi_pool` on the JAX package's terms:
 box edges round half away from zero, floor(x * s + 0.5); the roi size is
@@ -74,6 +75,43 @@ def roi_max_pool(feature: torch.Tensor, boxes: torch.Tensor, scale: float,
             v = torch.where(ok[..., None], feature[bi, rows, cols], neg)
             out = v if out is None else torch.maximum(out, v)
     return torch.where(out == neg, torch.zeros_like(out), out)
+
+
+def roi_max_pool_backward(feature: torch.Tensor, boxes: torch.Tensor,
+                          pooled: torch.Tensor, grad: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """d(feature) of `roi_max_pool`, applied to the cotangent `grad`.
+
+    feature (B, H, W, C); boxes (B, K, 4); pooled, grad (B, K, out_h,
+    out_w, C), `pooled` being the forward's output on these inputs.
+    Every bin sends its cotangent to every element of its window that
+    equals the bin's max (tied elements each receive it in full, unlike
+    autograd of a max chain, which splits it); empty bins send nothing;
+    overlapping bins and boxes sum.  Returns feature's shape in f32 (f64
+    for an f64 `grad`, which the card's kernel checks use as reference).
+    """
+    B, H, W, C = feature.shape
+    out_size = tuple(pooled.shape[2:4])
+    lo_h, hi_h, lo_w, hi_w = _roi_bounds(boxes, scale, H, W, out_size)
+    th = int((hi_h - lo_h).max().clamp(min=1))
+    tw = int((hi_w - lo_w).max().clamp(min=1))
+    bi = torch.arange(B, device=feature.device)[:, None, None, None]
+    grad = grad.to(torch.promote_types(grad.dtype, torch.float32))
+    dfeat = torch.zeros((B * H * W, C), dtype=grad.dtype,
+                        device=feature.device)
+    for i in range(th):
+        rows = lo_h + i
+        ok_r = rows < hi_h
+        rows = rows.clamp(max=H - 1)[:, :, :, None]
+        for j in range(tw):
+            cols = lo_w + j
+            ok = ok_r[:, :, :, None] & (cols < hi_w)[:, :, None, :]
+            cols = cols.clamp(max=W - 1)[:, :, None, :]
+            hit = ok[..., None] & (feature[bi, rows, cols] == pooled)
+            flat = ((bi * H + rows) * W + cols).reshape(-1)
+            dfeat.index_add_(0, flat, torch.where(
+                hit, grad, torch.zeros_like(grad)).reshape(-1, C))
+    return dfeat.reshape(B, H, W, C)
 
 
 def roi_pool_pyramid(latent: torch.Tensor, skips: Sequence[torch.Tensor],

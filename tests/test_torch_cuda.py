@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small and awkward shapes (ragged tiles, boxes past the map, fractional
-and half-pixel coordinates, long point lists).  `chip_smoke.py` covers
-the fused path's own shapes.  These tests need a card: the `dev`
-fixture skips them without one.  Run them on the card with
+and half-pixel coordinates, long point lists, tied maxima).
+`chip_smoke.py` covers the fused and training paths' own shapes.  These
+tests need a card: the `dev` fixture skips them without one.  Run them
+on the card with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -47,29 +48,94 @@ def test_stem_kernel_matches_plain(dev, hw):
         assert bool(((a - b).abs() <= limit).all())
 
 
-@pytest.mark.parametrize("C,out_size,scale", [
-    (3, (7, 3), 1 / 32), (32, (37, 12), 0.25), (128, (18, 6), 0.125),
-    (8, (60, 25), 0.5)])
-def test_roi_pool_kernel_matches_plain(dev, C, out_size, scale):
-    """Bitwise: fractional, negative and out-of-map boxes included."""
-    g = torch.Generator(device=dev).manual_seed(1)
-    B, K, H, W = 2, 9, 23, 31
-    feat = torch.randn((B, H, W, C), generator=g, device=dev).to(
-        torch.bfloat16)
+def _boxes(g, dev, B, K, H, W, scale, out_size):
+    """Fractional boxes of the pool's patch size around and past the map:
+    box 0 at the origin, box 1 entirely outside, box 2 on a half pixel."""
     ph, pw = out_size[0] / scale, out_size[1] / scale
     x1 = (torch.rand((B, K), generator=g, device=dev) * 1.4 - 0.2) * W / scale
     y1 = (torch.rand((B, K), generator=g, device=dev) * 1.4 - 0.2) * H / scale
     x1[:, 0], y1[:, 0] = 0.0, 0.0
-    x1[:, 1], y1[:, 1] = W / scale + 5, H / scale + 5   # entirely outside
-    x1[:, 2] = torch.floor(x1[:, 2]) + 0.5              # half-pixel edge
-    boxes = torch.stack([x1, y1, x1 + pw, y1 + ph], -1).contiguous()
-    before = LAUNCHES["roi_pool"]
+    x1[:, 1], y1[:, 1] = W / scale + 5, H / scale + 5
+    x1[:, 2] = torch.floor(x1[:, 2]) + 0.5
+    return torch.stack([x1, y1, x1 + pw, y1 + ph], -1).contiguous()
+
+
+@pytest.mark.parametrize("dtype,counter", [
+    (torch.bfloat16, "roi_pool"), (torch.float32, "roi_pool_f32")])
+@pytest.mark.parametrize("C,out_size,scale", [
+    (3, (7, 3), 1 / 32), (32, (37, 12), 0.25), (128, (18, 6), 0.125),
+    (8, (60, 25), 0.5)])
+def test_roi_pool_kernel_matches_plain(dev, C, out_size, scale, dtype,
+                                       counter):
+    """Bitwise, bf16 (inference) and f32 (the training forward):
+    fractional, negative and out-of-map boxes included."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, K, H, W = 2, 9, 23, 31
+    feat = torch.randn((B, H, W, C), generator=g, device=dev).to(dtype)
+    boxes = _boxes(g, dev, B, K, H, W, scale, out_size)
+    before = LAUNCHES[counter]
     got = roi_pool.roi_max_pool(feat, boxes, scale, out_size)
-    assert LAUNCHES["roi_pool"] == before + 1
+    assert LAUNCHES[counter] == before + 1
     want = patches.roi_max_pool(feat, boxes, scale, out_size)
     assert got.shape == want.shape == (B, K) + out_size + (C,)
+    assert got.dtype == dtype
     assert torch.equal(got, want)
     assert not bool(got[:, 1].any())          # empty bins are 0
+
+
+@pytest.mark.parametrize("C,out_size,scale,K,ties", [
+    (3, (7, 3), 1 / 32, 9, False), (32, (37, 12), 0.25, 9, False),
+    (128, (18, 6), 0.125, 9, True), (8, (60, 25), 0.5, 9, True),
+    (5, (9, 4), 0.25, 300, False), (16, (12, 5), 0.5, 300, True)])
+def test_roi_backward_kernel_matches_plain(dev, C, out_size, scale, K,
+                                           ties):
+    """Against the plain backward in f64: the kernel sums each element's
+    contributions in f64 and rounds once, so it is within 1e-6 |p| + 1e-6
+    of the plain sum p (half an f32 ulp, in fact).  Two launches are
+    bitwise equal.  Integer features tie inside bins, where every tied
+    element gets the full cotangent; ragged widths, K=300 and boxes past
+    the map included."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, H, W = 2, 23, 31
+    feat = torch.randn((B, H, W, C), generator=g, device=dev)
+    if ties:
+        feat = torch.round(2 * feat)
+    boxes = _boxes(g, dev, B, K, H, W, scale, out_size)
+    pooled = roi_pool.roi_max_pool(feat, boxes, scale, out_size)
+    grad = torch.randn(pooled.shape, generator=g, device=dev)
+    before = LAUNCHES["roi_pool_bwd"]
+    got = roi_pool.roi_max_pool_backward(feat, boxes, pooled, grad, scale)
+    again = roi_pool.roi_max_pool_backward(feat, boxes, pooled, grad, scale)
+    assert LAUNCHES["roi_pool_bwd"] == before + 2
+    assert got.shape == feat.shape and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    want = patches.roi_max_pool_backward(feat, boxes, pooled, grad.double(),
+                                         scale)
+    assert bool(((got.double() - want).abs()
+                 <= 1e-6 * want.abs() + 1e-6).all())
+
+
+def test_roi_pool_autograd_on_card(dev):
+    """The pyramid under autograd launches the backward kernel once per
+    scale and gives the plain backward's gradient."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, K, patch = 2, 5, (64, 32)
+    maps = [torch.randn((B, 40 // 2 ** i, 28 // 2 ** i, 8), generator=g,
+                        device=dev, requires_grad=True) for i in range(5)]
+    boxes = _boxes(g, dev, B, K, 80, 56, 1.0, patch)
+    before = LAUNCHES["roi_pool_bwd"]
+    lat, skips = roi_pool.roi_pool_pyramid(maps[-1], maps[:-1], boxes, patch)
+    outs = [lat] + skips
+    ws = [torch.randn(o.shape, generator=g, device=dev) for o in outs]
+    sum((o * w).sum() for o, w in zip(outs, ws)).backward()
+    assert LAUNCHES["roi_pool_bwd"] == before + 5
+    for i, (o, w) in enumerate(zip(outs, ws)):
+        m = maps[-1] if i == 0 else maps[i - 1]
+        s = 1 / 32 if i == 0 else 1 / 2 ** i
+        want = patches.roi_max_pool_backward(m.detach(), boxes, o.detach(),
+                                             w.double(), s)
+        assert bool(((m.grad.double() - want).abs()
+                     <= 1e-6 * want.abs() + 1e-6).all())
 
 
 @pytest.mark.parametrize("K", [1, 7, 300])
@@ -111,6 +177,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     feat = torch.rand((1, 8, 8, 4), device=dev).to(torch.bfloat16)
     with pytest.raises(ValueError):
         roi_pool.roi_max_pool(feat, torch.zeros((1, 2, 4)), 0.5, (2, 2))
+    with pytest.raises(TypeError):
+        roi_pool.roi_max_pool(feat.half(), torch.zeros((1, 2, 4),
+                              device=dev), 0.5, (2, 2))
+    boxes = torch.zeros((1, 2, 4), device=dev)
+    pooled = torch.zeros((1, 2, 2, 2, 4), device=dev)
+    with pytest.raises(TypeError):                          # bf16 backward
+        roi_pool.roi_max_pool_backward(feat, boxes, pooled.bfloat16(),
+                                       pooled.bfloat16(), 0.5)
+    with pytest.raises(ValueError):                         # grad shape
+        roi_pool.roi_max_pool_backward(feat.float(), boxes, pooled,
+                                       pooled[:, :1].contiguous(), 0.5)
     resp = torch.rand((1, 2, 4, 4), device=dev)
     with pytest.raises(TypeError):
         compose.compose_patches(resp.double(), torch.zeros((1, 2, 3),
