@@ -17,6 +17,15 @@ Phases, each fatal on failure:
      geometry at B=4 the same way;
   4. agreement of the card's bf16 path with the port's f32 CPU path on a
      small input with the same weights, within the CPU's own bf16 spread;
+  4b. the lane-major decoder and the 4D RoI pyramid: (a) the lane conv
+     (B7) and upconv (B8) kernels against their plain versions at every
+     call shape of one decode_full, NTU (N = 768) and ZJU (N = 512), with
+     CUDA-event times of both and of cuDNN; (b) the decoder's inputs
+     captured from a fused B=16 call of each preset, decoded by the
+     literal decoder and by lane_mode "full" and "tail" copies (within 5%
+     of the literal's max, launch counters reset just before each); (c)
+     the 4D pyramid (B6) on that call's encoder maps, skip1 as a NEG-
+     padded canvas, bitwise equal to the B2 pyramid and the plain one;
   5. training kernels at the NTU (B=24, K=40) and ZJU (B=4, K=30)
      training shapes, f32: the RoI pool's forward (bitwise) and its
      backward (within 1e-6 relative of the plain version, two launches
@@ -31,10 +40,12 @@ Phases, each fatal on failure:
      CPU step: loss to rtol 1e-4, each gradient within 1e-3 of its max
      or within 3x the CPU's own spread under a one-ulp input nudge.
 Report lines: the card's name and power limit, one {"kernels": [...]}
-line, one fused line, one training line; the last line is
+line, one fused line, one lane_decoder line, one training line; the last
+line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
+import copy
 import json
 import statistics
 import subprocess
@@ -46,6 +57,9 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor rate
 STEM_TOL = (2.0 ** -7, 1e-4)   # (rtol, atol): one bf16 rounding step
+LANE_TOL = (2.0 ** -7, 1e-3)   # (rtol, atol relative to max|p|): ditto
+LANE_DECODE_BAR = 0.05         # max|lane - literal| / max|literal|
+CANVAS_PAD = (96, 48)          # rows, columns of NEG past skip1's extent
 GEOMETRIES = {"ntu": dict(patch=(150, 50), bucket=48, real=40),
               "zju": dict(patch=(240, 100), bucket=32, real=30)}
 FRAME = (512, 640)             # the benchmark resolution (H, W)
@@ -332,7 +346,7 @@ def drive(preset, B, seed=0):
         depth_min=float(first.min()), depth_max=float(first.max()),
         depth_median=float(first.median()),
         positive_share=float((first > 0).float().mean()))
-    return record, fn, batches[1]
+    return record, fn, batches[1], rcnet
 
 
 def reference_agreement(seed=3):
@@ -370,6 +384,265 @@ def reference_agreement(seed=3):
             <= 1.5 * res["cpu_bf16_vs_cpu_f32"] + 0.005):
         raise AssertionError(f"bf16 card path vs f32 CPU path: {res}")
     return res
+
+
+def lane_call_shapes(cfg, n):
+    """Every B7 / B8 call of one decode_full at the preset's widths and a
+    patch batch n, in order: (kernel, (n, h, w) of its input, input
+    widths, output width, BN + leaky or linear)."""
+    rc = cfg.rcnet
+    ph, pw = rc.patch_size
+    enc, filters = rc.n_filters_encoder_image, rc.n_filters_decoder
+    skips = [(ph >> (i + 1), pw >> (i + 1), enc[i])
+             for i in range(len(enc) - 1)]
+    (h, w), c = rc.latent_shape, enc[-1] + rc.n_neurons_encoder_depth[-1]
+    calls = []
+    for i, f in enumerate(filters[:-1]):
+        sh, sw, sc = skips[len(skips) - 1 - i]
+        if (sh, sw) == (2 * h, 2 * w):
+            calls.append(("lane_upconv2x", (n, h, w), (c,), f, True))
+        else:
+            calls.append(("lane_conv3x3", (n, sh, sw), (c,), f, True))
+        calls.append(("lane_conv3x3", (n, sh, sw), (f, sc), f, True))
+        h, w, c = sh, sw, f
+    f0 = 4 * filters[-1]
+    return calls + [("lane_conv3x3", (n, h, w), (c,), f0, True),
+                    ("lane_conv3x3", (n, h, w), (f0,), f0, True),
+                    ("lane_conv3x3", (n, h, w), (f0,), 4, False)]
+
+
+def check_lane_kernels(preset, B=16):
+    """B7 and B8 against their plain versions at every call shape of one
+    decode_full of the preset at batch B, with CUDA-event times of the
+    kernel, the plain version and cuDNN (bf16 conv of the concatenated
+    inputs, or of the nearest x2 map, then BN and leaky).  Returns {kernel
+    name: record} summed over one decode's calls, per-call records in
+    `calls`."""
+    import torch
+    import torch.nn.functional as F
+    from riders_tpu_torch.ops.kernels import lane_decoder as LD
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    cfg = train_config(preset)
+    calls = []
+    for kind, (n, h, w), cis, co, act in lane_call_shapes(
+            cfg, B * GEOMETRIES[preset]["bucket"]):
+        xs = [torch.randn((n, h, w, c), generator=g, device=dev).to(
+            torch.bfloat16) for c in cis]
+        k = torch.randn((3, 3, sum(cis), co), generator=g, device=dev) * (
+            2.0 / (9 * sum(cis))) ** 0.5
+        scale, bias = ((0.5 + torch.rand(co, generator=g, device=dev),
+                        0.1 * torch.randn(co, generator=g, device=dev))
+                       if act else (None, None))
+        slope = 0.2 if act else None
+        kc = k.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        xc = [x.permute(0, 3, 1, 2) for x in xs]
+        sb = (None if scale is None else
+              (scale.to(torch.bfloat16)[:, None, None],
+               bias.to(torch.bfloat16)[:, None, None]))
+        if kind == "lane_upconv2x":
+            wts = LD.pack_upconv(k)
+            run = lambda: LD.lane_upconv2x(xs[0], wts, scale, bias, slope)
+            plain = lambda: LD.lane_upconv2x_plain(xs[0], wts, scale, bias,
+                                                   slope)
+            lib_in = lambda: F.interpolate(xc[0], scale_factor=2,
+                                           mode="nearest")
+            # four phases, each 2x2 nonzero coarse taps
+            flops = 2.0 * n * h * w * 4 * co * 4 * cis[0]
+            out_elems = n * 4 * h * w * co
+        else:
+            wts = [LD.pack_conv(k[:, :, sum(cis[:i]):sum(cis[:i + 1])])
+                   for i in range(len(cis))]
+            run = lambda: LD.lane_conv3x3(xs, wts, scale, bias, slope)
+            plain = lambda: LD.lane_conv3x3_plain(xs, wts, scale, bias,
+                                                  slope)
+            lib_in = lambda: xc[0] if len(xc) == 1 else torch.cat(xc, 1)
+            flops = 2.0 * n * h * w * co * 9 * sum(cis)
+            out_elems = n * h * w * co
+
+        def library():
+            y = F.conv2d(lib_in(), kc, padding=1)
+            if sb is not None:
+                y = F.leaky_relu(y * sb[0] + sb[1], 0.2)
+            return y
+
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"{kind} {preset}: shape {got.shape} vs "
+                                 f"{want.shape}")
+        a, p = got.float(), want.float()
+        diff = (a - p).abs()
+        if not bool((diff <= LANE_TOL[0] * p.abs()
+                     + LANE_TOL[1] * p.abs().max()).all()):
+            raise AssertionError(f"{kind} {preset} {(n, h, w)} {cis}->{co}: "
+                                 f"max err {float(diff.max())} beyond one "
+                                 f"bf16 step")
+        nbytes = 2 * (sum(x.numel() for x in xs) + out_elems + k.numel()) \
+            + (8 * co if act else 0)
+        bnd, by = bound_ms(nbytes, flops)
+        calls.append(dict(
+            kernel=kind, input=[n, h, w], widths=list(cis), out=co,
+            max_abs_err=float(diff.max()), ms=time_ms(run, n=10, warmup=2),
+            plain_ms=time_ms(plain, n=3, warmup=1),
+            library_ms=time_ms(library, n=10, warmup=2), bound_ms=bnd,
+            bound_by=by, bytes=nbytes, flops=flops,
+            t_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            t_ops_ms=flops / BF16_FLOP_PER_S * 1e3))
+        del xs, xc, got, want, a, p, diff
+    out = {}
+    for kind in ("lane_conv3x3", "lane_upconv2x"):
+        mine = [c for c in calls if c["kernel"] == kind]
+        total = lambda key: sum(c[key] for c in mine)
+        out[kind] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            tolerance="|k-p| <= 2^-7 |p| + 1e-3 max|p|",
+            ms=total("ms"), plain_ms=total("plain_ms"),
+            library_ms=total("library_ms"), bound_ms=total("bound_ms"),
+            bound_by=("operations" if total("t_ops_ms") >= total("t_bytes_ms")
+                      else "bytes"),
+            calls_per_decode=len(mine), calls=mine)
+    return out
+
+
+def capture_path_inputs(fn, rcnet, batch):
+    """One fused call with hooks: the decoder's inputs (x, skips), and the
+    encoder's maps as NHWC (skips shallow to deep, then the latent)."""
+    got = {}
+
+    def decoder_inputs(module, args):
+        got["decoder"] = (args[0].clone(), [s.clone() for s in args[1]])
+
+    def encoder_maps(module, args, out):
+        latent, skips = out
+        got["maps"] = [t.permute(0, 2, 3, 1).contiguous()
+                       for t in list(skips) + [latent]]
+
+    hooks = [rcnet.decoder.register_forward_pre_hook(decoder_inputs),
+             rcnet.encoder_image.register_forward_hook(encoder_maps)]
+    try:
+        fn(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def drive_lane_decoder(preset, x, skips, literal):
+    """The captured decoder inputs through the literal decoder and its
+    lane_mode "full" and "tail" copies (same weights): each lane output
+    within LANE_DECODE_BAR of the literal's max, the path's kernels
+    launched (counters reset just before each decode), ms per decode."""
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+
+    need = {"full": ("lane_conv3x3", "lane_upconv2x"),
+            "tail": ("lane_conv3x3",)}
+    rec = dict(preset=preset, patches=int(x.shape[0]))
+    lanes = {mode: copy.deepcopy(literal) for mode in need}
+    with torch.inference_mode():
+        want = literal(x, skips).float()
+        rec["literal_ms"] = time_ms(lambda: literal(x, skips), n=10,
+                                    warmup=2)
+        for mode, dec in lanes.items():
+            dec.lane_mode = mode
+            dec(x, skips)                                  # packs weights
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            out = dec(x, skips)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            for k in need[mode]:
+                if launches.get(k, 0) <= 0:
+                    raise AssertionError(f"{preset} {mode}: kernel {k} was "
+                                         f"not launched ({launches})")
+            if out.shape != want.shape or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{preset} {mode}: output {out.shape} "
+                                     f"vs {want.shape}, or not finite")
+            rel = float((out.float() - want).abs().max()
+                        / want.abs().max())
+            if rel > LANE_DECODE_BAR:
+                raise AssertionError(f"{preset} {mode}: max |lane - literal|"
+                                     f" / max|literal| = {rel}")
+            rec[mode] = dict(launches=launches, rel_err=rel, ms=time_ms(
+                lambda: dec(x, skips), n=10, warmup=2))
+    return rec
+
+
+def check_roi_4d(preset, maps, boxes, patch):
+    """B6: the 4D pyramid on the fused call's encoder maps, skip1 as a
+    NEG-padded canvas read over its true extent, bitwise equal to the B2
+    pyramid and to the plain one; launches counted on one pyramid."""
+    import torch
+    from riders_tpu_torch.ops import patches
+    from riders_tpu_torch.ops.kernels import LAUNCHES, roi_pool
+
+    s1 = maps[0]
+    B, H, W, C = s1.shape
+    lat, sks = maps[-1], maps[:-1]
+    with torch.inference_mode():
+        canvas = torch.full((B, H + CANVAS_PAD[0], W + CANVAS_PAD[1], C),
+                            roi_pool.NEG, dtype=s1.dtype, device=s1.device)
+        canvas[:, :H, :W] = s1
+        run = lambda: roi_pool.roi_pool_pyramid_4d(
+            lat, [canvas] + sks[1:], boxes, patch, (H, W))
+        plain = lambda: patches.roi_pool_pyramid(
+            lat, [canvas[:, :H, :W]] + sks[1:], boxes, patch)
+        b2 = lambda: roi_pool.roi_pool_pyramid(lat, sks, boxes, patch)
+        LAUNCHES.clear()
+        k_lat, k_sk = run()
+        torch.cuda.synchronize()
+        launches = LAUNCHES.get("roi_pool_4d", 0)
+        if launches <= 0:
+            raise AssertionError(f"roi_pool_4d {preset}: not launched")
+        on_map = roi_pool.roi_pool_pyramid_4d(lat, sks, boxes, patch)
+        err = 0.0
+        for want in (plain(), b2(), on_map):
+            for a, b in zip([k_lat] + k_sk, [want[0]] + want[1]):
+                err = max(err, float((a.float() - b.float()).abs().max()))
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"roi_pool_4d {preset}: not bitwise"
+                                         f" equal (max err {err})")
+        nbytes = (roi_read_bytes(maps, boxes, patch) + 4 * boxes.numel()
+                  + sum(2 * o.numel() for o in [k_lat] + k_sk))
+        bnd, by = bound_ms(nbytes)
+        return dict(max_abs_err=err, tolerance="bitwise", ms=time_ms(run),
+                    plain_ms=time_ms(plain, n=5, warmup=1), library_ms=None,
+                    b2_ms=time_ms(b2), bound_ms=bnd, bound_by=by,
+                    bytes=nbytes, launches_per_call=launches,
+                    canvas=list(canvas.shape),
+                    maps=[list(m.shape) for m in maps])
+
+
+def lane_phase(runs):
+    """Phase 4b for each preset's (fused fn, rcnet): the kernels at the
+    decode's shapes, then the decoders and B6 on a captured B=16 call."""
+    import torch
+    from riders_tpu_torch.pipelines.rcnet_inference import (
+        shift_points_and_boxes)
+
+    kernels, decoders = {}, {}
+    for preset, (fn, rcnet) in runs.items():
+        geo = GEOMETRIES[preset]
+        kernels[preset] = check_lane_kernels(preset)
+        batch = make_batch(40, 16, geo["bucket"], geo["real"], FRAME, "cuda")
+        cap = capture_path_inputs(fn, rcnet, batch)
+        decoders[preset] = drive_lane_decoder(preset, *cap["decoder"],
+                                              rcnet.decoder)
+        full = decoders[preset]["full"]["launches"]
+        for kind, rec in kernels[preset].items():
+            if full.get(kind, 0) != rec["calls_per_decode"]:
+                raise AssertionError(f"{preset}: decode_full launched {kind} "
+                                     f"{full.get(kind, 0)} times, the shape "
+                                     f"list has {rec['calls_per_decode']}")
+        _, boxes = shift_points_and_boxes(batch["radar_points"], geo["patch"])
+        kernels[preset]["roi_pool_4d"] = check_roi_4d(
+            preset, cap["maps"], boxes.contiguous(), geo["patch"])
+        del cap
+        torch.cuda.empty_cache()
+    return kernels, decoders
 
 
 def train_config(preset, **overrides):
@@ -808,12 +1081,23 @@ def main(argv):
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     LAUNCHES.clear()
 
-    ntu, ntu_fn, ntu_batch = drive("ntu", 16)
+    ntu, ntu_fn, ntu_batch, ntu_rcnet = drive("ntu", 16)
     log(f"fused ntu: {json.dumps(ntu)}")
-    zju, _, _ = drive("zju", 4)
+    zju, zju_fn, _, zju_rcnet = drive("zju", 4)
     log(f"fused zju: {json.dumps(zju)}")
     agree = reference_agreement()
     log(f"reference agreement: {json.dumps(agree)}")
+
+    lane_kernels, lane = lane_phase({"ntu": (ntu_fn, ntu_rcnet),
+                                     "zju": (zju_fn, zju_rcnet)})
+    for g, recs in lane_kernels.items():
+        for name, r in recs.items():
+            log(f"kernel {name} [{g}]: max_abs_err {r['max_abs_err']} "
+                f"({r['tolerance']}) kernel {r['ms']:.4f} ms plain "
+                f"{r['plain_ms']:.4f} ms library {r['library_ms']} bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"lane decoder [{g}]: {json.dumps(lane[g])}")
+    del zju_fn, zju_rcnet
 
     train_kernels = {p: check_training_kernels(p) for p in GEOMETRIES}
     for p, recs in train_kernels.items():
@@ -834,17 +1118,28 @@ def main(argv):
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
                "compose": "riders_tpu_torch/csrc/compose.cu",
                "roi_pool_f32": "riders_tpu_torch/csrc/roi_pool.cu",
-               "roi_pool_bwd": "riders_tpu_torch/csrc/roi_pool.cu"}
+               "roi_pool_bwd": "riders_tpu_torch/csrc/roi_pool.cu",
+               "lane_conv3x3": "riders_tpu_torch/csrc/lane_decoder.cu",
+               "lane_upconv2x": "riders_tpu_torch/csrc/lane_decoder.cu",
+               "roi_pool_4d": "riders_tpu_torch/csrc/roi_pool.cu"}
     replaces = {"stem": "riders_tpu/ops/pallas/stem.py:95",
                 "roi_pool": "riders_tpu/ops/pallas/roi_pool.py:138",
                 "compose": "riders_tpu/ops/pallas/compose.py:35",
                 "roi_pool_f32": "riders_tpu/ops/pallas/roi_pool.py:138",
-                "roi_pool_bwd": "riders_tpu/ops/pallas/roi_pool.py:742"}
+                "roi_pool_bwd": "riders_tpu/ops/pallas/roi_pool.py:742",
+                "lane_conv3x3": "riders_tpu/ops/pallas/lane_decoder.py:312",
+                "lane_upconv2x": "riders_tpu/ops/pallas/lane_decoder.py:461",
+                "roi_pool_4d": "riders_tpu/ops/pallas/roi_pool.py:547"}
     # inference kernels: launches of the fused NTU run; training kernels:
-    # launches of the three RC-Net training steps
+    # launches of the three RC-Net training steps; lane kernels: launches
+    # of the NTU decode_full run; B6: launches of one NTU 4D pyramid
+    lane_launches = dict(lane["ntu"]["full"]["launches"], roi_pool_4d=
+                         lane_kernels["ntu"]["roi_pool_4d"][
+                             "launches_per_call"])
     lines = []
     for recs, launches in ((kernels, ntu["launches"]),
-                           (train_kernels, training["rcnet"]["launches"])):
+                           (train_kernels, training["rcnet"]["launches"]),
+                           (lane_kernels, lane_launches)):
         for name in recs["ntu"]:
             r = recs["ntu"][name]
             lines.append(dict(
@@ -865,6 +1160,7 @@ def main(argv):
                    cuda=torch.version.cuda,
                    build_seconds=build_s, kernels=kernels,
                    fused=dict(ntu=ntu, zju=zju), reference=agree,
+                   lane_kernels=lane_kernels, lane_decoder=lane,
                    training_kernels=train_kernels, training=training,
                    training_agreement=train_agree)
     out_dir = HERE / "chiprun_out"
@@ -877,6 +1173,12 @@ def main(argv):
                                   zju_fps_b4=zju["fps"],
                                   ref_median_rel_err=agree[
                                       "card_bf16_vs_cpu_f32"])}))
+    log(json.dumps({"lane_decoder": dict(card=smi, **{
+        g: dict(patches=r["patches"], literal_ms=r["literal_ms"],
+                full_ms=r["full"]["ms"], tail_ms=r["tail"]["ms"],
+                full_rel_err=r["full"]["rel_err"],
+                tail_rel_err=r["tail"]["rel_err"])
+        for g, r in lane.items()})}))
     log(json.dumps({"training": dict(
         card=smi, rcnet_ntu_b24_ms_per_step=training["rcnet"]["ms_per_step"],
         rcnet_frames_per_s=training["rcnet"]["frames_per_s"],

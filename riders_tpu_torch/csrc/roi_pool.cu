@@ -6,7 +6,11 @@
 // (every scale of roi_pool_pyramid_pallas) and roi_max_pool_pallas_foldw
 // (the stride-2 skip read from the stem's W-folded canvas).  The port's
 // stem writes a plain NHWC map, so this one kernel serves every scale.
-// bf16 serves inference, f32 the training forward.
+// bf16 serves inference, f32 the training forward.  Given a canvas's
+// pitches apart from its true extent, it also replaces
+// roi_pool.py:roi_max_pool_pallas4d (B6, with true_hw: a _NEG-padded
+// canvas read in place, its padding never read); the 4D kernel's C % 128
+// routing was a Mosaic DMA rule, and this kernel serves every C.
 //
 // Forward bound on the H100: pure data movement.  At the NTU bench shape
 // (B=16, K=48) the pyramid writes ~163 MB of pooled patches and reads the
@@ -75,8 +79,8 @@ template <typename T>
 __global__ void roi_max_pool_kernel(const T* __restrict__ feat,
                                     const float* __restrict__ boxes,
                                     T* __restrict__ out, int H, int W, int C,
-                                    int K, int out_h, int out_w,
-                                    float scale) {
+                                    int K, int out_h, int out_w, float scale,
+                                    int pitch_w, size_t pitch_b) {
   const int p = blockIdx.x;
   const int k = blockIdx.y;
   const int b = blockIdx.z;
@@ -90,7 +94,7 @@ __global__ void roi_max_pool_kernel(const T* __restrict__ feat,
   const int h0 = min(sh + (p * roi_h) / out_h, H);
   const int h1 = min(sh + ((p + 1) * roi_h + out_h - 1) / out_h, H);
 
-  const T* fb = feat + (size_t)b * H * W * C;
+  const T* fb = feat + (size_t)b * pitch_b;
   T* orow = out + ((((size_t)b * K + k) * out_h + p) * out_w) * C;
   const int n = out_w * C;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
@@ -103,7 +107,7 @@ __global__ void roi_max_pool_kernel(const T* __restrict__ feat,
       m = -INFINITY;
       for (int h = h0; h < h1; ++h)
         for (int w = w0; w < w1; ++w)
-          m = fmaxf(m, to_f32(fb[((size_t)h * W + w) * C + c]));
+          m = fmaxf(m, to_f32(fb[((size_t)h * pitch_w + w) * C + c]));
     }
     orow[e] = from_f32<T>(m);
   }
@@ -184,38 +188,41 @@ __global__ void roi_max_pool_bwd_kernel(const float* __restrict__ feat,
   dfeat[at] = (float)acc;
 }
 
+// pitch_w: pixels per row of the stored map; pitch_h: its rows per
+// frame.  A plain map has pitch_w = W, pitch_h = H; a canvas is larger
+// and only its leading H x W is read.
 template <typename T>
 int launch_forward(const void* feat, const void* boxes, void* out, int B,
                    int H, int W, int C, int K, int out_h, int out_w,
-                   float scale, void* stream) {
+                   float scale, int pitch_h, int pitch_w, void* stream) {
   const int threads = min(256, ((out_w * C + 31) / 32) * 32);
   dim3 grid(out_h, K, B);
   roi_max_pool_kernel<T><<<grid, threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(feat), static_cast<const float*>(boxes),
-      static_cast<T*>(out), H, W, C, K, out_h, out_w, scale);
+      static_cast<T*>(out), H, W, C, K, out_h, out_w, scale, pitch_w,
+      (size_t)pitch_h * pitch_w * C);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// feat: (B, H, W, C) bf16 NHWC; boxes: (B, K, 4) f32 [x1, y1, x2, y2];
-// out: (B, K, out_h, out_w, C) bf16.  Returns cudaGetLastError().
+// feat: a (B, pitch_h, pitch_w, C) NHWC map or canvas, of which the
+// leading (H, W) is pooled (pitch_h >= H, pitch_w >= W; a plain map has
+// pitch_h = H, pitch_w = W), bf16, or f32 when f32 != 0; boxes: (B, K, 4)
+// f32 [x1, y1, x2, y2]; out: (B, K, out_h, out_w, C) in feat's type.
+// Returns cudaGetLastError().
 extern "C" int riders_roi_max_pool(const void* feat, const void* boxes,
                                    void* out, int B, int H, int W, int C,
                                    int K, int out_h, int out_w, float scale,
+                                   int pitch_h, int pitch_w, int f32,
                                    void* stream) {
+  if (f32)
+    return launch_forward<float>(feat, boxes, out, B, H, W, C, K, out_h,
+                                 out_w, scale, pitch_h, pitch_w, stream);
   return launch_forward<__nv_bfloat16>(feat, boxes, out, B, H, W, C, K,
-                                       out_h, out_w, scale, stream);
-}
-
-// The same pool on an f32 map into an f32 output.
-extern "C" int riders_roi_max_pool_f32(const void* feat, const void* boxes,
-                                       void* out, int B, int H, int W, int C,
-                                       int K, int out_h, int out_w,
-                                       float scale, void* stream) {
-  return launch_forward<float>(feat, boxes, out, B, H, W, C, K, out_h,
-                               out_w, scale, stream);
+                                       out_h, out_w, scale, pitch_h,
+                                       pitch_w, stream);
 }
 
 // feat: (B, H, W, C) f32; boxes: (B, K, 4) f32; pooled, grad:

@@ -1,0 +1,148 @@
+"""Lane-major decode paths of `MultiScaleDecoder` (opt-in, inference only).
+
+* ``decode_full``: every decoder stage in the lane kernels,
+  `lane_upconv2x` (B8) for exact-x2 stages, a nearest resize +
+  `lane_conv3x3` (B7) for the irregular ones, B7 for each fusion conv,
+  and the deconv0 + output0 phase tail;
+* ``decode_tail``: the literal decoder for deconv4..2, the lane kernels
+  from deconv1 on.
+
+Opt in with ``MultiScaleDecoder(lane_mode="full")`` or ``"tail"``; the
+decoder must be the single-resolution batch-norm leaky-relu one of depth
+5 with one output channel, its output exactly x2 of skips[0], and the
+patch batch a multiple of 128 (the JAX package's conditions, kept as
+they are).  Maps are NHWC bf16; weights are packed once per module and
+re-packed only when a parameter or statistic changes.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from riders_tpu_torch.models.layers import (bn_fold, depth_to_space2,
+                                            nearest2x_phase_kernel,
+                                            phase_compose_3x3)
+from riders_tpu_torch.ops.kernels.lane_decoder import (lane_conv3x3,
+                                                       lane_upconv2x,
+                                                       pack_conv,
+                                                       pack_upconv)
+from riders_tpu_torch.ops.resize import resize2d
+
+SLOPE = 0.2
+
+
+def _check_eligible(dec, n_batch: int, skip1: torch.Tensor) -> None:
+    """The JAX package's conditions; the port's decoder has a single
+    resolution and one output channel by construction."""
+    if not dec.use_batch_norm or "leaky_relu" not in dec.activation_name:
+        raise ValueError("lane_mode requires the batch-norm leaky-relu "
+                         "decoder")
+    if dec.depth != 5:
+        raise ValueError(f"lane_mode only supports the depth-5 decoder, got "
+                         f"depth {dec.depth}")
+    if n_batch % 128:
+        raise ValueError(f"patch batch {n_batch} is not a multiple of 128")
+    if tuple(dec.output_shape) != (2 * skip1.shape[-2],
+                                   2 * skip1.shape[-1]):
+        raise ValueError("lane_mode requires an exact-x2 full-resolution "
+                         "output")
+
+
+def _lane(t: torch.Tensor) -> torch.Tensor:
+    """NCHW map -> contiguous NHWC bf16 (free for channels_last)."""
+    return t.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
+
+
+def _hwio(conv: nn.Conv2d) -> torch.Tensor:
+    return conv.weight.float().permute(2, 3, 1, 0)
+
+
+def _packed(dec, key: str, modules: Sequence[nn.Module],
+            make: Callable[[], Tuple]) -> Tuple:
+    """`make()` cached on the decoder until a tensor of `modules` is
+    replaced or changed in place (for a tensor made in inference mode,
+    which keeps no version counter: replaced)."""
+    stamp = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+                  for m in modules for t in (*m.parameters(), *m.buffers()))
+    hit = dec._lane_packed.get(key)
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            hit = dec._lane_packed[key] = (stamp, make())
+    return hit[1]
+
+
+def _upsample(dec, d: int, h: torch.Tensor, target) -> torch.Tensor:
+    """deconv{d}'s upconv: B8 when the target is exactly x2, else the
+    nearest resize and B7."""
+    block = getattr(dec, f"deconv{d}").deconv.conv
+    exact = tuple(target) == (2 * h.shape[1], 2 * h.shape[2])
+    w, g, b = _packed(
+        dec, f"deconv{d}.up.{exact}", [block],
+        lambda: ((pack_upconv if exact else pack_conv)(_hwio(block.conv)),
+                 *bn_fold(block.bn)))
+    if exact:
+        return lane_upconv2x(h, w, g, b, SLOPE)
+    up = resize2d(h, tuple(target), "nearest").contiguous()
+    return lane_conv3x3([up], [w], g, b, SLOPE)
+
+
+def _fuse(dec, d: int, up: torch.Tensor, skip: torch.Tensor
+          ) -> torch.Tensor:
+    """deconv{d}'s fusion conv over [up, skip], its weights split at the
+    upconv's width."""
+    block = getattr(dec, f"deconv{d}").conv
+    f = up.shape[3]
+    w_up, w_skip, g, b = _packed(
+        dec, f"deconv{d}.fuse", [block],
+        lambda: (pack_conv(_hwio(block.conv)[:, :, :f]),
+                 pack_conv(_hwio(block.conv)[:, :, f:]), *bn_fold(block.bn)))
+    return lane_conv3x3([up, skip], [w_up, w_skip], g, b, SLOPE)
+
+
+def decode_full(dec, x: torch.Tensor, skips: Sequence[torch.Tensor]
+                ) -> torch.Tensor:
+    """The whole decoder in the lane kernels.  x (N, C, h, w) and skips
+    NCHW, shallow to deep; returns (N, 1, H, W) logits in the decoder's
+    dtype."""
+    _check_eligible(dec, x.shape[0], skips[0])
+    h = _lane(x)
+    for i in range(dec.depth - 1):
+        d = 4 - i
+        skip = skips[len(skips) - 1 - i]
+        up = _upsample(dec, d, h, skip.shape[-2:])
+        h = _fuse(dec, d, up, _lane(skip))
+    return _lane_phase_tail(dec, h)
+
+
+def decode_tail(dec, h: torch.Tensor, skip1: torch.Tensor) -> torch.Tensor:
+    """The lane kernels from deconv1 on.  h: the literal deconv2 output
+    (N, C, h2, w2); skip1: the pooled /2 skip (N, C1, 2 h2', 2 w2')."""
+    _check_eligible(dec, h.shape[0], skip1)
+    up = _upsample(dec, 1, _lane(h), skip1.shape[-2:])
+    return _lane_phase_tail(dec, _fuse(dec, 1, up, _lane(skip1)))
+
+
+def _lane_phase_tail(dec, h1: torch.Tensor) -> torch.Tensor:
+    """deconv0 + output0 as three B7 convs on the phase tensor (quarter
+    spatial size; nearest x2 and depth-to-space composed into the
+    weights), then one depth_to_space2."""
+    p0 = dec.deconv0
+
+    def make():
+        tile = (lambda gb: (gb[0].repeat(4), gb[1].repeat(4)))
+        return (pack_conv(nearest2x_phase_kernel(_hwio(p0.deconv.conv.conv))),
+                *tile(bn_fold(p0.deconv.conv.bn)),
+                pack_conv(phase_compose_3x3(_hwio(p0.conv.conv))),
+                *tile(bn_fold(p0.conv.bn)),
+                pack_conv(phase_compose_3x3(_hwio(dec.output0.conv))))
+
+    w_up, g_up, b_up, w_f, g_f, b_f, w_o = _packed(
+        dec, "tail", [p0, dec.output0], make)
+    u = lane_conv3x3([h1], [w_up], g_up, b_up, SLOPE)
+    m = lane_conv3x3([u], [w_f], g_f, b_f, SLOPE)
+    o = lane_conv3x3([m], [w_o], None, None, None)        # (N, h, w, 4)
+    out = depth_to_space2(o, 1).permute(0, 3, 1, 2)
+    return out.to(dec.output0.conv.weight.dtype)

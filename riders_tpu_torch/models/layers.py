@@ -53,6 +53,13 @@ class BatchNorm2d(nn.BatchNorm2d):
                             self.eps)
 
 
+def bn_fold(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A BatchNorm's running statistics folded into per-channel f32
+    (scale, bias)."""
+    g = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    return g, bn.bias.float() - bn.running_mean.float() * g
+
+
 def activation_fn(name: str) -> Optional[Callable]:
     """Activation factory: 'linear' -> None, leaky-relu slope 0.2."""
     if "linear" in name:
@@ -115,10 +122,8 @@ class FusedStemConv(nn.Module):
             h = F.leaky_relu(self.bn(self.conv(x.permute(0, 3, 1, 2))),
                              NEGATIVE_SLOPE)
             return h, F.max_pool2d(h, 3, 2, 1)
-        bn = self.bn
-        g = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
-        b = bn.bias.float() - bn.running_mean.float() * g
-        out, pooled = stem_conv_pool(x.contiguous(), self.conv.weight, g, b)
+        out, pooled = stem_conv_pool(x.contiguous(), self.conv.weight,
+                                     *bn_fold(self.bn))
         return out.permute(0, 3, 1, 2), pooled.permute(0, 3, 1, 2)
 
 
@@ -194,6 +199,63 @@ class DecoderBlock(nn.Module):
         if skip is not None:
             h = torch.cat([h, skip], dim=1)
         return self.conv(h)
+
+
+# Nearest x2 taps composed through a 3-tap conv: for output phase p,
+# _M_NEAREST2[p][j, d] maps conv tap d of the upsampled map to tap j of
+# the coarse map (up[2i + p + d - 1] = x[i + j - 1]); row j = 2 (p = 0)
+# or j = 0 (p = 1) is a structural zero.
+_M_NEAREST2 = (((1.0, 0.0, 0.0), (0.0, 1.0, 1.0), (0.0, 0.0, 0.0)),
+               ((0.0, 0.0, 0.0), (1.0, 1.0, 0.0), (0.0, 0.0, 1.0)))
+
+
+def nearest2x_phase_kernel(k: torch.Tensor) -> torch.Tensor:
+    """Compose nearest-x2 upsample + 3x3 conv into one 3x3 conv on the
+    coarse map whose output is the PHASE tensor: k (3, 3, Ci, F) HWIO ->
+    (3, 3, Ci, 4F), output block (py * 2 + px) * F + f holding
+    conv3x3(up2(x), k)[2i + py, 2j + px, f].  Summed in k's dtype (f32
+    for the lane decoder, as in the JAX package)."""
+    m = [torch.tensor(p, dtype=k.dtype, device=k.device) for p in _M_NEAREST2]
+    return torch.cat([torch.einsum("ja,abio,lb->jlio", m[py], k, m[px])
+                      for py in range(2) for px in range(2)], dim=-1)
+
+
+def phase_compose_3x3(k: torch.Tensor) -> torch.Tensor:
+    """Compose depth-to-space(2x) + zero-padded 3x3 conv into a 3x3 conv
+    on the phase tensor: k (3, 3, C, F) -> (3, 3, 4C, 4F) with
+    conv(z, K2)[i, j, (py, px, f)] = conv3x3(y, k)[2i + py, 2j + px, f]
+    where z[i, j, (ry, rx, c)] = y[2i + ry, 2j + rx, c].  A fine tap
+    2i + py + dy lands on coarse cell i + qy, phase ry, with (qy, ry) =
+    divmod(py + dy, 2); the coarse conv's zero padding is exactly the fine
+    conv's zero ring.  Every entry is a copy of one of k's, so the result
+    is exact in any dtype."""
+    C, F_ = k.shape[2], k.shape[3]
+    k2 = k.new_zeros((3, 3, 4 * C, 4 * F_))
+    for py in (0, 1):
+        for px in (0, 1):
+            for ry in (0, 1):
+                for rx in (0, 1):
+                    for qy in (-1, 0, 1):
+                        dy = 2 * qy + ry - py
+                        if not -1 <= dy <= 1:
+                            continue
+                        for qx in (-1, 0, 1):
+                            dx = 2 * qx + rx - px
+                            if not -1 <= dx <= 1:
+                                continue
+                            bi = (ry * 2 + rx) * C
+                            bo = (py * 2 + px) * F_
+                            k2[qy + 1, qx + 1, bi:bi + C, bo:bo + F_] = \
+                                k[dy + 1, dx + 1]
+    return k2
+
+
+def depth_to_space2(z: torch.Tensor, features: int) -> torch.Tensor:
+    """(..., h, w, 4F) phase-major -> (..., 2h, 2w, F)."""
+    h, w = z.shape[-3], z.shape[-2]
+    z = z.reshape(z.shape[:-1] + (2, 2, features))
+    z = torch.movedim(z, (-3, -2), (-4, -2))
+    return z.reshape(z.shape[:-5] + (2 * h, 2 * w, features))
 
 
 @torch.no_grad()

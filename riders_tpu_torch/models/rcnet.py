@@ -4,7 +4,8 @@
   pool run as one fused kernel; skips at /2, /4, /8, /16, latent at /32;
 * ``PointEncoder``: MLP lifting each radar (u, v, z) to a token grid;
 * ``MultiScaleDecoder``: U-Net decoder from the fused latent back to a
-  per-pixel logit map over the patch (the literal full-resolution path);
+  per-pixel logit map over the patch (the literal full-resolution path,
+  or the opt-in lane-major paths of `experiments.lane_decode`);
 * ``RCNet``: encode once per frame, RoI-pool every scale around each
   point (one kernel launch per scale), LoFTR self / cross attention
   between point and patch tokens, concat fusion, decode the B*K patches.
@@ -24,6 +25,7 @@ import torch.nn as nn
 
 from riders_tpu_torch.core.config import RCNetConfig
 from riders_tpu_torch.core.device import resolve_device
+from riders_tpu_torch.experiments import lane_decode
 from riders_tpu_torch.models.attention import LocalFeatureTransformer
 from riders_tpu_torch.models.layers import (ConvBlock, DecoderBlock,
                                             FullyConnected, FusedStemConv,
@@ -97,20 +99,33 @@ class MultiScaleDecoder(nn.Module):
 
     Walks the skips deep -> shallow; the last block upsamples to
     `output_shape` (with skips[0] when the pyramid is as deep as the
-    decoder), then a linear 3x3 conv emits one logit channel."""
+    decoder), then a linear 3x3 conv emits one logit channel.
+
+    ``lane_mode`` ("full" / "tail") opts into the lane-major decode paths
+    of `experiments.lane_decode` in eval mode, on the same parameters; in
+    train mode the literal path runs, as in the JAX package.  The lane
+    path has no backward, so it raises with grad enabled."""
 
     def __init__(self, in_ch: int, skip_channels: Sequence[int],
                  n_filters: Sequence[int] = (256, 128, 64, 32, 16),
                  output_shape: Tuple[int, int] = (240, 100),
                  activation: str = "leaky_relu",
-                 use_batch_norm: bool = True, n_resolution: int = 1):
+                 use_batch_norm: bool = True, n_resolution: int = 1,
+                 lane_mode: Optional[str] = None):
         super().__init__()
         if n_resolution != 1:
             raise NotImplementedError(
                 "only the single-resolution decoder is ported")
+        if lane_mode not in (None, "full", "tail"):
+            raise ValueError(f"lane_mode: None, 'full' or 'tail', got "
+                             f"{lane_mode!r}")
         act = activation_fn(activation)
         depth = len(n_filters)
         self.depth = depth
+        self.activation_name = activation
+        self.use_batch_norm = use_batch_norm
+        self.lane_mode = lane_mode
+        self._lane_packed = {}      # packed lane-kernel weights, by stage
         self.output_shape = tuple(output_shape)
         self.n_skips = len(skip_channels)
         prev = in_ch
@@ -128,8 +143,17 @@ class MultiScaleDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]
                 ) -> torch.Tensor:
+        lane = self.lane_mode if not self.training else None
+        if lane is not None and torch.is_grad_enabled():
+            raise RuntimeError("the lane-major decode has no backward: run "
+                               "it under torch.no_grad() or "
+                               "torch.inference_mode()")
+        if lane == "full":
+            return lane_decode.decode_full(self, x, skips)
         h = x
         for i in range(self.depth - 1):
+            if lane == "tail" and self.depth - 1 - i == 1:
+                return lane_decode.decode_tail(self, h, skips[0])
             si = len(skips) - 1 - i
             skip = skips[si] if si >= 0 else None
             h = getattr(self, f"deconv{self.depth - 1 - i}")(h, skip=skip)

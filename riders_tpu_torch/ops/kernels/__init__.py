@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the fused path and their wrappers.
+"""Hand-written CUDA kernels of the port and their wrappers.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch
 in `LAUNCHES`; for CPU tensors it runs the kernel's plain PyTorch

@@ -9,12 +9,17 @@ does the same for d(feature) (`ops.patches.roi_max_pool_backward`), f32
 only, as the training forward runs f32.  `RoIMaxPool` joins the two as
 an autograd function; `roi_pool_pyramid` routes through it whenever
 grad is enabled.
+
+`roi_max_pool_4d` is the same pool on a map or on a canvas read in place
+over its true extent (a `NEG`-padded canvas, as the JAX package's 4D
+pool takes it), the same kernel given the canvas's pitches, counted as
+`roi_pool_4d`; `roi_pool_pyramid_4d` pools every scale with it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,14 +28,37 @@ from riders_tpu_torch.ops.kernels import (LAUNCHES, on_cpu, require,
                                           stream_handle)
 from riders_tpu_torch.ops.kernels.build import check, kernel_function
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                          ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
-# element type -> (kernel symbol, launch counter)
-_FORWARD = {torch.bfloat16: ("riders_roi_max_pool", "roi_pool"),
-            torch.float32: ("riders_roi_max_pool_f32", "roi_pool_f32")}
+NEG = -1e30                 # the fill of a padded canvas, as in JAX
+# element type -> launch counter of the plain-map forward
+_COUNTERS = {torch.bfloat16: "roi_pool", torch.float32: "roi_pool_f32"}
 MAX_BOXES_BWD = 2048        # the backward stages 16 bytes per box per block
+
+
+def _forward(feature: torch.Tensor, boxes: torch.Tensor, scale: float,
+             out_size: Tuple[int, int], true_hw: Tuple[int, int],
+             counter: str) -> torch.Tensor:
+    """Launch the forward kernel on the leading `true_hw` of `feature`."""
+    if feature.dtype not in _COUNTERS:
+        raise TypeError(f"feature: expected bf16 or f32, got "
+                        f"{feature.dtype}")
+    B, rows, cols, C = feature.shape
+    require(feature, "feature", feature.dtype)
+    require(boxes, "boxes", torch.float32, (B, None, 4))
+    K = boxes.shape[1]
+    (H, W), (out_h, out_w) = true_hw, out_size
+    out = torch.empty((B, K, out_h, out_w, C), dtype=feature.dtype,
+                      device=feature.device)
+    fn = kernel_function("roi_pool", "riders_roi_max_pool", _ARGTYPES)
+    check(fn(feature.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W,
+             C, K, out_h, out_w, scale, rows, cols,
+             int(feature.dtype == torch.float32), stream_handle(feature)),
+          counter)
+    LAUNCHES[counter] += 1
+    return out
 
 
 def roi_max_pool(feature: torch.Tensor, boxes: torch.Tensor, scale: float,
@@ -40,22 +68,8 @@ def roi_max_pool(feature: torch.Tensor, boxes: torch.Tensor, scale: float,
     bf16 or f32 and the boxes contiguous f32."""
     if on_cpu(feature, boxes):
         return patches.roi_max_pool(feature, boxes, scale, out_size)
-    B, H, W, C = feature.shape
-    if feature.dtype not in _FORWARD:
-        raise TypeError(f"feature: expected bf16 or f32, got "
-                        f"{feature.dtype}")
-    require(feature, "feature", feature.dtype)
-    require(boxes, "boxes", torch.float32, (B, None, 4))
-    K = boxes.shape[1]
-    out_h, out_w = out_size
-    out = torch.empty((B, K, out_h, out_w, C), dtype=feature.dtype,
-                      device=feature.device)
-    symbol, counter = _FORWARD[feature.dtype]
-    fn = kernel_function("roi_pool", symbol, _ARGTYPES)
-    check(fn(feature.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W,
-             C, K, out_h, out_w, scale, stream_handle(feature)), counter)
-    LAUNCHES[counter] += 1
-    return out
+    return _forward(feature, boxes, scale, out_size, feature.shape[1:3],
+                    _COUNTERS.get(feature.dtype, "roi_pool"))
 
 
 def roi_max_pool_backward(feature: torch.Tensor, boxes: torch.Tensor,
@@ -119,5 +133,41 @@ def roi_pool_pyramid(latent: torch.Tensor, skips: Sequence[torch.Tensor],
     launch per scale on CUDA, and one backward launch per scale when grad
     is enabled."""
     pool = roi_max_pool_diff if torch.is_grad_enabled() else roi_max_pool
+    return patches.roi_pool_pyramid(latent, skips, boxes, patch_size,
+                                    pool=pool)
+
+
+def roi_max_pool_4d(feature: torch.Tensor, boxes: torch.Tensor,
+                    scale: float, out_size: Tuple[int, int],
+                    true_hw: Optional[Tuple[int, int]] = None
+                    ) -> torch.Tensor:
+    """`roi_max_pool` of feature (B, H, W, C), or with `true_hw=(H, W)` of
+    the leading (H, W) of a canvas (B, rows >= H, cols >= W, C) read in
+    place (its padding, `NEG` in the JAX package, is never read).  On
+    CUDA the canvas is contiguous bf16 or f32 and the boxes contiguous
+    f32.  Returns (B, K, out_h, out_w, C)."""
+    rows, cols = feature.shape[1:3]
+    H, W = true_hw if true_hw is not None else (rows, cols)
+    if rows < H or cols < W:
+        raise ValueError(f"canvas {tuple(feature.shape)} is smaller than "
+                         f"its true extent {(H, W)}")
+    if on_cpu(feature, boxes):
+        return patches.roi_max_pool(feature[:, :H, :W], boxes, scale,
+                                    out_size)
+    return _forward(feature, boxes, scale, out_size, (H, W), "roi_pool_4d")
+
+
+def roi_pool_pyramid_4d(latent: torch.Tensor, skips: Sequence[torch.Tensor],
+                        boxes: torch.Tensor, patch_size: Tuple[int, int],
+                        skip1_true_hw: Optional[Tuple[int, int]] = None
+                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """`roi_pool_pyramid` through `roi_max_pool_4d`, skips[0] optionally a
+    canvas with true extent `skip1_true_hw`; inference only (no
+    backward)."""
+    skip1 = skips[0] if len(skips) else None
+
+    def pool(feature, boxes, scale, out_size):
+        hw = skip1_true_hw if feature is skip1 else None
+        return roi_max_pool_4d(feature, boxes, scale, out_size, hw)
     return patches.roi_pool_pyramid(latent, skips, boxes, patch_size,
                                     pool=pool)

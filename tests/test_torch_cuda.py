@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from riders_tpu_torch.ops import patches
-from riders_tpu_torch.ops.kernels import LAUNCHES, compose, roi_pool, stem
+from riders_tpu_torch.ops.kernels import (LAUNCHES, compose, lane_decoder,
+                                          roi_pool, stem)
 
 
 @pytest.fixture
@@ -194,3 +195,100 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                 device=dev, dtype=torch.float64),
                                 torch.ones((1, 2), device=dev), (8, 8),
                                 (4, 4), 0.1)
+
+
+def _lane_within_one_step(got, want):
+    """B7 / B8 against their plain versions: one bf16 rounding step,
+    |k - p| <= 2^-7 |p| + 1e-3 max|p| (same bf16 products, f32 sums in
+    another order)."""
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    a, b = got.float(), want.float()
+    bar = 2 ** -7 * b.abs() + 1e-3 * b.abs().max()
+    assert bool(((a - b).abs() <= bar).all()), float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("N,H,W,cis,co,act", [
+    (3, 9, 3, (256, 128), 256, True),    # NTU deconv4 fusion, 3 patches
+    (5, 7, 5, (24, 40), 33, True),       # Ci % 16 != 0, Co past a tile
+    (2, 11, 4, (13, 6), 20, True),       # Ci % 8 != 0: scalar loads
+    (7, 10, 6, (64,), 4, False),         # the output conv: linear, Co 4
+    (1, 1, 1, (32,), 16, True),          # a 1x1 map: every tap but one out
+    (3, 75, 25, (32, 32), 32, True)])    # NTU deconv1 fusion
+def test_lane_conv3x3_kernel_matches_plain(dev, N, H, W, cis, co, act):
+    g = torch.Generator(device=dev).manual_seed(11)
+    xs = [torch.randn((N, H, W, c), generator=g, device=dev).to(
+        torch.bfloat16) for c in cis]
+    k = 0.1 * torch.randn((3, 3, sum(cis), co), generator=g, device=dev)
+    ws = [lane_decoder.pack_conv(k[:, :, sum(cis[:i]):sum(cis[:i + 1])])
+          for i in range(len(cis))]
+    scale, bias = ((0.5 + torch.rand(co, generator=g, device=dev),
+                    0.1 * torch.randn(co, generator=g, device=dev))
+                   if act else (None, None))
+    slope = 0.2 if act else None
+    before = LAUNCHES["lane_conv3x3"]
+    got = lane_decoder.lane_conv3x3(xs, ws, scale, bias, slope)
+    assert LAUNCHES["lane_conv3x3"] == before + 1
+    want = lane_decoder.lane_conv3x3_plain(xs, ws, scale, bias, slope)
+    _lane_within_one_step(got, want)
+
+
+@pytest.mark.parametrize("N,h,w,ci,f", [
+    (3, 9, 3, 256, 128),                 # NTU deconv3
+    (2, 5, 3, 24, 16),                   # odd extent
+    (3, 4, 7, 40, 12),                   # F % 16 != 0: tiles span phases
+    (2, 3, 2, 12, 32),                   # Ci % 8 != 0: scalar loads
+    (1, 60, 25, 64, 32)])                # ZJU deconv1
+def test_lane_upconv2x_kernel_matches_plain(dev, N, h, w, ci, f):
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((N, h, w, ci), generator=g, device=dev).to(torch.bfloat16)
+    k = 0.1 * torch.randn((3, 3, ci, f), generator=g, device=dev)
+    wp = lane_decoder.pack_upconv(k)
+    scale = 0.5 + torch.rand(f, generator=g, device=dev)
+    bias = 0.1 * torch.randn(f, generator=g, device=dev)
+    before = LAUNCHES["lane_upconv2x"]
+    got = lane_decoder.lane_upconv2x(x, wp, scale, bias, 0.2)
+    assert LAUNCHES["lane_upconv2x"] == before + 1
+    want = lane_decoder.lane_upconv2x_plain(x, wp, scale, bias, 0.2)
+    assert got.shape == (N, 2 * h, 2 * w, f)
+    _lane_within_one_step(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,out_size,scale", [
+    (8, (60, 25), 0.5), (32, (37, 12), 0.25), (128, (9, 3), 1 / 16)])
+def test_roi_pool_4d_kernel_on_a_wide_canvas(dev, C, out_size, scale,
+                                             dtype):
+    """B6 bitwise against the plain version: a canvas whose rows and
+    pitch reach well past H + win_h and W + win_w, its padding NEG, and
+    the same pool on the plain map."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, K, H, W = 2, 9, 23, 31
+    feat = torch.randn((B, H, W, C), generator=g, device=dev).to(dtype)
+    canvas = torch.full((B, H + 40, W + 70, C), roi_pool.NEG, dtype=dtype,
+                        device=dev)
+    canvas[:, :H, :W] = feat
+    boxes = _boxes(g, dev, B, K, H, W, scale, out_size)
+    want = patches.roi_max_pool(feat, boxes, scale, out_size)
+    before = LAUNCHES["roi_pool_4d"]
+    got = roi_pool.roi_max_pool_4d(canvas, boxes, scale, out_size, (H, W))
+    plain = roi_pool.roi_max_pool_4d(feat, boxes, scale, out_size)
+    assert LAUNCHES["roi_pool_4d"] == before + 2
+    assert torch.equal(got, want) and torch.equal(plain, want)
+
+
+def test_lane_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.randn((2, 4, 4, 8), device=dev).to(torch.bfloat16)
+    w = lane_decoder.pack_conv(torch.randn((3, 3, 8, 8), device=dev))
+    with pytest.raises(TypeError):
+        lane_decoder.lane_conv3x3([x.float()], [w], None, None, None)
+    with pytest.raises(ValueError):                         # weight's Ci
+        lane_decoder.lane_conv3x3([x], [w[..., :4].contiguous()], None,
+                                  None, None)
+    with pytest.raises(ValueError):                         # scale alone
+        lane_decoder.lane_conv3x3([x], [w], torch.ones(8, device=dev), None,
+                                  None)
+    with pytest.raises(ValueError):                         # not contiguous
+        lane_decoder.lane_upconv2x(x.transpose(1, 2), w.repeat(4, 1, 1, 1),
+                                   None, None, None)
+    with pytest.raises(ValueError):                         # mixed devices
+        lane_decoder.lane_conv3x3([x], [w.cpu()], None, None, None)

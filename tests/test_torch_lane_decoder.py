@@ -1,0 +1,231 @@
+"""The lane-major decoder of the port against the JAX package on the CPU.
+
+Per kernel: the plain versions of B7 (`lane_conv3x3_plain`) and B8
+(`lane_upconv2x_plain`) against the Pallas kernels in interpret mode on
+the same numpy inputs, within one bf16 rounding step:
+|got - want| <= 2^-7 |want| + 1e-3 max|want| (the two sum the same bf16
+products in f32 in different orders, then round once).  The JAX kernels
+take zero-bordered (H+2, W+2, C, N) maps; their border is stripped and N
+moved first before the comparison.
+
+Helpers: the phase compositions and depth_to_space2 exactly (f32), the
+nearest resize bitwise.
+
+Decoder: the port's MultiScaleDecoder with lane_mode "full" and "tail",
+holding a JAX decoder's variables, against JAX's literal bf16 decoder
+(phase_tail=False) within 5% of its max, the bar of JAX's own lane tests
+(tests/test_lane_decoder.py); at an exact-x2 patch and at NTU's
+irregular pyramid.  The tail against JAX's own lane tail is in
+tests/test_torch_lane_tail.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from riders_tpu.models import layers as JL
+from riders_tpu.models.rcnet import MultiScaleDecoder as JaxDecoder
+from riders_tpu.ops.pallas import lane_decoder as LD
+from riders_tpu_torch.models import layers as TL
+from riders_tpu_torch.models.from_jax import load_jax_variables
+from riders_tpu_torch.models.rcnet import MultiScaleDecoder
+from riders_tpu_torch.ops.kernels import lane_decoder as TLD
+from riders_tpu_torch.ops.resize import resize2d
+from torch_common import perturbed
+
+N = 128                     # the smallest patch batch the lane path takes
+FILTERS = (16, 16, 8, 8, 8)
+SKIP_CH = (8, 8, 16, 16)
+X_CH = 16
+
+
+def _bf16(a):
+    return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+def _from_lane(y):
+    """JAX's padded (H+2, W+2, C, N) output -> (N, H, W, C) f32."""
+    return np.transpose(np.asarray(y, np.float32)[1:-1, 1:-1], (3, 0, 1, 2))
+
+
+def _within_one_step(got, want):
+    got = got.float().numpy() if torch.is_tensor(got) else got
+    bar = 2 ** -7 * np.abs(want) + 1e-3 * np.abs(want).max()
+    assert got.shape == want.shape
+    assert (np.abs(got - want) <= bar).all(), np.abs(got - want).max()
+
+
+def test_lane_conv3x3_plain_two_inputs_matches_pallas(rng):
+    H, W, C1, C2, CO = 9, 6, 32, 16, 24
+    x1 = rng.standard_normal((N, H, W, C1)).astype(np.float32)
+    x2 = rng.standard_normal((N, H, W, C2)).astype(np.float32)
+    k = (0.1 * rng.standard_normal((3, 3, C1 + C2, CO))).astype(np.float32)
+    sc = (0.5 + rng.random(CO)).astype(np.float32)
+    bi = (0.1 * rng.standard_normal(CO)).astype(np.float32)
+    want = _from_lane(LD.lane_conv3x3(
+        [LD.to_lane(jnp.asarray(x1)), LD.to_lane(jnp.asarray(x2))],
+        [jnp.asarray(k[:, :, :C1]), jnp.asarray(k[:, :, C1:])],
+        jnp.asarray(sc), jnp.asarray(bi), 0.2, interpret=True))
+    kt = torch.from_numpy(k)
+    got = TLD.lane_conv3x3(
+        [torch.from_numpy(x1), torch.from_numpy(x2)],
+        [TLD.pack_conv(kt[:, :, :C1]), TLD.pack_conv(kt[:, :, C1:])],
+        torch.from_numpy(sc), torch.from_numpy(bi), 0.2)
+    assert got.dtype == torch.bfloat16
+    _within_one_step(got, want)
+
+
+def test_lane_conv3x3_plain_linear_one_input_matches_pallas(rng):
+    """The output conv's case: one input, scale=None (linear), no
+    activation, Co = 4 (the JAX package pads it to 8 for the TPU)."""
+    H, W, CI, CO = 8, 5, 32, 4
+    x = rng.standard_normal((N, H, W, CI)).astype(np.float32)
+    k = (0.1 * rng.standard_normal((3, 3, CI, CO))).astype(np.float32)
+    kp = np.pad(k, ((0, 0), (0, 0), (0, 0), (0, 8 - CO)))
+    want = _from_lane(LD.lane_conv3x3(
+        [LD.to_lane(jnp.asarray(x))], [jnp.asarray(kp)], None, None, None,
+        interpret=True))[..., :CO]
+    got = TLD.lane_conv3x3([torch.from_numpy(x)],
+                           [TLD.pack_conv(torch.from_numpy(k))], None, None,
+                           None)
+    _within_one_step(got, want)
+
+
+def test_lane_upconv2x_plain_odd_extent_matches_pallas(rng):
+    h, w, CI, F = 5, 3, 24, 16
+    x = rng.standard_normal((N, h, w, CI)).astype(np.float32)
+    k = (0.1 * rng.standard_normal((3, 3, CI, F))).astype(np.float32)
+    sc = (0.5 + rng.random(F)).astype(np.float32)
+    bi = (0.1 * rng.standard_normal(F)).astype(np.float32)
+    want = _from_lane(LD.lane_upconv2x(
+        LD.to_lane(jnp.asarray(x)), jnp.asarray(k), jnp.asarray(sc),
+        jnp.asarray(bi), 0.2, interpret=True))
+    got = TLD.lane_upconv2x(torch.from_numpy(x),
+                            TLD.pack_upconv(torch.from_numpy(k)),
+                            torch.from_numpy(sc), torch.from_numpy(bi), 0.2)
+    assert got.shape == (N, 2 * h, 2 * w, F)
+    _within_one_step(got, want)
+
+
+def test_phase_helpers_match_jax_exactly(rng):
+    k = rng.standard_normal((3, 3, 6, 5)).astype(np.float32)
+    kt = torch.from_numpy(k)
+    np.testing.assert_array_equal(
+        TL.nearest2x_phase_kernel(kt).numpy(),
+        np.asarray(JL.nearest2x_phase_kernel(jnp.asarray(k))))
+    np.testing.assert_array_equal(
+        TL.phase_compose_3x3(kt).numpy(),
+        np.asarray(JL.phase_compose_3x3(jnp.asarray(k))))
+    z = rng.standard_normal((2, 3, 4, 5, 12)).astype(np.float32)
+    np.testing.assert_array_equal(
+        TL.depth_to_space2(torch.from_numpy(z), 3).numpy(),
+        np.asarray(JL.depth_to_space2(jnp.asarray(z), 3)))
+
+
+def test_phase_kernel_is_nearest_then_conv(rng):
+    """The composed kernel on the coarse map, then depth_to_space2,
+    equals nearest x2 followed by the 3x3 conv (f32, same sums up to
+    order)."""
+    x = torch.from_numpy(rng.standard_normal((2, 5, 3, 4)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((3, 3, 4, 6)).astype(np.float32))
+    conv = lambda t, kk: torch.nn.functional.conv2d(
+        t.permute(0, 3, 1, 2), kk.permute(3, 2, 0, 1), padding=1
+    ).permute(0, 2, 3, 1)
+    up = x.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    want = conv(up, k)
+    got = TL.depth_to_space2(conv(x, TL.nearest2x_phase_kernel(k)), 6)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw,out_hw", [
+    ((4, 1), (9, 3)), ((18, 6), (37, 12)), ((37, 12), (75, 25)),
+    ((7, 3), (15, 6)), ((30, 12), (60, 25)), ((12, 5), (25, 12))])
+def test_nearest_resize_matches_jax_lane_resize_bitwise(rng, hw, out_hw):
+    """The lane path's resize (`ops.resize.resize2d` 'nearest' on an NHWC
+    map) against JAX's `nearest_resize_lane`."""
+    x = rng.standard_normal((3,) + hw + (5,)).astype(np.float32)
+    want = _from_lane(LD.nearest_resize_lane(LD.to_lane(jnp.asarray(x)),
+                                             out_hw))
+    got = resize2d(torch.from_numpy(_bf16(x)), out_hw, "nearest")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _decoder_case(rng, patch, skips_hw):
+    lh, lw = patch[0] // 32, patch[1] // 32
+    x = rng.standard_normal((N, lh, lw, X_CH)).astype(np.float32)
+    skips = [rng.standard_normal((N, h, w, c)).astype(np.float32)
+             for (h, w), c in zip(skips_hw, SKIP_CH)]
+    dec = JaxDecoder(FILTERS, patch, 1, "leaky_relu", True,
+                     dtype=jnp.bfloat16, phase_tail=False)
+    jx, jskips = jnp.asarray(x), [jnp.asarray(s) for s in skips]
+    variables = perturbed(dec.init(jax.random.PRNGKey(42), jx, jskips), rng)
+    want = np.asarray(dec.apply(variables, jx, jskips), np.float32)
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)
+    return variables, nchw(x), [nchw(s) for s in skips], want
+
+
+def _port_decoder(variables, patch, lane_mode):
+    port = MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch,
+                             lane_mode=lane_mode)
+    return load_jax_variables(port, variables).eval()
+
+
+GEOMETRIES = {
+    "x2_64x32": ((64, 32), [(32, 16), (16, 8), (8, 4), (4, 2)]),
+    "ntu_150x50": ((150, 50), [(75, 25), (37, 12), (18, 6), (9, 3)]),
+}
+
+
+@pytest.mark.parametrize("lane_mode", ["full", "tail"])
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_lane_decoder_matches_jax_literal_bf16(rng, geometry, lane_mode):
+    patch, skips_hw = GEOMETRIES[geometry]
+    variables, x, skips, want = _decoder_case(rng, patch, skips_hw)
+    port = _port_decoder(variables, patch, lane_mode)
+    with torch.no_grad():
+        got = port(x, skips).permute(0, 2, 3, 1).float().numpy()
+    assert got.shape == want.shape == (N,) + patch + (1,)
+    assert np.isfinite(got).all()
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    assert rel < 0.05, rel
+
+
+def test_lane_mode_is_eval_only_and_checks_eligibility(rng):
+    """Train mode runs the literal path (as in JAX); eval with grad
+    enabled raises (no backward); a batch that is not a multiple of 128
+    is refused, as JAX refuses it."""
+    patch, skips_hw = GEOMETRIES["x2_64x32"]
+    variables, x, skips, _ = _decoder_case(rng, patch, skips_hw)
+    port = _port_decoder(variables, patch, "full")
+    literal = _port_decoder(variables, patch, None)
+    with torch.no_grad():
+        port.train()
+        literal.train()
+        torch.testing.assert_close(port(x[:4], [s[:4] for s in skips]),
+                                   literal(x[:4], [s[:4] for s in skips]))
+    port.eval()
+    with pytest.raises(RuntimeError, match="no backward"):
+        port(x, skips)
+    with torch.no_grad(), pytest.raises(ValueError, match="multiple of 128"):
+        port(x[:64], [s[:64] for s in skips])
+    with pytest.raises(ValueError):
+        MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch, lane_mode="half")
+
+
+def test_lane_weights_are_packed_once_and_follow_the_parameters(rng):
+    patch, skips_hw = GEOMETRIES["x2_64x32"]
+    variables, x, skips, _ = _decoder_case(rng, patch, skips_hw)
+    port = _port_decoder(variables, patch, "full")
+    with torch.no_grad():
+        first = port(x, skips)
+        packed = {k: id(v[1]) for k, v in port._lane_packed.items()}
+        assert len(packed) == 9              # 4 upconvs, 4 fusions, tail
+        again = port(x, skips)
+        assert {k: id(v[1]) for k, v in port._lane_packed.items()} == packed
+        torch.testing.assert_close(first, again, rtol=0, atol=0)
+        port.output0.conv.weight.mul_(2.0)
+        port(x, skips)
+    assert id(port._lane_packed["tail"][1]) != packed["tail"]
