@@ -20,7 +20,8 @@ Phases, each fatal on failure:
   4b. the lane-major decoder and the 4D RoI pyramid: (a) the lane conv
      (B7) and upconv (B8) kernels against their plain versions at every
      call shape of one decode_full, NTU (N = 768) and ZJU (N = 512), with
-     CUDA-event times of both and of cuDNN; (b) the decoder's inputs
+     CUDA-event times of both and of cuDNN (the median of synchronised
+     calls, and back to back), a line per call; (b) the decoder's inputs
      captured from a fused B=16 call of each preset, decoded by the
      literal decoder and by lane_mode "full" and "tail" copies (within 5%
      of the literal's max, launch counters reset just before each); (c)
@@ -29,7 +30,9 @@ Phases, each fatal on failure:
   5. training kernels at the NTU (B=24, K=40) and ZJU (B=4, K=30)
      training shapes, f32: the RoI pool's forward (bitwise) and its
      backward (within 1e-6 relative of the plain version, two launches
-     bitwise equal), with CUDA-event times and their bound;
+     bitwise equal), with CUDA-event times (the backward's also back to
+     back), their bound and the share of the backward's tiles that no box
+     meets;
   6. training at full published widths on seeded random weights: three
      RC-Net steps at the NTU preset (B=24, 40 points, 150x50 patches,
      512x640 frames) and three SML steps (288x352, B=12), each with the
@@ -85,6 +88,23 @@ def time_ms(fn, n=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, n=20, warmup=3):
+    """CUDA-event time of n back-to-back calls of `fn`, over n: the
+    device's time per call where it is slower than the host's dispatch,
+    which `time_ms` (a synchronised call each) counts in."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def bound_ms(nbytes, flops=0.0):
@@ -483,14 +503,26 @@ def check_lane_kernels(preset, B=16):
         nbytes = 2 * (sum(x.numel() for x in xs) + out_elems + k.numel()) \
             + (8 * co if act else 0)
         bnd, by = bound_ms(nbytes, flops)
+        ms, lib_ms = time_ms(run, n=10, warmup=2), time_ms(library, n=10,
+                                                            warmup=2)
+        dev_ms, lib_dev_ms = device_ms(run), device_ms(library)
         calls.append(dict(
             kernel=kind, input=[n, h, w], widths=list(cis), out=co,
-            max_abs_err=float(diff.max()), ms=time_ms(run, n=10, warmup=2),
+            max_abs_err=float(diff.max()), ms=ms,
             plain_ms=time_ms(plain, n=3, warmup=1),
-            library_ms=time_ms(library, n=10, warmup=2), bound_ms=bnd,
+            library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms, bound_ms=bnd,
             bound_by=by, bytes=nbytes, flops=flops,
+            tflop_per_s=flops / ms / 1e9,
             t_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
             t_ops_ms=flops / BF16_FLOP_PER_S * 1e3))
+        widths = "+".join(map(str, cis))
+        log(f"lane call [{preset}] {kind} {n}x{h}x{w} {widths}->{co}: "
+            f"kernel {ms:.4f} ms cuDNN {lib_ms:.4f} ms "
+            f"({lib_ms / ms:.2f}x) bound {bnd:.4f} ms ({by}) "
+            f"{flops / ms / 1e9:.1f} TFLOP/s; back to back: kernel "
+            f"{dev_ms:.4f} ms cuDNN {lib_dev_ms:.4f} ms "
+            f"({lib_dev_ms / dev_ms:.2f}x)")
         del xs, xc, got, want, a, p, diff
     out = {}
     for kind in ("lane_conv3x3", "lane_upconv2x"):
@@ -500,7 +532,9 @@ def check_lane_kernels(preset, B=16):
             max_abs_err=max(c["max_abs_err"] for c in mine),
             tolerance="|k-p| <= 2^-7 |p| + 1e-3 max|p|",
             ms=total("ms"), plain_ms=total("plain_ms"),
-            library_ms=total("library_ms"), bound_ms=total("bound_ms"),
+            library_ms=total("library_ms"), device_ms=total("device_ms"),
+            library_device_ms=total("library_device_ms"),
+            bound_ms=total("bound_ms"),
             bound_by=("operations" if total("t_ops_ms") >= total("t_bytes_ms")
                       else "bytes"),
             calls_per_decode=len(mine), calls=mine)
@@ -810,10 +844,13 @@ def check_training_kernels(preset):
                 for m, b_out, gr, s in zip(maps, pooled, grads, scales)]
 
     out["roi_pool_bwd"] = dict(
+        empty_tile_share=bwd_empty_tiles(maps, boxes, scales),
         max_abs_err=err, max_err_over_1_plus_abs=rel,
         tolerance="|k-p| <= 1e-6 |p| + 1e-6, p the plain version summed "
                   "in f64; two launches bitwise equal",
         ms=time_ms(lambda: backward(roi_pool.roi_max_pool_backward)),
+        device_ms=device_ms(
+            lambda: backward(roi_pool.roi_max_pool_backward)),
         plain_ms=time_ms(lambda: backward(patches.roi_max_pool_backward),
                          n=5, warmup=1),
         library_ms=None, bound_ms=bnd, bound_by=by, bytes=nbytes,
@@ -821,6 +858,28 @@ def check_training_kernels(preset):
         shapes=dict(maps=[list(m.shape) for m in maps],
                     grads=[list(o.shape) for o in grads]))
     return out
+
+
+def bwd_empty_tiles(maps, boxes, scales):
+    """Per map, the share of the backward kernel's (frame, tile) blocks
+    that no box meets (they only write zeros)."""
+    import torch
+    from riders_tpu_torch.ops.kernels import roi_pool
+    shares = []
+    for m, s in zip(maps, scales):
+        B, H, W, C = m.shape
+        th, tw, _ = roi_pool.bwd_tiles(W, C)
+        empty = torch.zeros((), dtype=torch.long, device=m.device)
+        n = 0
+        for r in range(0, H, th):
+            for c in range(0, W, tw):
+                hit = roi_pool.bwd_tile_boxes(
+                    boxes, s, H, W, (r, min(r + th, H)),
+                    (c, min(c + tw, W))).any(1)
+                empty += (~hit).sum()
+                n += B
+        shares.append(int(empty) / n)
+    return shares
 
 
 def _params(model):
@@ -1095,7 +1154,10 @@ def main(argv):
             log(f"kernel {name} [{g}]: max_abs_err {r['max_abs_err']} "
                 f"({r['tolerance']}) kernel {r['ms']:.4f} ms plain "
                 f"{r['plain_ms']:.4f} ms library {r['library_ms']} bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                + (f" back to back: kernel {r['device_ms']:.4f} ms library "
+                   f"{r['library_device_ms']:.4f} ms"
+                   if "device_ms" in r else ""))
         log(f"lane decoder [{g}]: {json.dumps(lane[g])}")
     del zju_fn, zju_rcnet
 
@@ -1105,7 +1167,10 @@ def main(argv):
             log(f"kernel {name} [{p} training]: max_abs_err "
                 f"{r['max_abs_err']} ({r['tolerance']}) kernel "
                 f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                + (f" back to back {r['device_ms']:.4f} ms empty tiles "
+                   f"{r['empty_tile_share']}"
+                   if "empty_tile_share" in r else ""))
     training = drive_training(
         profile_dir=HERE / "chiprun_out" if "--profile" in argv else None)
     for name in ("rcnet", "sml"):

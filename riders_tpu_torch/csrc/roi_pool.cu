@@ -37,22 +37,27 @@
 // the pooled cotangents, the saved forward and the boxes' windows: at the
 // NTU training shape (B=24, K=40, f32) ~1.7 GB, ~0.5 ms at 3.35 TB/s.
 //
-// Backward design: a deterministic gather with no atomics.  One thread
-// per feature element; a block covers a run of (column, channel) pairs of
-// one row of one frame.  The block first stages, for each of the frame's
-// K boxes, the range of row bins that contain its row (or none) and the
-// box's column start and roi width, in shared memory.  Each thread then
-// walks k in ascending order, finds the 1-3 column bins holding its
-// column, and adds grad[b, k, p, q, c] wherever the feature equals the
-// saved pooled value: with an f32 forward that max is exact, so equality
-// is the JAX rule.  Each element's sum runs in (k, p, q) order in f64
-// and is rounded to f32 once: two launches agree bitwise, and the result
-// is the exact sum rounded to f32, up to f64's own rounding (an f32
-// accumulator loses a few ulps of the partial sums where contributions
-// cancel).  An element takes a handful of contributions at the training
-// shapes, so the f64 adds cost little next to the loads.  Later work:
-// one block per row tile with the
-// covering boxes compacted, vectorised loads.
+// Backward design (B5): a deterministic gather with no atomics, tiled.
+// One block of 256 threads per (frame, tile of tile_h rows x tile_w
+// columns); the host's plan (ops/kernels/roi_pool.py:bwd_tiles) gives 8
+// rows and ~512 thread slots, 8 x 8 pixels at C = 32 (on the H100 80GB
+// HBM3 at 700 W, narrower and wider tiles ran slower).  The block first
+// lists, in shared memory, the boxes whose clamped window meets the tile,
+// in ascending k (a warp ballot and a prefix count over the warps), each
+// with its window start and roi size.  A tile that no box meets writes
+// zeros and is done: much of each map lies under no box.  Otherwise each
+// thread owns 4 consecutive channels of a pixel (one float4; 1 channel
+// where C % 4 != 0), walks only the listed boxes and, for each box
+// holding its pixel, finds the runs of row and column bins holding it.
+// Where both runs are 1-2 bins long (a roi at least the pooled size, as
+// at the training shapes) it issues the loads of all their `pooled` and
+// `grad` values before the compares.  It adds grad wherever the feature
+// equals the saved max: with an f32 forward that max is exact, so
+// equality is the JAX rule.  Each element's sum runs in (k, p, q) order
+// in f64 and is rounded to f32 once: two launches agree bitwise, and the
+// result is the exact sum rounded to f32, up to f64's own rounding (an
+// f32 accumulator loses a few ulps of the partial sums where
+// contributions cancel).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -128,64 +133,145 @@ __device__ __forceinline__ bool bins_holding(int r, int roi, int out,
   return a <= z;
 }
 
-__global__ void roi_max_pool_bwd_kernel(const float* __restrict__ feat,
-                                        const float* __restrict__ boxes,
-                                        const float* __restrict__ pooled,
-                                        const float* __restrict__ grad,
-                                        float* __restrict__ dfeat, int H,
-                                        int W, int C, int K, int out_h,
-                                        int out_w, float scale) {
-  extern __shared__ int smem[];
-  int* s_plo = smem;          // first row bin holding this row, or -1
-  int* s_phi = smem + K;      // last row bin holding this row
-  int* s_sw = smem + 2 * K;   // clamped column start of the window
-  int* s_roiw = smem + 3 * K; // roi width
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const float* box = boxes + ((size_t)b * K + k) * 4;
-    const int rs_w = round_edge(box[0], scale);
-    const int rs_h = round_edge(box[1], scale);
-    const int roi_w = max(round_edge(box[2], scale) - rs_w + 1, 1);
-    const int roi_h = max(round_edge(box[3], scale) - rs_h + 1, 1);
-    const int sh = min(max(rs_h, 0), H);
-    const int r = h - sh;
-    int lo = -1, hi = -1;
-    if (r < 0 || r >= roi_h || !bins_holding(r, roi_h, out_h, &lo, &hi))
-      lo = -1;
-    s_plo[k] = lo;
-    s_phi[k] = hi;
-    s_sw[k] = min(max(rs_w, 0), W);
-    s_roiw[k] = roi_w;
+template <int V> struct Vec;
+template <> struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  __syncthreads();
+  static __device__ __forceinline__ float at(const T& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+  static __device__ __forceinline__ T make(const double* a) {
+    return make_float4((float)a[0], (float)a[1], (float)a[2], (float)a[3]);
+  }
+};
+template <> struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.f; }
+  static __device__ __forceinline__ float at(const T& v, int) { return v; }
+  static __device__ __forceinline__ T make(const double* a) {
+    return (float)a[0];
+  }
+};
 
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;  // (w, c) of row h
-  if (e >= W * C) return;
-  const int w = e / C;
-  const int c = e - w * C;
-  const size_t at = (((size_t)b * H + h) * W) * C + e;
-  const float v = feat[at];
-  double acc = 0.0;
-  for (int k = 0; k < K; ++k) {
-    const int plo = s_plo[k];
-    if (plo < 0) continue;
-    const int r = w - s_sw[k];
-    int qlo, qhi;
-    if (r < 0 || r >= s_roiw[k] || !bins_holding(r, s_roiw[k], out_w, &qlo,
-                                                 &qhi))
+constexpr int BWD_THREADS = 256;
+
+// V channels per thread (4: C % 4 == 0, else 1).  Dynamic shared memory:
+// K int4 (row start, roi h, column start, roi w) and K int (box index).
+template <int V>
+__global__ void __launch_bounds__(BWD_THREADS)
+roi_max_pool_bwd_kernel(const float* __restrict__ feat,
+                        const float* __restrict__ boxes,
+                        const float* __restrict__ pooled,
+                        const float* __restrict__ grad,
+                        float* __restrict__ dfeat, int H, int W, int C,
+                        int K, int out_h, int out_w, float scale,
+                        int tile_h, int tile_w) {
+  using VT = typename Vec<V>::T;
+  extern __shared__ int4 s_box[];
+  int* s_k = reinterpret_cast<int*>(s_box + K);
+  __shared__ int s_warp[BWD_THREADS / 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * tile_h, c0 = blockIdx.x * tile_w;
+  const int r1 = min(r0 + tile_h, H), c1 = min(c0 + tile_w, W);
+
+  // The boxes whose clamped window [sh, sh + roi_h) x [sw, sw + roi_w)
+  // (clamped to the map) meets the tile, in ascending k.
+  int count = 0;
+  for (int base = 0; base < K; base += BWD_THREADS) {
+    const int k = base + tid;
+    bool meets = false;
+    int4 bx = make_int4(0, 0, 0, 0);
+    if (k < K) {
+      const float* box = boxes + ((size_t)b * K + k) * 4;
+      const int rs_w = round_edge(box[0], scale);
+      const int rs_h = round_edge(box[1], scale);
+      const int roi_w = max(round_edge(box[2], scale) - rs_w + 1, 1);
+      const int roi_h = max(round_edge(box[3], scale) - rs_h + 1, 1);
+      const int sh = min(max(rs_h, 0), H);
+      const int sw = min(max(rs_w, 0), W);
+      meets = sh < r1 && min(sh + roi_h, H) > r0 && sw < c1 &&
+              min(sw + roi_w, W) > c0;
+      bx = make_int4(sh, roi_h, sw, roi_w);
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, meets);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int before = count;
+    for (int i = 0; i < warp; ++i) before += s_warp[i];
+    if (meets) {
+      const int j = before + __popc(ballot & ((1u << lane) - 1u));
+      s_box[j] = bx;
+      s_k[j] = k;
+    }
+    for (int i = 0; i < BWD_THREADS / 32; ++i) count += s_warp[i];
+    __syncthreads();
+  }
+
+  const int cpp = C / V;                       // thread slots per pixel
+  const int tw = c1 - c0;
+  const int n = (r1 - r0) * tw * cpp;
+  for (int e = tid; e < n; e += BWD_THREADS) {
+    const int pix = e / cpp, g = e - pix * cpp;
+    const int h = r0 + pix / tw, w = c0 + pix % tw;
+    const size_t at = (((size_t)b * H + h) * W + w) * C + g * V;
+    VT* dst = reinterpret_cast<VT*>(dfeat + at);
+    if (count == 0) {                          // no box meets the tile
+      *dst = Vec<V>::zero();
       continue;
-    const size_t base = ((size_t)b * K + k) * out_h;
-    for (int p = plo; p <= s_phi[k]; ++p) {
-      for (int q = qlo; q <= qhi; ++q) {
-        const size_t i = ((base + p) * out_w + q) * C + c;
-        const float g = grad[i];  // loaded with pooled[i], not after it
-        if (pooled[i] == v) acc += (double)g;
+    }
+    const VT v = *reinterpret_cast<const VT*>(feat + at);
+    double acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.0;
+    for (int j = 0; j < count; ++j) {
+      const int4 bx = s_box[j];
+      const int r = h - bx.x, rq = w - bx.z;
+      if (r < 0 || r >= bx.y || rq < 0 || rq >= bx.w) continue;
+      int plo, phi, qlo, qhi;
+      if (!bins_holding(r, bx.y, out_h, &plo, &phi) ||
+          !bins_holding(rq, bx.w, out_w, &qlo, &qhi))
+        continue;
+      const size_t base =
+          (((size_t)b * K + s_k[j]) * out_h) * out_w * C + g * V;
+      const int np = phi - plo + 1, nq = qhi - qlo + 1;
+      if (np <= 2 && nq <= 2) {
+        // every covering bin's loads in flight before the compares
+        VT pv[4], gv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i / 2 < np && i % 2 < nq) {
+            const size_t o =
+                base + ((size_t)(plo + i / 2) * out_w + qlo + i % 2) * C;
+            pv[i] = __ldg(reinterpret_cast<const VT*>(pooled + o));
+            gv[i] = __ldg(reinterpret_cast<const VT*>(grad + o));
+          }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i / 2 < np && i % 2 < nq) {
+#pragma unroll
+            for (int c = 0; c < V; ++c)
+              if (Vec<V>::at(pv[i], c) == Vec<V>::at(v, c))
+                acc[c] += (double)Vec<V>::at(gv[i], c);
+          }
+      } else {
+        for (int p = plo; p <= phi; ++p)
+          for (int q = qlo; q <= qhi; ++q) {
+            const size_t o = base + ((size_t)p * out_w + q) * C;
+            const VT pq = __ldg(reinterpret_cast<const VT*>(pooled + o));
+            const VT gq = __ldg(reinterpret_cast<const VT*>(grad + o));
+#pragma unroll
+            for (int c = 0; c < V; ++c)
+              if (Vec<V>::at(pq, c) == Vec<V>::at(v, c))
+                acc[c] += (double)Vec<V>::at(gq, c);
+          }
       }
     }
+    *dst = Vec<V>::make(acc);
   }
-  dfeat[at] = (float)acc;
 }
 
 // pitch_w: pixels per row of the stored map; pitch_h: its rows per
@@ -227,18 +313,28 @@ extern "C" int riders_roi_max_pool(const void* feat, const void* boxes,
 
 // feat: (B, H, W, C) f32; boxes: (B, K, 4) f32; pooled, grad:
 // (B, K, out_h, out_w, C) f32 (the forward's output and its cotangent);
-// dfeat: (B, H, W, C) f32, every element written.  K <= 2048.
+// dfeat: (B, H, W, C) f32, every element written.  The tiles: tile_h rows
+// x tile_w columns.  vec4 != 0 requires C % 4 == 0 and 16-byte aligned
+// pointers.  Dynamic shared memory: 20 bytes per box (K <= 2048 keeps it
+// within the default 48 KB).  Returns cudaGetLastError().
 extern "C" int riders_roi_max_pool_bwd_f32(
     const void* feat, const void* boxes, const void* pooled,
     const void* grad, void* dfeat, int B, int H, int W, int C, int K,
-    int out_h, int out_w, float scale, void* stream) {
-  const int threads = 256;
-  dim3 grid((W * C + threads - 1) / threads, H, B);
-  const size_t smem = 4 * sizeof(int) * (size_t)K;
-  roi_max_pool_bwd_kernel<<<grid, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(feat), static_cast<const float*>(boxes),
-      static_cast<const float*>(pooled), static_cast<const float*>(grad),
-      static_cast<float*>(dfeat), H, W, C, K, out_h, out_w, scale);
+    int out_h, int out_w, float scale, int tile_h, int tile_w, int vec4,
+    void* stream) {
+  dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h, B);
+  const size_t smem = (sizeof(int4) + sizeof(int)) * (size_t)K;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* f = static_cast<const float*>(feat);
+  const float* bx = static_cast<const float*>(boxes);
+  const float* p = static_cast<const float*>(pooled);
+  const float* g = static_cast<const float*>(grad);
+  float* d = static_cast<float*>(dfeat);
+  if (vec4)
+    roi_max_pool_bwd_kernel<4><<<grid, BWD_THREADS, smem, s>>>(
+        f, bx, p, g, d, H, W, C, K, out_h, out_w, scale, tile_h, tile_w);
+  else
+    roi_max_pool_bwd_kernel<1><<<grid, BWD_THREADS, smem, s>>>(
+        f, bx, p, g, d, H, W, C, K, out_h, out_w, scale, tile_h, tile_w);
   return (int)cudaGetLastError();
 }

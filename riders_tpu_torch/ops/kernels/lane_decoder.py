@@ -12,12 +12,23 @@ bf16(k), the upconv's bf16(nearest2x_phase_kernel(k)), composed in f32
 and rounded once, as the JAX package packs them.  Inputs are bf16,
 products accumulate in f32, then acc * scale + bias (scale None: linear),
 leaky-relu(slope) (None: none), and one rounding to bf16.
+
+`conv_plan` sizes the conv kernel's blocks: the column tile from Co, and
+the padded positions each block stages (its tile's span in the
+zero-bordered frame stack plus the (W + 3) halo on either side).  Where
+every input comes in whole 16-byte channel runs and a column tile's
+weights fit in shared memory beside two stages of rows, within
+RESIDENT_SMEM_LIMIT, the weights stay resident in a persistent grid
+whose tiles are runs of 256 padded positions; otherwise they stream with
+the rows, one block per tile of output pixels, shrunk until two stages
+fit.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,10 +42,95 @@ from riders_tpu_torch.ops.kernels.build import check, kernel_function
 _CONV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                  + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                  + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 _UP_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+# the conv kernel's tiles (compiled in csrc/lane_decoder.cu): output
+# channels per block -> (most output pixels per block, input channels per
+# staged chunk) with streamed weights; with resident weights every tile
+# takes RESIDENT_BK channels per chunk
+CONV_TILES = {8: (256, 32), 16: (256, 32), 32: (256, 32), 64: (256, 16)}
+RESIDENT_BK = 32
+SMEM_LIMIT = 232448         # bytes of shared memory a block may use
+# Resident weights where their kernel needs at most this much shared
+# memory: beyond it (a block per SM) it ran no faster than streaming the
+# weights on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+RESIDENT_SMEM_LIMIT = 128 * 1024
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    bn: int                 # output channels per block
+    tile_m: int             # the tile's most output pixels per block
+    bk: int                 # input channels per staged chunk
+    resident: bool          # weights resident, a persistent grid
+    bm: int                 # output pixels (resident: padded positions)
+                            # per tile
+    rows: int               # padded positions staged per tile and chunk
+    smem: int               # bytes of shared memory per block
+    tiles: int              # tiles (streamed: blocks) along the pixels
+
+
+def halo_rows(bm: int, H: int, W: int) -> int:
+    """Padded positions a block of `bm` consecutive output pixels stages:
+    its pixels' span in the stack of (H+2) x (W+2) frames (each row break
+    adds 2, each frame break 2 (W+2) more) plus W+3 on either side."""
+    k = bm - 1
+    span = k + 2 * -(-k // W) + 2 * (W + 2) * -(-k // (H * W))
+    return span + 2 * (W + 3) + 1
+
+
+def conv_smem(bn: int, tile_m: int, bk: int, rows: int) -> int:
+    """Bytes of shared memory with streamed weights: two stages of `rows`
+    staged rows of bk + 8 bf16 and 9 x bn x bk weights, the epilogue tile
+    (tile_m rows of bn + 8 bf16) overlapping them, and the rows' source
+    table."""
+    ring = 2 * (rows * (bk + 8) + 9 * bn * bk) * 2
+    return max(ring, tile_m * (bn + 8) * 2) + 4 * rows
+
+
+def resident_smem(bn: int, bk: int, rows: int, chunks: int) -> int:
+    """Bytes of shared memory with resident weights: all `chunks` chunks'
+    9 x bn x bk weights, two stages of `rows` rows of bk bf16, the
+    256-row epilogue tile and the rows' source table."""
+    return (chunks * 9 * bn * bk + 2 * rows * bk + 256 * (bn + 8)) * 2 \
+        + 4 * rows
+
+
+def padded_span(N: int, H: int, W: int) -> Tuple[int, int]:
+    """The padded positions of the first and the last map pixel in the
+    stack of N (H+2) x (W+2) zero-bordered frames."""
+    Wp = W + 2
+    return Wp + 1, (N - 1) * (H + 2) * Wp + H * Wp + W
+
+
+def conv_plan(N: int, H: int, W: int, cis: Sequence[int], co: int,
+              vec: bool = True) -> ConvPlan:
+    """The conv kernel's tiling of an (N, H, W) map stack with input
+    widths `cis` into Co channels (vec: the inputs come in whole 16-byte
+    channel runs); raises where even 16 pixels' halo does not fit."""
+    bn = next((t for t in (8, 16, 32) if co <= t), 64)
+    tile_m, bk = CONV_TILES[bn]
+    M = N * H * W
+    top = min(tile_m, -(-M // 16) * 16)
+    if vec:
+        rows = 256 + 2 * (W + 3)
+        chunks = sum(-(-c // RESIDENT_BK) for c in cis)
+        smem = resident_smem(bn, RESIDENT_BK, rows, chunks)
+        if smem <= RESIDENT_SMEM_LIMIT:
+            first, last = padded_span(N, H, W)
+            return ConvPlan(bn, 256, RESIDENT_BK, True, 256, rows, smem,
+                            (last - first) // 256 + 1)
+    for bm in range(top, 0, -16):
+        rows = halo_rows(bm, H, W)
+        smem = conv_smem(bn, tile_m, bk, rows)
+        if smem <= SMEM_LIMIT:
+            return ConvPlan(bn, tile_m, bk, False, bm, rows, smem,
+                            -(-M // bm))
+    raise ValueError(f"lane_conv3x3: maps {W} wide need a halo beyond "
+                     f"shared memory")
 
 
 def pack_conv(k: torch.Tensor) -> torch.Tensor:
@@ -128,11 +224,14 @@ def lane_conv3x3(xs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
         return out
     x1, w1, c1 = ((xs[1].data_ptr(), ws[1].data_ptr(), xs[1].shape[3])
                   if len(xs) == 2 else (0, 0, 0))
+    vec = _vectorised(*xs, *ws)
+    plan = conv_plan(N, H, W, [x.shape[3] for x in xs], Co, bool(vec))
     fn = kernel_function("lane_decoder", "riders_lane_conv3x3",
                          _CONV_ARGTYPES)
     check(fn(xs[0].data_ptr(), ws[0].data_ptr(), xs[0].shape[3], x1, w1, c1,
-             sp, bp, out.data_ptr(), N, H, W, Co, *_act(slope),
-             _vectorised(*xs, *ws), stream_handle(out)), "lane_conv3x3")
+             sp, bp, out.data_ptr(), N, H, W, Co, *_act(slope), vec,
+             plan.bn, plan.tile_m, plan.bk, int(plan.resident), plan.bm,
+             plan.rows, stream_handle(out)), "lane_conv3x3")
     LAUNCHES["lane_conv3x3"] += 1
     return out
 

@@ -8,7 +8,9 @@ CUDA tensors, bf16 or f32, and runs its plain version,
 does the same for d(feature) (`ops.patches.roi_max_pool_backward`), f32
 only, as the training forward runs f32.  `RoIMaxPool` joins the two as
 an autograd function; `roi_pool_pyramid` routes through it whenever
-grad is enabled.
+grad is enabled.  The backward kernel runs one block per (frame, tile):
+`bwd_tiles` sizes the tile, and `bwd_tile_boxes` gives the boxes a
+tile's block lists (the kernel builds that list itself, on the card).
 
 `roi_max_pool_4d` is the same pool on a map or on a canvas read in place
 over its true extent (a `NEG`-padded canvas, as the JAX package's 4D
@@ -31,11 +33,43 @@ from riders_tpu_torch.ops.kernels.build import check, kernel_function
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
     ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 NEG = -1e30                 # the fill of a padded canvas, as in JAX
 # element type -> launch counter of the plain-map forward
 _COUNTERS = {torch.bfloat16: "roi_pool", torch.float32: "roi_pool_f32"}
-MAX_BOXES_BWD = 2048        # the backward stages 16 bytes per box per block
+MAX_BOXES_BWD = 2048        # the backward lists 20 bytes per box per block
+BWD_TILE_ROWS = 8           # rows per backward tile
+BWD_TILE_SLOTS = 512        # (pixel, channel group) slots per tile: two
+                            # for each of the block's 256 threads
+
+
+def bwd_tiles(W: int, C: int) -> Tuple[int, int, int]:
+    """The backward kernel's tile: (rows, columns, channels per thread).
+    A thread owns 4 channels (one float4) where C % 4 == 0, else 1; a
+    tile holds about BWD_TILE_SLOTS of these slots (8 x 8 pixels at
+    C = 32, 8 x 2 at C = 128)."""
+    v = 4 if C % 4 == 0 else 1
+    per_row = BWD_TILE_SLOTS // BWD_TILE_ROWS
+    cols = max(1, min(W, per_row // -(-C // v)))
+    return BWD_TILE_ROWS, cols, v
+
+
+def bwd_tile_boxes(boxes: torch.Tensor, scale: float, H: int, W: int,
+                   rows: Tuple[int, int], cols: Tuple[int, int]
+                   ) -> torch.Tensor:
+    """(B, K) bool: the boxes whose clamped window meets the tile
+    [rows) x [cols), the list the backward kernel compacts per block (in
+    ascending k).  The window of a box is [s, min(s + roi, limit)) on
+    each axis, s its rounded start clamped to the map."""
+    r = lambda v: torch.floor(v.float() * scale + 0.5).long()
+    meets = None
+    for (x1, x2), limit, (lo, hi) in (((1, 3), H, rows), ((0, 2), W, cols)):
+        start = r(boxes[..., x1])
+        roi = torch.clamp(r(boxes[..., x2]) - start + 1, min=1)
+        s = torch.clamp(start, 0, limit)
+        m = (s < hi) & (torch.clamp(s + roi, max=limit) > lo)
+        meets = m if meets is None else meets & m
+    return meets
 
 
 def _forward(feature: torch.Tensor, boxes: torch.Tensor, scale: float,
@@ -91,11 +125,17 @@ def roi_max_pool_backward(feature: torch.Tensor, boxes: torch.Tensor,
     require(grad, "grad", torch.float32, tuple(pooled.shape))
     out_h, out_w = pooled.shape[2:4]
     dfeat = torch.empty_like(feature)
+    if dfeat.numel() == 0:
+        return dfeat
+    tile_h, tile_w, v = bwd_tiles(W, C)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (feature, pooled, grad,
+                                                   dfeat))
     fn = kernel_function("roi_pool", "riders_roi_max_pool_bwd_f32",
                          _BWD_ARGTYPES)
     check(fn(feature.data_ptr(), boxes.data_ptr(), pooled.data_ptr(),
              grad.data_ptr(), dfeat.data_ptr(), B, H, W, C, K, out_h, out_w,
-             scale, stream_handle(feature)), "roi_pool_bwd")
+             scale, tile_h, tile_w, int(v == 4 and aligned),
+             stream_handle(feature)), "roi_pool_bwd")
     LAUNCHES["roi_pool_bwd"] += 1
     return dfeat
 

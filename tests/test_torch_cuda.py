@@ -56,8 +56,8 @@ def _boxes(g, dev, B, K, H, W, scale, out_size):
     x1 = (torch.rand((B, K), generator=g, device=dev) * 1.4 - 0.2) * W / scale
     y1 = (torch.rand((B, K), generator=g, device=dev) * 1.4 - 0.2) * H / scale
     x1[:, 0], y1[:, 0] = 0.0, 0.0
-    x1[:, 1], y1[:, 1] = W / scale + 5, H / scale + 5
-    x1[:, 2] = torch.floor(x1[:, 2]) + 0.5
+    x1[:, 1:2], y1[:, 1:2] = W / scale + 5, H / scale + 5
+    x1[:, 2:3] = torch.floor(x1[:, 2:3]) + 0.5
     return torch.stack([x1, y1, x1 + pw, y1 + ph], -1).contiguous()
 
 
@@ -84,20 +84,28 @@ def test_roi_pool_kernel_matches_plain(dev, C, out_size, scale, dtype,
     assert not bool(got[:, 1].any())          # empty bins are 0
 
 
-@pytest.mark.parametrize("C,out_size,scale,K,ties", [
-    (3, (7, 3), 1 / 32, 9, False), (32, (37, 12), 0.25, 9, False),
-    (128, (18, 6), 0.125, 9, True), (8, (60, 25), 0.5, 9, True),
-    (5, (9, 4), 0.25, 300, False), (16, (12, 5), 0.5, 300, True)])
+@pytest.mark.parametrize("C,out_size,scale,K,ties,hw", [
+    (3, (7, 3), 1 / 32, 9, False, (23, 31)),
+    (32, (37, 12), 0.25, 9, False, (23, 31)),
+    (128, (18, 6), 0.125, 9, True, (23, 31)),
+    (8, (60, 25), 0.5, 9, True, (23, 31)),
+    (5, (9, 4), 0.25, 300, False, (23, 31)),
+    (16, (12, 5), 0.5, 300, True, (23, 31)),
+    (32, (6, 4), 0.5, 1, False, (70, 90)),       # K=1: most tiles boxless
+    (64, (9, 5), 0.25, 9, False, (61, 47)),      # tiles past the map edge
+    (32, (12, 5), 0.5, 9, True, (45, 70)),       # float4 path, exact ties
+    (128, (4, 1), 1 / 32, 40, True, (21, 22)),   # NTU latent, ties
+    (12, (5, 3), 0.25, 2048, False, (19, 27))])  # K at the wrapper's limit
 def test_roi_backward_kernel_matches_plain(dev, C, out_size, scale, K,
-                                           ties):
+                                           ties, hw):
     """Against the plain backward in f64: the kernel sums each element's
     contributions in f64 and rounds once, so it is within 1e-6 |p| + 1e-6
     of the plain sum p (half an f32 ulp, in fact).  Two launches are
     bitwise equal.  Integer features tie inside bins, where every tied
-    element gets the full cotangent; ragged widths, K=300 and boxes past
-    the map included."""
+    element gets the full cotangent; ragged widths, tiles that no box
+    meets, boxes past the map, K from 1 to the wrapper's limit."""
     g = torch.Generator(device=dev).manual_seed(5)
-    B, H, W = 2, 23, 31
+    B, (H, W) = 2, hw
     feat = torch.randn((B, H, W, C), generator=g, device=dev)
     if ties:
         feat = torch.round(2 * feat)
@@ -213,7 +221,19 @@ def _lane_within_one_step(got, want):
     (2, 11, 4, (13, 6), 20, True),       # Ci % 8 != 0: scalar loads
     (7, 10, 6, (64,), 4, False),         # the output conv: linear, Co 4
     (1, 1, 1, (32,), 16, True),          # a 1x1 map: every tap but one out
-    (3, 75, 25, (32, 32), 32, True)])    # NTU deconv1 fusion
+    (3, 75, 25, (32, 32), 32, True),     # NTU deconv1 fusion
+    (5, 13, 7, (32,), 32, True),         # W + 2 = 9 divides no block run
+    (1, 75, 25, (64,), 64, True),        # a single patch over many blocks
+    (1, 9, 3, (256, 128), 256, True),    # N = 1: one block, bm cut to 32
+    (4, 75, 25, (64,), 4, False),        # Co = 4: the 8-column tile
+    (3, 9, 3, (12,), 8, True),           # Ci % 8 != 0 at Co = 8
+    (4, 18, 6, (128, 64), 128, True),    # two inputs of unequal width
+    (300, 1, 1, (64,), 256, True),       # 1x1 maps, two column tiles
+    (300, 1, 1, (32,), 32, True),        # 1x1 maps: the halo cuts bm
+    (1, 3, 300, (32,), 64, True),        # a wide map
+    (40, 75, 25, (32, 32), 32, True),    # resident: several tiles a block
+    (6, 20, 10, (32,), 128, True),       # resident: two column tiles
+    (37, 75, 25, (64,), 4, False)])      # resident Co 4, a partial tile
 def test_lane_conv3x3_kernel_matches_plain(dev, N, H, W, cis, co, act):
     g = torch.Generator(device=dev).manual_seed(11)
     xs = [torch.randn((N, H, W, c), generator=g, device=dev).to(
