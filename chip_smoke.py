@@ -2,19 +2,29 @@
 """Drive the PyTorch / CUDA port's fused inference path and its RC-Net
 and SML training steps on one GPU.
 
-    python3 chip_smoke.py             # all phases, report lines
-    python3 chip_smoke.py --profile   # also torch.profiler breakdowns of
-                                      # a fused call and a training step
+    python3 chip_smoke.py                 # all phases, report lines
+    python3 chip_smoke.py --profile       # also torch.profiler breakdowns
+                                          # of a fused call and a step
+    python3 chip_smoke.py --kernel-times  # phase 1, then only the checks
+                                          # and times of B1, B2, B4, B6
+                                          # (copied into another tree's
+                                          # root, it times that tree's)
+
+Kernel times: `ms` is the median of synchronised calls (host dispatch
+counts in); `graph_ms` replays 20 calls captured in one CUDA graph
+between two events, over 20: the device's time alone (B1, B2, B4, B6);
+`device_ms` times 20 calls queued back to back (B5, B7, B8).
 
 Phases, each fatal on failure:
   1. set-up: the card, the versions, the nvcc build of csrc/*.cu;
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the fused path's shapes (B=16, bf16) for the NTU and ZJU
      geometries, with CUDA-event times of both and of a library yardstick;
+     the RoI pyramid in one launch;
   3. the full-width NTU fused path at 640x512, B=16, K=48 (40 real
      points), bf16, on seeded random weights: three batches with the
-     launch counters reset just before, output checks, fps; then the ZJU
-     geometry at B=4 the same way;
+     launch counters reset just before, output checks (one RoI pool
+     launch per call), fps; then the ZJU geometry at B=4 the same way;
   4. agreement of the card's bf16 path with the port's f32 CPU path on a
      small input with the same weights, within the CPU's own bf16 spread;
   4b. the lane-major decoder and the 4D RoI pyramid: (a) the lane conv
@@ -107,6 +117,33 @@ def device_ms(fn, n=20, warmup=3):
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n=20, replays=5):
+    """The device's time per call of `fn`, apart from the host: n calls
+    captured in one CUDA graph, replayed between two events, over n (the
+    median of `replays` replays)."""
+    import torch
+    fn()                                        # builds, cuDNN plans
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def bound_ms(nbytes, flops=0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -146,21 +183,40 @@ def compose_read_elems(points, mask, frame, patch):
     return int((rows.clamp(min=0) * cols.clamp(min=0) * (mask > 0)).sum())
 
 
+def pyramid_inputs(geometry, B, g):
+    """The fused path's RoI pyramid inputs at the preset's geometry: five
+    random bf16 NHWC maps at the RC-Net encoder's strides and widths (the
+    edge-padded frame's /2 ... /32), and a make_batch frame's boxes,
+    shifted points and point mask."""
+    import torch
+    from riders_tpu_torch.pipelines.rcnet_inference import (
+        shift_points_and_boxes)
+    geo = GEOMETRIES[geometry]
+    ph, pw = geo["patch"]
+    h, w = FRAME[0] + 2 * (ph // 2), FRAME[1] + 2 * (pw // 2)
+    maps = []
+    for c in (32, 64, 128, 128, 128):
+        h, w = -(-h // 2), -(-w // 2)
+        maps.append(torch.randn((B, h, w, c), generator=g,
+                                device=g.device).to(torch.bfloat16))
+    batch = make_batch(7, B, geo["bucket"], geo["real"], FRAME, g.device)
+    points, boxes = shift_points_and_boxes(batch["radar_points"], (ph, pw))
+    return maps, boxes.contiguous(), points, batch["point_mask"]
+
+
 def check_kernels(geometry, B=16):
     """Each kernel against its plain version at the fused path's shapes;
     returns {kernel name: record}."""
     import torch
     import torch.nn.functional as F
     from riders_tpu_torch.ops import patches
-    from riders_tpu_torch.ops.kernels import compose, roi_pool, stem
-    from riders_tpu_torch.pipelines.rcnet_inference import (
-        shift_points_and_boxes)
+    from riders_tpu_torch.ops.kernels import LAUNCHES, compose, roi_pool, stem
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     geo = GEOMETRIES[geometry]
     ph, pw = geo["patch"]
-    K, n_real = geo["bucket"], geo["real"]
+    K = geo["bucket"]
     H, W = FRAME
     Hp, Wp = H + 2 * (ph // 2), W + 2 * (pw // 2)
     out = {}
@@ -197,27 +253,26 @@ def check_kernels(geometry, B=16):
     nbytes = 2 * (x.numel() + k_out.numel() + k_pool.numel()) + 4 * w.numel()
     flops = 2.0 * k_out.numel() * 147
     bnd, by = bound_ms(nbytes, flops)
+    run = lambda: stem.stem_conv_pool(x, w, scale, bias)
+    # the kernel alone, on weights packed once (the wrapper packs per call)
+    launch = getattr(stem, "_launch", None)
+    wk, bk = ((stem.pack_weights(w, scale), bias.float().contiguous())
+              if launch else (None, None))
     out["stem"] = dict(
         max_abs_err=err, tolerance="|k-p| <= 2^-7 |p| + 1e-4",
-        ms=time_ms(lambda: stem.stem_conv_pool(x, w, scale, bias)),
+        ms=time_ms(run), graph_ms=graph_ms(run),
+        kernel_graph_ms=graph_ms(lambda: launch(x, wk, bk)) if launch
+        else None,
         plain_ms=time_ms(
             lambda: stem.stem_conv_pool_plain(x, w, scale, bias)),
-        library_ms=time_ms(library_stem), bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(library_stem),
+        library_graph_ms=graph_ms(library_stem), bound_ms=bnd, bound_by=by,
         bytes=nbytes, flops=flops,
         shapes=dict(x=list(x.shape), out=list(k_out.shape),
                     pooled=list(k_pool.shape)))
 
     # ---- RoI pool pyramid: skips /2 /4 /8 /16 and the latent /32
-    widths = (32, 64, 128, 128, 128)
-    maps, h, w_ = [], Hp, Wp
-    for c in widths:
-        h, w_ = -(-h // 2), -(-w_ // 2)
-        maps.append(torch.randn((B, h, w_, c), generator=g, device=dev).to(
-            torch.bfloat16))
-    batch = make_batch(7, B, K, n_real, FRAME, dev)
-    mask = batch["point_mask"]
-    points, boxes = shift_points_and_boxes(batch["radar_points"], (ph, pw))
-    boxes = boxes.contiguous()
+    maps, boxes, points, mask = pyramid_inputs(geometry, B, g)
     k_lat, k_sk = roi_pool.roi_pool_pyramid(maps[-1], maps[:-1], boxes,
                                             (ph, pw))
     p_lat, p_sk = patches.roi_pool_pyramid(maps[-1], maps[:-1], boxes,
@@ -234,14 +289,18 @@ def check_kernels(geometry, B=16):
     nbytes = (roi_read_bytes(maps, boxes, (ph, pw)) + 4 * boxes.numel()
               + sum(2 * o.numel() for o in [k_lat] + k_sk))
     bnd, by = bound_ms(nbytes)
+    run = lambda: roi_pool.roi_pool_pyramid(maps[-1], maps[:-1], boxes,
+                                            (ph, pw))
+    before = LAUNCHES["roi_pool"]
+    run()
+    launches = LAUNCHES["roi_pool"] - before
     out["roi_pool"] = dict(
         max_abs_err=err, tolerance="bitwise",
-        ms=time_ms(lambda: roi_pool.roi_pool_pyramid(
-            maps[-1], maps[:-1], boxes, (ph, pw))),
+        ms=time_ms(run), graph_ms=graph_ms(run),
         plain_ms=time_ms(lambda: patches.roi_pool_pyramid(
             maps[-1], maps[:-1], boxes, (ph, pw))),
         library_ms=None, bound_ms=bnd, bound_by=by, bytes=nbytes,
-        launches_per_call=5,
+        launches_per_call=launches,
         shapes=dict(maps=[list(m.shape) for m in maps],
                     out=[list(o.shape) for o in [k_lat] + k_sk]))
 
@@ -263,10 +322,11 @@ def check_kernels(geometry, B=16):
                   + points.numel() + mask.numel() + B
                   + k_d.numel() + k_r.numel())
     bnd, by = bound_ms(nbytes)
+    run = lambda: compose.compose_patches(resp, points, mask, FRAME,
+                                          (ph, pw), thr)
     out["compose"] = dict(
         max_abs_err=err, tolerance="bitwise",
-        ms=time_ms(lambda: compose.compose_patches(
-            resp, points, mask, FRAME, (ph, pw), thr)),
+        ms=time_ms(run), graph_ms=graph_ms(run),
         plain_ms=time_ms(lambda: patches.compose_patches(
             resp, points, mask, FRAME, (ph, pw), thr)),
         library_ms=None, bound_ms=bnd, bound_by=by, bytes=nbytes,
@@ -345,6 +405,10 @@ def drive(preset, B, seed=0):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{preset}: kernel {name} was not launched "
                                  f"on the fused path ({launches})")
+    if launches["roi_pool"] != len(batches):
+        raise AssertionError(f"{preset}: {launches['roi_pool']} RoI pool "
+                             f"launches in {len(batches)} calls, not one "
+                             f"pyramid launch per call")
     for d in outs:
         if tuple(d.shape) != (B,) + FRAME:
             raise AssertionError(f"{preset}: depth shape {tuple(d.shape)}")
@@ -643,8 +707,10 @@ def check_roi_4d(preset, maps, boxes, patch):
                   + sum(2 * o.numel() for o in [k_lat] + k_sk))
         bnd, by = bound_ms(nbytes)
         return dict(max_abs_err=err, tolerance="bitwise", ms=time_ms(run),
+                    graph_ms=graph_ms(run),
                     plain_ms=time_ms(plain, n=5, warmup=1), library_ms=None,
-                    b2_ms=time_ms(b2), bound_ms=bnd, bound_by=by,
+                    b2_ms=time_ms(b2), b2_graph_ms=graph_ms(b2),
+                    bound_ms=bnd, bound_by=by,
                     bytes=nbytes, launches_per_call=launches,
                     canvas=list(canvas.shape),
                     maps=[list(m.shape) for m in maps])
@@ -674,6 +740,10 @@ def lane_phase(runs):
         _, boxes = shift_points_and_boxes(batch["radar_points"], geo["patch"])
         kernels[preset]["roi_pool_4d"] = check_roi_4d(
             preset, cap["maps"], boxes.contiguous(), geo["patch"])
+        n = kernels[preset]["roi_pool_4d"]["launches_per_call"]
+        if n != 1:
+            raise AssertionError(f"{preset}: the 4D pyramid took {n} "
+                                 f"launches, not one")
         del cap
         torch.cuda.empty_cache()
     return kernels, decoders
@@ -810,6 +880,7 @@ def check_training_kernels(preset):
 
     out["roi_pool_f32"] = dict(
         max_abs_err=err, tolerance="bitwise", ms=time_ms(kernel_forward),
+        graph_ms=graph_ms(kernel_forward),
         plain_ms=time_ms(lambda: patches.roi_pool_pyramid(
             maps[-1], maps[:-1], boxes, (ph, pw))),
         library_ms=None, bound_ms=bnd, bound_by=by, bytes=nbytes,
@@ -1101,6 +1172,37 @@ def profile(fn, batch, path):
     return table
 
 
+def kernel_times(smi):
+    """`--kernel-times`: phase 2's, phase 5's RoI forward and phase 4b's
+    B6 checks and times alone, B6 on random maps at the fused path's
+    shapes; one {"kernel_times": ...} line.  Run from a copy of another
+    tree, it times that tree's kernels with these same inputs."""
+    import torch
+    keep = ("ms", "graph_ms", "kernel_graph_ms", "library_ms",
+            "library_graph_ms",
+            "plain_ms", "bound_ms", "bound_by", "launches_per_call",
+            "b2_graph_ms", "max_abs_err")
+    rows = {}
+    for geometry in GEOMETRIES:
+        recs = check_kernels(geometry)
+        maps, boxes, _, _ = pyramid_inputs(
+            geometry, 16, torch.Generator(device="cuda").manual_seed(40))
+        recs["roi_pool_4d"] = check_roi_4d(geometry, maps, boxes,
+                                           GEOMETRIES[geometry]["patch"])
+        recs["roi_pool_f32"] = check_training_kernels(geometry)[
+            "roi_pool_f32"]
+        for name, r in recs.items():
+            rows[f"{name} [{geometry}]"] = {k: r[k] for k in keep if k in r}
+        del maps, boxes
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        log(f"kernel time {name}: {json.dumps(r)}")
+    log(json.dumps({"kernel_times": dict(card=smi, tree=str(HERE),
+                                         rows=rows)}))
+    log(smi)
+    return 0
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
@@ -1130,14 +1232,22 @@ def main(argv):
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if "--kernel-times" in argv:
+        return kernel_times(smi)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():
+        if recs["roi_pool"]["launches_per_call"] != 1:
+            raise AssertionError(f"roi_pool [{g}]: the pyramid took "
+                                 f"{recs['roi_pool']['launches_per_call']} "
+                                 f"launches, not one")
         for name, r in recs.items():
             log(f"kernel {name} [{g}]: max_abs_err {r['max_abs_err']} "
                 f"({r['tolerance']}) kernel {r['ms']:.4f} ms plain "
                 f"{r['plain_ms']:.4f} ms library {r['library_ms']} bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) graph: wrapper "
+                f"{r['graph_ms']:.4f} ms kernel {r.get('kernel_graph_ms')} "
+                f"library {r.get('library_graph_ms')}")
     LAUNCHES.clear()
 
     ntu, ntu_fn, ntu_batch, ntu_rcnet = drive("ntu", 16)
@@ -1157,7 +1267,9 @@ def main(argv):
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
                 + (f" back to back: kernel {r['device_ms']:.4f} ms library "
                    f"{r['library_device_ms']:.4f} ms"
-                   if "device_ms" in r else ""))
+                   if "library_device_ms" in r else "")
+                + (f" graph: kernel {r['graph_ms']:.4f} ms"
+                   if "graph_ms" in r else ""))
         log(f"lane decoder [{g}]: {json.dumps(lane[g])}")
     del zju_fn, zju_rcnet
 
@@ -1170,7 +1282,9 @@ def main(argv):
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
                 + (f" back to back {r['device_ms']:.4f} ms empty tiles "
                    f"{r['empty_tile_share']}"
-                   if "empty_tile_share" in r else ""))
+                   if "empty_tile_share" in r else "")
+                + (f" graph {r['graph_ms']:.4f} ms" if "graph_ms" in r
+                   else ""))
     training = drive_training(
         profile_dir=HERE / "chiprun_out" if "--profile" in argv else None)
     for name in ("rcnet", "sml"):
@@ -1214,8 +1328,12 @@ def main(argv):
                                 for g in GEOMETRIES),
                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
-                zju=dict((k, recs["zju"][name][k]) for k in
-                         ("ms", "plain_ms", "library_ms", "bound_ms"))))
+                graph_ms=r.get("graph_ms"), device_ms=r.get("device_ms"),
+                kernel_graph_ms=r.get("kernel_graph_ms"),
+                zju=dict((k, recs["zju"][name].get(k)) for k in
+                         ("ms", "graph_ms", "device_ms", "plain_ms",
+                          "library_ms",
+                          "bound_ms"))))
     if "--profile" in argv:
         out_dir = HERE / "chiprun_out"
         out_dir.mkdir(exist_ok=True)

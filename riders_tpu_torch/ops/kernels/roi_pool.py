@@ -4,24 +4,29 @@ and its backward.
 `roi_max_pool` launches the CUDA forward kernel (csrc/roi_pool.cu) for
 CUDA tensors, bf16 or f32, and runs its plain version,
 `ops.patches.roi_max_pool`, for CPU tensors; it counts bf16 launches as
-`roi_pool` and f32 ones as `roi_pool_f32`.  `roi_max_pool_backward`
-does the same for d(feature) (`ops.patches.roi_max_pool_backward`), f32
-only, as the training forward runs f32.  `RoIMaxPool` joins the two as
-an autograd function; `roi_pool_pyramid` routes through it whenever
-grad is enabled.  The backward kernel runs one block per (frame, tile):
+`roi_pool` and f32 ones as `roi_pool_f32`.  The forward kernel takes a
+table of up to five maps: `roi_pool_pyramid` pools a whole pyramid in
+one launch (one count), `roi_max_pool` is a table of one.  `fwd_plan`
+splits the work into blocks of one (scale, frame, box, strip of output
+rows).  `roi_max_pool_backward` does the same
+for d(feature) (`ops.patches.roi_max_pool_backward`), f32 only, as the
+training forward runs f32.  `RoIMaxPool` joins the two as an autograd
+function, one forward and one backward launch per scale;
+`roi_pool_pyramid` routes through it where grad is enabled and a map
+requires it.  The backward kernel runs one block per (frame, tile):
 `bwd_tiles` sizes the tile, and `bwd_tile_boxes` gives the boxes a
 tile's block lists (the kernel builds that list itself, on the card).
 
 `roi_max_pool_4d` is the same pool on a map or on a canvas read in place
 over its true extent (a `NEG`-padded canvas, as the JAX package's 4D
 pool takes it), the same kernel given the canvas's pitches, counted as
-`roi_pool_4d`; `roi_pool_pyramid_4d` pools every scale with it.
+`roi_pool_4d`; `roi_pool_pyramid_4d` pools every scale in one launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,17 +35,62 @@ from riders_tpu_torch.ops.kernels import (LAUNCHES, on_cpu, require,
                                           stream_handle)
 from riders_tpu_torch.ops.kernels.build import check, kernel_function
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] + [
+    ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 NEG = -1e30                 # the fill of a padded canvas, as in JAX
 # element type -> launch counter of the plain-map forward
 _COUNTERS = {torch.bfloat16: "roi_pool", torch.float32: "roi_pool_f32"}
+FWD_BLOCK_ELEMS = 2048      # (output row, thread slot) elements a forward
+                            # block aims at: 8 per thread
+FWD_MAX_SCALES = 5          # maps per forward launch (its table's rows)
 MAX_BOXES_BWD = 2048        # the backward lists 20 bytes per box per block
 BWD_TILE_ROWS = 8           # rows per backward tile
 BWD_TILE_SLOTS = 512        # (pixel, channel group) slots per tile: two
                             # for each of the block's 256 threads
+
+
+class FwdScale(NamedTuple):
+    """One map's row of the forward kernel's table: output rows, channels
+    per thread slot (`vec`), slots per output row, output rows per block
+    (`rows`), blocks per (frame, box) (`strips`) and the scale's first
+    block."""
+    out_h: int
+    vec: int
+    slots: int
+    rows: int
+    strips: int
+    block0: int
+
+
+def fwd_vec(C: int, dtype: torch.dtype, aligned: bool = True) -> int:
+    """Channels per forward thread slot: one 16-byte vector (8 bf16, 4
+    f32) where C is a multiple of it and the pointers are aligned, else
+    1."""
+    wide = 16 // dtype.itemsize
+    return wide if C % wide == 0 and aligned else 1
+
+
+def fwd_plan(B: int, K: int, scales: Sequence[Tuple[int, int, int, int]]
+             ) -> List[FwdScale]:
+    """The forward launch's work split.  scales: (C, out_h, out_w, vec)
+    per map.  A block pools `rows` output rows of one (frame, box) at one
+    scale, about FWD_BLOCK_ELEMS (row, slot) elements; the strips of a
+    patch are balanced.  Blocks are numbered scale by scale, then
+    (frame, box), then strip."""
+    plan, block0 = [], 0
+    for C, out_h, out_w, vec in scales:
+        slots = out_w * (C // vec)
+        if out_h <= 0 or slots <= 0:
+            plan.append(FwdScale(out_h, vec, max(slots, 0), 1, 0, block0))
+            continue
+        rows = max(1, min(out_h, -(-FWD_BLOCK_ELEMS // slots)))
+        strips = -(-out_h // rows)
+        rows = -(-out_h // strips)
+        plan.append(FwdScale(out_h, vec, slots, rows, strips, block0))
+        block0 += B * K * strips
+    return plan
 
 
 def bwd_tiles(W: int, C: int) -> Tuple[int, int, int]:
@@ -72,27 +122,45 @@ def bwd_tile_boxes(boxes: torch.Tensor, scale: float, H: int, W: int,
     return meets
 
 
-def _forward(feature: torch.Tensor, boxes: torch.Tensor, scale: float,
-             out_size: Tuple[int, int], true_hw: Tuple[int, int],
-             counter: str) -> torch.Tensor:
-    """Launch the forward kernel on the leading `true_hw` of `feature`."""
-    if feature.dtype not in _COUNTERS:
-        raise TypeError(f"feature: expected bf16 or f32, got "
-                        f"{feature.dtype}")
-    B, rows, cols, C = feature.shape
-    require(feature, "feature", feature.dtype)
+def _forward(levels, boxes: torch.Tensor, counter: str
+             ) -> List[torch.Tensor]:
+    """One launch of the forward kernel pooling every level, a (feature,
+    (H, W) true extent, scale, out_size) each, of which the leading
+    (H, W) is read; returns the pooled maps."""
+    dtype = levels[0][0].dtype
+    if dtype not in _COUNTERS:
+        raise TypeError(f"feature: expected bf16 or f32, got {dtype}")
+    if len(levels) > FWD_MAX_SCALES:
+        raise ValueError(f"at most {FWD_MAX_SCALES} maps per launch")
+    B = levels[0][0].shape[0]
     require(boxes, "boxes", torch.float32, (B, None, 4))
     K = boxes.shape[1]
-    (H, W), (out_h, out_w) = true_hw, out_size
-    out = torch.empty((B, K, out_h, out_w, C), dtype=feature.dtype,
-                      device=feature.device)
-    fn = kernel_function("roi_pool", "riders_roi_max_pool", _ARGTYPES)
-    check(fn(feature.data_ptr(), boxes.data_ptr(), out.data_ptr(), B, H, W,
-             C, K, out_h, out_w, scale, rows, cols,
-             int(feature.dtype == torch.float32), stream_handle(feature)),
-          counter)
+    outs, dims, shapes = [], [], []
+    for feature, (H, W), _, (out_h, out_w) in levels:
+        require(feature, "feature", dtype, (B, None, None, None))
+        C = feature.shape[3]
+        out = torch.empty((B, K, out_h, out_w, C), dtype=dtype,
+                          device=feature.device)
+        aligned = feature.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+        outs.append(out)
+        shapes.append((C, out_h, out_w, fwd_vec(C, dtype, aligned)))
+        dims.append((H, W, C) + tuple(feature.shape[1:3]) + (out_h, out_w))
+    plan = fwd_plan(B, K, shapes)
+    if all(s.strips == 0 for s in plan):
+        return outs
+    n = len(levels)
+    fn = kernel_function("roi_pool", "riders_roi_pool_pyramid",
+                         _FWD_ARGTYPES)
+    check(fn((ctypes.c_void_p * n)(*[lv[0].data_ptr() for lv in levels]),
+             (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
+             (ctypes.c_int * (10 * n))(*[v for d, s in zip(dims, plan)
+                                         for v in d + (s.vec, s.rows,
+                                                       s.strips)]),
+             (ctypes.c_float * n)(*[lv[2] for lv in levels]), n,
+             boxes.data_ptr(), B, K, int(dtype == torch.float32),
+             stream_handle(boxes)), counter)
     LAUNCHES[counter] += 1
-    return out
+    return outs
 
 
 def roi_max_pool(feature: torch.Tensor, boxes: torch.Tensor, scale: float,
@@ -102,8 +170,8 @@ def roi_max_pool(feature: torch.Tensor, boxes: torch.Tensor, scale: float,
     bf16 or f32 and the boxes contiguous f32."""
     if on_cpu(feature, boxes):
         return patches.roi_max_pool(feature, boxes, scale, out_size)
-    return _forward(feature, boxes, scale, out_size, feature.shape[1:3],
-                    _COUNTERS.get(feature.dtype, "roi_pool"))
+    return _forward([(feature, feature.shape[1:3], scale, out_size)], boxes,
+                    _COUNTERS.get(feature.dtype, "roi_pool"))[0]
 
 
 def roi_max_pool_backward(feature: torch.Tensor, boxes: torch.Tensor,
@@ -166,15 +234,35 @@ def roi_max_pool_diff(feature: torch.Tensor, boxes: torch.Tensor,
     return RoIMaxPool.apply(feature, boxes, scale, tuple(out_size))
 
 
+def _pyramid(maps: Sequence[torch.Tensor], true_hw, boxes: torch.Tensor,
+             patch_size: Tuple[int, int], counter: str
+             ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Every map of a pyramid (skips shallow to deep, then the latent),
+    each read over its true extent, in one forward launch (FWD_MAX_SCALES
+    maps per launch)."""
+    levels = [(m, hw, s, size) for m, hw, (s, size) in zip(
+        maps, true_hw, patches.pyramid_levels(len(maps) - 1, patch_size))]
+    outs = []
+    for i in range(0, len(levels), FWD_MAX_SCALES):
+        outs += _forward(levels[i:i + FWD_MAX_SCALES], boxes, counter)
+    return outs[-1], outs[:-1]
+
+
 def roi_pool_pyramid(latent: torch.Tensor, skips: Sequence[torch.Tensor],
                      boxes: torch.Tensor, patch_size: Tuple[int, int]
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """`ops.patches.roi_pool_pyramid` through the kernel wrappers: one
-    launch per scale on CUDA, and one backward launch per scale when grad
-    is enabled."""
-    pool = roi_max_pool_diff if torch.is_grad_enabled() else roi_max_pool
-    return patches.roi_pool_pyramid(latent, skips, boxes, patch_size,
-                                    pool=pool)
+    """`ops.patches.roi_pool_pyramid` through the kernels.  On CUDA, one
+    forward launch pools the whole pyramid; where a map needs a gradient
+    (grad enabled), each scale goes through `RoIMaxPool` instead, one
+    forward and one backward launch per scale."""
+    maps = list(skips) + [latent]
+    if torch.is_grad_enabled() and any(m.requires_grad for m in maps):
+        return patches.roi_pool_pyramid(latent, skips, boxes, patch_size,
+                                        pool=roi_max_pool_diff)
+    if on_cpu(*maps, boxes):
+        return patches.roi_pool_pyramid(latent, skips, boxes, patch_size)
+    return _pyramid(maps, [m.shape[1:3] for m in maps], boxes, patch_size,
+                    _COUNTERS.get(latent.dtype, "roi_pool"))
 
 
 def roi_max_pool_4d(feature: torch.Tensor, boxes: torch.Tensor,
@@ -194,20 +282,26 @@ def roi_max_pool_4d(feature: torch.Tensor, boxes: torch.Tensor,
     if on_cpu(feature, boxes):
         return patches.roi_max_pool(feature[:, :H, :W], boxes, scale,
                                     out_size)
-    return _forward(feature, boxes, scale, out_size, (H, W), "roi_pool_4d")
+    return _forward([(feature, (H, W), scale, out_size)], boxes,
+                    "roi_pool_4d")[0]
 
 
 def roi_pool_pyramid_4d(latent: torch.Tensor, skips: Sequence[torch.Tensor],
                         boxes: torch.Tensor, patch_size: Tuple[int, int],
                         skip1_true_hw: Optional[Tuple[int, int]] = None
                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """`roi_pool_pyramid` through `roi_max_pool_4d`, skips[0] optionally a
-    canvas with true extent `skip1_true_hw`; inference only (no
-    backward)."""
-    skip1 = skips[0] if len(skips) else None
-
-    def pool(feature, boxes, scale, out_size):
-        hw = skip1_true_hw if feature is skip1 else None
-        return roi_max_pool_4d(feature, boxes, scale, out_size, hw)
-    return patches.roi_pool_pyramid(latent, skips, boxes, patch_size,
-                                    pool=pool)
+    """`roi_pool_pyramid` through the 4D pool, skips[0] optionally a
+    canvas with true extent `skip1_true_hw`, all scales in one launch on
+    CUDA (counted as `roi_pool_4d`); inference only (no backward)."""
+    maps = list(skips) + [latent]
+    true_hw = [m.shape[1:3] for m in maps]
+    if len(skips) and skip1_true_hw is not None:
+        true_hw[0] = tuple(skip1_true_hw)
+        if any(t > s for t, s in zip(true_hw[0], maps[0].shape[1:3])):
+            raise ValueError(f"canvas {tuple(maps[0].shape)} is smaller "
+                             f"than its true extent {true_hw[0]}")
+    if on_cpu(*maps, boxes):
+        return patches.roi_pool_pyramid(
+            latent, [m[:, :H, :W] for m, (H, W) in zip(skips, true_hw)],
+            boxes, patch_size)
+    return _pyramid(maps, true_hw, boxes, patch_size, "roi_pool_4d")

@@ -5,6 +5,13 @@ tensors and runs `stem_conv_pool_plain` for CPU tensors.  Both fold the
 BN scale into the weights in f32 and round them to the input dtype (as
 the TPU kernel does), accumulate in f32, add the bias, apply the leaky
 relu, round to the input dtype, then max-pool that rounded map.
+
+The kernel runs the 7x7x3 contraction as a GEMM on the tensor cores
+(mma.sync m16n8k16) with K = the 147 taps (ky, kx, ci), each kernel
+row's 21 padded to 24, then to 176, in the order `k_order` gives.
+`pack_weights` lays the folded weights out in the order its lanes read
+their B fragments; `k_offsets` gives each k's offset in the block's
+staged input tile, from which the lanes gather A.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -21,12 +29,62 @@ from riders_tpu_torch.ops.kernels.build import check, kernel_function
 
 KERNEL_SIZE, CIN, COUT = 7, 3, 32
 NEGATIVE_SLOPE = 0.2              # the leaky relu of RC-Net's stem
+K_STEPS = 11                      # K = 7 kernel rows x 24 padded to 176:
+                                  # eleven 16-deep mma steps
+POOLED_TILE = (8, 16)             # pooled rows, columns of a block (stem.cu)
+STAGED_ROW_PITCH = 216            # bf16 per staged input row (stem.cu SP)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _folded(weight: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """BN scale folded into (Cout, Cin, k, k) weights, in f32."""
     return weight.float() * scale.float()[:, None, None, None]
+
+
+def k_order() -> np.ndarray:
+    """(176, 2): the staged-window element (ky, j) that GEMM row k holds,
+    j = kx * 3 + ci of kernel row ky; (-1, -1) for the 29 padding rows.
+    Each kernel row's 21 taps fill three groups of 8 rows (the last with
+    3 rows of padding), k = 8 G + i holding kernel row G // 3, tap
+    8 (G % 3) + i; group 21 is padding.  Lane t of the kernel loads rows
+    (8 G + 2 t, + 1) as one 32-bit word at offset `k_offsets()[8 G]` + 2 t
+    of its pixel's window."""
+    order = np.full((16 * K_STEPS, 2), -1, np.int64)
+    for G in range(3 * KERNEL_SIZE):
+        for i in range(8):
+            j = 8 * (G % 3) + i
+            if j < KERNEL_SIZE * CIN:
+                order[8 * G + i] = (G // 3, j)
+    return order
+
+
+def pack_weights(weight: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The folded weights as the kernel reads B: bf16 GEMM rows k in
+    `k_order` (each kernel row's 21 taps padded to 24, then 176 rows), 32
+    output channels each, the padding rows zero, in fragment order (s,
+    half, lane, word, element).  Lane 4 g + t's 16 bytes of half h at
+    k-step s are the m16n8k16 B fragments of n-tiles 2h and 2h + 1: per
+    n-tile, rows (k, k + 1) and (k + 8, k + 9) at k = 16 s + 2 t, column
+    8 n + g."""
+    taps = _folded(weight, scale).to(torch.bfloat16).permute(2, 3, 1, 0)
+    rows = KERNEL_SIZE * CIN
+    wk = torch.cat([taps.reshape(KERNEL_SIZE, rows, COUT),
+                    taps.new_zeros((KERNEL_SIZE, 24 - rows, COUT))], 1)
+    wk = torch.cat([wk.reshape(-1, COUT), taps.new_zeros(
+        (16 * K_STEPS - 24 * KERNEL_SIZE, COUT))])
+    # k = 16 s + 8 u + 2 t + e, co = 16 h + 8 nn + g  ->  (s, h, g, t, nn,
+    # u, e): word 2 nn + u of lane 4 g + t's half h
+    return wk.reshape(K_STEPS, 2, 4, 2, 2, 2, 8).permute(
+        0, 4, 6, 2, 5, 1, 3).contiguous().reshape(-1)
+
+
+def k_offsets() -> np.ndarray:
+    """(176,) the K -> shared offset table: GEMM row k's element in a
+    staged input tile, relative to the pixel's input window corner,
+    ky * STAGED_ROW_PITCH + j (stem.cu's koffset per group of 8); -1 for
+    padding."""
+    ky, j = k_order().T
+    return np.where(ky >= 0, ky * STAGED_ROW_PITCH + j, -1)
 
 
 def stem_conv_pool_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -58,17 +116,24 @@ def stem_conv_pool(x: torch.Tensor, weight: torch.Tensor,
                          f"{tuple(weight.shape)}")
     if scale.shape != (COUT,) or bias.shape != (COUT,):
         raise ValueError("stem scale/bias: expected (32,)")
+    if x.data_ptr() % 16:
+        raise ValueError("image: the stem kernel reads 16-byte aligned rows")
+    return _launch(x, pack_weights(weight, scale), bias.float().contiguous())
+
+
+def _launch(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on a checked CUDA image, `pack_weights`' output and the
+    f32 bias."""
     B, H, W, _ = x.shape
     Ho, Wo = -(-H // 2), -(-W // 2)
     Hp, Wp = -(-Ho // 2), -(-Wo // 2)
-    # (ky, kx, ci, co) bf16 weights and f32 bias, as the kernel reads them
-    wk = _folded(weight, scale).permute(2, 3, 1, 0).contiguous().to(
-        torch.bfloat16)
-    bk = bias.float().contiguous()
     out = torch.empty((B, Ho, Wo, COUT), dtype=torch.bfloat16,
                       device=x.device)
     pooled = torch.empty((B, Hp, Wp, COUT), dtype=torch.bfloat16,
                          device=x.device)
+    if pooled.numel() == 0:
+        return out, pooled
     fn = kernel_function("stem", "riders_stem_conv_pool", _ARGTYPES)
     check(fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
              pooled.data_ptr(), B, H, W, stream_handle(x)), "stem")

@@ -121,16 +121,22 @@ def roi_pool_pyramid(latent: torch.Tensor, skips: Sequence[torch.Tensor],
     """Pool every skip (strides 2, 4, ..) to patch * stride^-1 and the
     latent (stride 2^(len(skips)+1)) to patch // stride, for all boxes.
     `pool` is the per-scale pool (the plain one, or a kernel wrapper)."""
+    levels = pyramid_levels(len(skips), patch_size)
+    pooled = [pool(m, boxes, s, size)
+              for m, (s, size) in zip(list(skips) + [latent], levels)]
+    return pooled[-1], pooled[:-1]
+
+
+def pyramid_levels(n_skips: int, patch_size: Tuple[int, int]
+                   ) -> List[Tuple[float, Tuple[int, int]]]:
+    """(scale, out_size) of each skip, shallow to deep, then the latent's."""
     ph, pw = patch_size
-    pooled_skips = []
-    for i, skip in enumerate(skips):
+    levels = []
+    for i in range(n_skips):
         s = 1.0 / (2 ** (i + 1))
-        pooled_skips.append(
-            pool(skip, boxes, s, (int(ph * s), int(pw * s))))
-    stride = 2 ** (len(skips) + 1)
-    pooled_latent = pool(latent, boxes, 1.0 / stride,
-                         (ph // stride, pw // stride))
-    return pooled_latent, pooled_skips
+        levels.append((s, (int(ph * s), int(pw * s))))
+    stride = 2 ** (n_skips + 1)
+    return levels + [(1.0 / stride, (ph // stride, pw // stride))]
 
 
 def _patch_origins(points: torch.Tensor, image_shape: Tuple[int, int],

@@ -28,10 +28,12 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("hw", [(17, 9), (37, 53), (64, 64), (130, 202)])
+@pytest.mark.parametrize("hw", [(17, 9), (37, 53), (64, 64), (130, 202),
+                                (5, 3), (9, 70), (67, 131), (130, 2)])
 def test_stem_kernel_matches_plain(dev, hw):
     """Within one bf16 rounding step: both sum the same bf16 products in
-    f32, in different orders."""
+    f32, in different orders.  Extents that are not multiples of the
+    kernel's 8 x 16 pooled tile, and maps narrower than one tile."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.rand((2,) + hw + (3,), generator=g, device=dev).to(
         torch.bfloat16)
@@ -82,6 +84,56 @@ def test_roi_pool_kernel_matches_plain(dev, C, out_size, scale, dtype,
     assert got.dtype == dtype
     assert torch.equal(got, want)
     assert not bool(got[:, 1].any())          # empty bins are 0
+
+
+@pytest.mark.parametrize("dtype,counter", [
+    (torch.bfloat16, "roi_pool"), (torch.float32, "roi_pool_f32")])
+@pytest.mark.parametrize("C", [3, 32, 64, 128])
+@pytest.mark.parametrize("K", [1, 300])
+def test_roi_pool_pyramid_is_one_launch(dev, dtype, counter, C, K):
+    """The whole pyramid (four skips and the latent) in one launch, each
+    scale bitwise equal to the plain pool: 16-byte vectors where C
+    allows (C = 3 takes the scalar path), K from 1 to 300 boxes."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, patch, hw = 2, (64, 32), (80, 56)
+    maps = [torch.randn((B, -(-hw[0] // 2 ** (i + 1)),
+                         -(-hw[1] // 2 ** (i + 1)), C), generator=g,
+                        device=dev).to(dtype) for i in range(5)]
+    boxes = _boxes(g, dev, B, K, hw[0] // 2, hw[1] // 2, 0.5,
+                   (patch[0] // 2, patch[1] // 2))
+    before = LAUNCHES[counter]
+    lat, skips = roi_pool.roi_pool_pyramid(maps[-1], maps[:-1], boxes, patch)
+    assert LAUNCHES[counter] == before + 1
+    want_lat, want_skips = patches.roi_pool_pyramid(maps[-1], maps[:-1],
+                                                    boxes, patch)
+    for a, b in zip([lat] + skips, [want_lat] + want_skips):
+        assert a.shape == b.shape and a.dtype == dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_roi_pool_pyramid_4d_is_one_launch(dev, dtype):
+    """B6: skip1 a NEG canvas far wider than its true extent, the rest
+    plain maps, all five scales in one launch, bitwise equal to the plain
+    pyramid on the true extent."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, K, patch, (H, W) = 2, 40, (150, 50), (100, 75)
+    widths = (32, 64, 128, 128, 128)
+    maps = [torch.randn((B, -(-H // 2 ** i), -(-W // 2 ** i), c),
+                        generator=g, device=dev).to(dtype)
+            for i, c in enumerate(widths)]
+    canvas = torch.full((B, H + 96, W + 200, 32), roi_pool.NEG, dtype=dtype,
+                        device=dev)
+    canvas[:, :H, :W] = maps[0]
+    boxes = _boxes(g, dev, B, K, H, W, 0.5, (75, 25))
+    before = LAUNCHES["roi_pool_4d"]
+    lat, skips = roi_pool.roi_pool_pyramid_4d(maps[-1], [canvas] + maps[1:-1],
+                                              boxes, patch, (H, W))
+    assert LAUNCHES["roi_pool_4d"] == before + 1
+    want_lat, want_skips = patches.roi_pool_pyramid(maps[-1], maps[:-1],
+                                                    boxes, patch)
+    for a, b in zip([lat] + skips, [want_lat] + want_skips):
+        assert a.shape == b.shape and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("C,out_size,scale,K,ties,hw", [

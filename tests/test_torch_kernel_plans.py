@@ -1,8 +1,11 @@
-"""The host-side plans of the lane conv (B7) and RoI backward (B5)
-kernels, on the CPU: the conv's weight packing, its block tiling and the
-halo each block stages, mirrored index for index from
-csrc/lane_decoder.cu; the backward's tiles and the boxes each tile lists,
-against brute force from `ops.patches`' bin bounds."""
+"""The host-side plans of the lane conv (B7), RoI backward (B5), stem
+(B1) and RoI forward (B2 / B6) kernels, on the CPU: the conv's weight
+packing, its block tiling and the halo each block stages, mirrored index
+for index from csrc/lane_decoder.cu; the backward's tiles and the boxes
+each tile lists, against brute force from `ops.patches`' bin bounds; the
+stem's packed B fragments, its K -> shared offset table and its tiles
+(csrc/stem.cu); the forward's work table and per-block bin table
+(csrc/roi_pool.cu) against `ops.patches`."""
 
 import numpy as np
 import pytest
@@ -11,7 +14,7 @@ import torch
 from riders_tpu_torch.models.layers import nearest2x_phase_kernel
 from riders_tpu_torch.ops import patches
 from riders_tpu_torch.ops.kernels import lane_decoder as LD
-from riders_tpu_torch.ops.kernels import roi_pool
+from riders_tpu_torch.ops.kernels import roi_pool, stem
 
 # (N, H, W, input widths, Co): decode_full's call geometries at a small
 # patch batch, and the edges of the plan (tiny maps, a wide map, one
@@ -195,3 +198,227 @@ def test_bwd_tile_box_list_matches_brute_force(scale, out_size, K):
             got = roi_pool.bwd_tile_boxes(boxes, scale, H, W, (r, r1),
                                           (c, c1))
             assert torch.equal(got, rows & cols)
+
+
+# ---- the stem (B1): packed weights and the K -> shared offset table
+
+def test_stem_packed_weights_unpack_to_folded_weights_bitwise():
+    """Decoded by the kernel's own reading (lane 4 g + t, k-step s, half
+    h, word w, element e -> n-tile 2 h + w // 2, GEMM row k = 16 s + 2 t
+    + 8 (w % 2) + e, column 8 n + g), the packed weights hold, in row k,
+    the folded bf16 weights of the tap `k_order` names, every (k,
+    column) once, the 29 padding rows zero."""
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.standard_normal((32, 3, 7, 7)).astype(
+        np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 32).astype(np.float32))
+    packed = stem.pack_weights(w, scale)
+    steps = stem.K_STEPS
+    assert packed.dtype == torch.bfloat16 and packed.shape == (
+        16 * steps * 32,)
+    frags = packed.view(torch.int16).numpy().reshape(steps, 2, 32, 4, 2)
+    got = np.zeros((16 * steps, 32), np.int16)
+    seen = np.zeros((16 * steps, 32), np.int64)
+    for s, h, lane, word, e in np.ndindex(frags.shape):
+        g, t = divmod(lane, 4)
+        k = 16 * s + 2 * t + 8 * (word % 2) + e
+        co = 8 * (2 * h + word // 2) + g
+        got[k, co] = frags[s, h, lane, word, e]
+        seen[k, co] += 1
+    assert (seen == 1).all()
+    folded = (w * scale[:, None, None, None]).to(torch.bfloat16).permute(
+        2, 3, 1, 0).view(torch.int16).numpy()               # (ky, kx, ci, co)
+    order = stem.k_order()
+    real = order[:, 0] >= 0
+    assert real.sum() == 147 and (~real).sum() == 29
+    assert not got[~real].any()
+    ky, j = order[real].T
+    assert np.array_equal(got[real], folded[ky, j // 3, j % 3])
+
+
+def test_stem_k_offsets_hit_every_tap_once():
+    """The K -> shared offset table: the GEMM rows hold each (ky, kx, ci)
+    exactly once, at offset ky * pitch + kx * 3 + ci of the staged
+    window; a group of 8 rows is 8 consecutive taps of one kernel row
+    from an even offset, so lane t's pair (8 G + 2 t, + 1) is the 32-bit
+    word at the group's offset + 2 t."""
+    off, order = stem.k_offsets(), stem.k_order()
+    pitch = stem.STAGED_ROW_PITCH
+    real = off >= 0
+    assert off.shape == (16 * stem.K_STEPS,) and real.sum() == 147
+    ky, rem = np.divmod(off[real], pitch)
+    kx, ci = np.divmod(rem, 3)
+    taps = set(zip(ky.tolist(), kx.tolist(), ci.tolist()))
+    assert len(taps) == 147 and taps == set(np.ndindex(7, 7, 3))
+    assert np.array_equal(order[real, 0], ky)
+    groups = off.reshape(-1, 8)
+    for grp in groups:
+        if grp[0] < 0:
+            assert (grp < 0).all()
+            continue
+        assert grp[0] % 2 == 0
+        n = int((grp >= 0).sum())
+        assert np.array_equal(grp[:n], grp[0] + np.arange(n))
+        assert (grp[n:] < 0).all()
+
+
+def test_stem_a_loads_fall_on_distinct_banks():
+    """The 32 lanes of an A load: rows g are conv columns 4 g (+ d) of
+    one conv row, 12 g words apart, and lane t adds 2 t elements to the
+    group's offset, so the 32 words fall on 32 banks in every group."""
+    off = stem.k_offsets()
+    pitch = stem.STAGED_ROW_PITCH
+    for G in range(3 * 7):
+        for lr, d in np.ndindex(17, 4):
+            words = {(2 * lr * pitch + (4 * g + d) * 6 + 2 * t
+                      + int(off[8 * G])) // 2 % 32
+                     for g in range(8) for t in range(4)}
+            assert len(words) == 32
+
+
+@pytest.mark.parametrize("H,W", [(662, 690), (752, 740), (5, 3), (9, 70),
+                                 (67, 131), (130, 2), (17, 9)])
+def test_stem_tiles_cover_the_maps_and_their_windows(H, W):
+    """The kernel's grid of 8 x 16 pooled tiles, in numpy: the owned conv
+    pixels (tile rows and columns 1..) cover the conv map once, every
+    pooled pixel once, each pool window and each conv pixel's 7x7 input
+    window within the staged tile."""
+    (tph, tpw), pitch = stem.POOLED_TILE, stem.STAGED_ROW_PITCH
+    tch, tcw = 2 * tph + 1, 2 * tpw + 1
+    tih, tiw = 2 * (tch - 1) + 7, 2 * (tcw - 1) + 7
+    Ho, Wo = -(-H // 2), -(-W // 2)
+    Hp, Wp = -(-Ho // 2), -(-Wo // 2)
+    conv = np.zeros((Ho, Wo), np.int64)
+    pool = np.zeros((Hp, Wp), np.int64)
+    for pr0 in range(0, Hp, tph):
+        for pc0 in range(0, Wp, tpw):
+            cr0, cc0 = 2 * pr0 - 1, 2 * pc0 - 1
+            rows = cr0 + np.arange(1, tch)
+            cols = cc0 + np.arange(1, tcw)
+            conv[np.ix_(rows[rows < Ho], cols[cols < Wo])] += 1
+            pr, pc = pr0 + np.arange(tph), pc0 + np.arange(tpw)
+            pool[np.ix_(pr[pr < Hp], pc[pc < Wp])] += 1
+            # pooled (pr0 + i, pc0 + j) reads tile rows 2i..2i+2, which
+            # are conv rows 2 (pr0 + i) - 1 .. + 1: MaxPool2d(3, 2, 1)
+            assert 2 * (tph - 1) + 2 < tch and 2 * (tpw - 1) + 2 < tcw
+    assert (conv == 1).all() and (pool == 1).all()
+    # the M tiles: 0..33 take conv row tile // 2, columns 4 g + 2 half +
+    # tile % 2; 34 and 35 the last column (stem.cu:tile_pixel)
+    owner = np.zeros((tch, tcw), np.int64)
+    for tile, half, g in np.ndindex(36, 2, 8):
+        if tile < 2 * tch:
+            owner[tile // 2, 4 * g + 2 * half + tile % 2] += 1
+        elif 16 * (tile - 2 * tch) + 8 * half + g < tch:
+            owner[16 * (tile - 2 * tch) + 8 * half + g, tcw - 1] += 1
+    assert (owner == 1).all()
+    base = 2 * (tch - 1) * pitch + 2 * (tcw - 1) * 3   # the last pixel
+    assert base + stem.k_offsets().max() + 1 < tih * pitch
+    assert 2 * (tcw - 1) * 3 + 6 * 3 + 2 < tiw * 3 <= pitch
+
+
+# ---- the RoI forward (B2, B3, B6): work table and bin table
+
+def _fwd_block_work(plan, K, block):
+    """Block `block`'s work as csrc/roi_pool.cu decodes it: (scale, frame,
+    box, first output row, rows)."""
+    i = max(j for j, s in enumerate(plan) if s.block0 <= block)
+    s = plan[i]
+    bk, strip = divmod(block - s.block0, s.strips)
+    p0 = strip * s.rows
+    return i, bk // K, bk % K, p0, min(s.rows, s.out_h - p0)
+
+
+def _fwd_slot_table(x1, x2, scale, W, C, vec, out_w):
+    """A forward block's shared table of one box as csrc/roi_pool.cu
+    fills it: per thread slot of an output row, its column bin [w0, w1)
+    and channel offset (edges in f32 without a fused multiply-add)."""
+    f = lambda v: int(np.floor(np.float32(np.float32(v) * np.float32(scale))
+                               + np.float32(0.5)))
+    rs, roi = f(x1), max(f(x2) - f(x1) + 1, 1)
+    sw = min(max(rs, 0), W)
+    per_pixel = C // vec
+    table = []
+    for j in range(out_w * per_pixel):
+        q, c = divmod(j, per_pixel)
+        table.append((min(sw + (q * roi) // out_w, W),
+                      min(sw + ((q + 1) * roi + out_w - 1) // out_w, W),
+                      c * vec))
+    return table
+
+
+def _pyramid_scales(C, patch, dtype, vec=True):
+    sizes = [(int(patch[0] / 2 ** (i + 1)), int(patch[1] / 2 ** (i + 1)))
+             for i in range(4)] + [(patch[0] // 32, patch[1] // 32)]
+    return [(c, oh, ow, roi_pool.fwd_vec(c, dtype, vec))
+            for c, (oh, ow) in zip(C, sizes)]
+
+
+RC_WIDTHS = (32, 64, 128, 128, 128)
+
+
+@pytest.mark.parametrize("B,K,patch,dtype,C", [
+    (16, 48, (150, 50), torch.bfloat16, RC_WIDTHS),     # fused NTU
+    (16, 32, (240, 100), torch.bfloat16, RC_WIDTHS),    # fused ZJU
+    (24, 40, (150, 50), torch.float32, RC_WIDTHS),      # training NTU
+    (4, 30, (240, 100), torch.float32, RC_WIDTHS),      # training ZJU
+    (2, 1, (64, 32), torch.bfloat16, (3,) * 5),         # scalar path, K=1
+    (2, 300, (64, 32), torch.float32, (3,) * 5),
+    (1, 7, (40, 8), torch.bfloat16, (3000, 8, 16, 5, 24))])  # wide rows
+def test_fwd_plan_covers_every_output_row_once(B, K, patch, dtype, C):
+    scales = _pyramid_scales(C, patch, dtype)
+    plan = roi_pool.fwd_plan(B, K, scales)
+    cover = [np.zeros((B, K, max(oh, 0)), np.int64) for _, oh, _, _ in scales]
+    blocks = sum(B * K * s.strips for s in plan)
+    for blk in range(blocks):
+        i, b, k, p0, rows = _fwd_block_work(plan, K, blk)
+        assert 1 <= rows <= plan[i].rows <= 2048
+        cover[i][b, k, p0:p0 + rows] += 1
+    for c, (_, _, ow, _) in zip(cover, scales):
+        assert (c == (1 if ow > 0 else 0)).all()     # empty outputs: none
+    for s, (c, oh, ow, vec) in zip(plan, scales):
+        if ow == 0:
+            continue
+        assert c % s.vec == 0 and s.slots == ow * (c // s.vec)
+        # about FWD_BLOCK_ELEMS elements a block, or the whole patch
+        elems = roi_pool.FWD_BLOCK_ELEMS
+        assert s.strips == 1 or s.rows * s.slots >= elems // 2
+        assert s.rows == 1 or s.rows * s.slots < elems + s.slots
+
+
+def test_fwd_vec_is_a_16_byte_vector_where_c_allows():
+    assert roi_pool.fwd_vec(32, torch.bfloat16) == 8
+    assert roi_pool.fwd_vec(12, torch.bfloat16) == 1
+    assert roi_pool.fwd_vec(12, torch.float32) == 4
+    assert roi_pool.fwd_vec(3, torch.float32) == 1
+    assert roi_pool.fwd_vec(64, torch.float32, aligned=False) == 1
+
+
+@pytest.mark.parametrize("scale,out_w,W,C,vec", [
+    (0.5, 25, 345, 32, 8), (1 / 32, 1, 22, 128, 8), (0.25, 12, 173, 64, 4),
+    (0.5, 50, 31, 3, 1), (0.125, 6, 9, 128, 4), (0.5, 40, 30, 8, 8)])
+def test_fwd_slot_table_matches_bin_bounds(scale, out_w, W, C, vec):
+    """The forward block's per-slot column bins equal `ops.patches`'
+    bounds and its channel offsets walk the pixel: boxes past either edge
+    of the map, on half pixels, and smaller than their output (roi <
+    out)."""
+    rng = np.random.default_rng(out_w + C)
+    n = 64
+    x1 = rng.uniform(-0.3, 1.2, n) * W / scale
+    x1[::4] = np.floor(x1[::4]) + 0.5
+    x1[1] = -50 / scale                                 # left of the map
+    x1[2] = (W + 3) / scale                             # right of it
+    size = rng.uniform(0.1, 1.5, n) * out_w / scale
+    x2 = x1 + size
+    r = lambda v: torch.floor(torch.tensor(v, dtype=torch.float32) * scale
+                              + 0.5).long()
+    lo, hi = patches._bin_bounds(r(x1), r(x2), W, out_w)
+    per_pixel = C // vec
+    for i in range(n):
+        table = _fwd_slot_table(float(np.float32(x1[i])),
+                                float(np.float32(x2[i])), scale, W, C, vec,
+                                out_w)
+        assert len(table) == out_w * per_pixel
+        for j, (w0, w1, c0) in enumerate(table):
+            q = j // per_pixel
+            assert (w0, w1) == (int(lo[i, q]), int(hi[i, q]))
+            assert c0 == (j % per_pixel) * vec
