@@ -7,20 +7,23 @@ and SML training steps on one GPU.
                                           # of a fused call and a step
     python3 chip_smoke.py --kernel-times  # phase 1, then only the checks
                                           # and times of B1, B2, B4, B6
-                                          # (copied into another tree's
-                                          # root, it times that tree's)
+                                          # and B8 (copied into another
+                                          # tree's root, it times that
+                                          # tree's)
 
 Kernel times: `ms` is the median of synchronised calls (host dispatch
 counts in); `graph_ms` replays 20 calls captured in one CUDA graph
-between two events, over 20: the device's time alone (B1, B2, B4, B6);
-`device_ms` times 20 calls queued back to back (B5, B7, B8).
+between two events, over 20: the device's time alone (B1, B2, B4, B6,
+B8); `device_ms` times 20 calls queued back to back (B5, B7, B8).
 
 Phases, each fatal on failure:
   1. set-up: the card, the versions, the nvcc build of csrc/*.cu;
   2. kernels: each hand-written kernel against its plain PyTorch version
      at the fused path's shapes (B=16, bf16) for the NTU and ZJU
      geometries, with CUDA-event times of both and of a library yardstick;
-     the RoI pyramid in one launch;
+     the stem also at slopes 0 (relu) and 1 (linear) at NTU; the RoI
+     pyramid in one launch; compose also with every real point of a frame
+     clustered around one spot;
   3. the full-width NTU fused path at 640x512, B=16, K=48 (40 real
      points), bf16, on seeded random weights: three batches with the
      launch counters reset just before, output checks (one RoI pool
@@ -59,6 +62,7 @@ line is
 """
 
 import copy
+import inspect
 import json
 import statistics
 import subprocess
@@ -221,26 +225,39 @@ def check_kernels(geometry, B=16):
     Hp, Wp = H + 2 * (ph // 2), W + 2 * (pw // 2)
     out = {}
 
-    # ---- stem: 7x7/s2 conv + folded BN + leaky-relu + MaxPool2d(3,2,1)
+    # ---- stem: 7x7/s2 conv + folded BN + max(y, slope y) + MaxPool2d(3,2,1)
     x = torch.rand((B, Hp, Wp, 3), generator=g, device=dev).to(
         torch.bfloat16)
     w = torch.randn((32, 3, 7, 7), generator=g, device=dev) * (2 / 147) ** .5
     scale = 0.5 + torch.rand(32, generator=g, device=dev)
     bias = 0.1 * torch.randn(32, generator=g, device=dev)
-    k_out, k_pool = stem.stem_conv_pool(x, w, scale, bias)
-    p_out, p_pool = stem.stem_conv_pool_plain(x, w, scale, bias)
-    torch.cuda.synchronize()
-    err = 0.0
-    for a, b in ((k_out, p_out), (k_pool, p_pool)):
-        if a.shape != b.shape:
-            raise AssertionError(f"stem shape {a.shape} vs {b.shape}")
-        a, b = a.float(), b.float()
-        diff = (a - b).abs()
-        err = max(err, float(diff.max()))
-        limit = STEM_TOL[0] * torch.maximum(a.abs(), b.abs()) + STEM_TOL[1]
-        if not bool((diff <= limit).all()):
-            raise AssertionError(f"stem {geometry}: max err {err} beyond "
-                                 f"one bf16 step")
+
+    def stem_err(**slope):
+        """The kernel's max abs error against the plain version (both
+        outputs), raising beyond one bf16 step; and the kernel's maps."""
+        k_maps = stem.stem_conv_pool(x, w, scale, bias, **slope)
+        p_maps = stem.stem_conv_pool_plain(x, w, scale, bias, **slope)
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in zip(k_maps, p_maps):
+            if a.shape != b.shape:
+                raise AssertionError(f"stem shape {a.shape} vs {b.shape}")
+            a, b = a.float(), b.float()
+            diff = (a - b).abs()
+            err = max(err, float(diff.max()))
+            limit = (STEM_TOL[0] * torch.maximum(a.abs(), b.abs())
+                     + STEM_TOL[1])
+            if not bool((diff <= limit).all()):
+                raise AssertionError(f"stem {geometry} {slope}: max err "
+                                     f"{err} beyond one bf16 step")
+        return err, k_maps
+
+    err, (k_out, k_pool) = stem_err()
+    # relu and linear, where the tree's stem takes a slope (a parent tree
+    # timed with this script may not)
+    slope_errs = ({s: stem_err(slope=s)[0] for s in (0.0, 1.0)}
+                  if geometry == "ntu" and "slope" in inspect.signature(
+                      stem.stem_conv_pool).parameters else {})
     wf = (w * scale[:, None, None, None]).to(torch.bfloat16).to(
         memory_format=torch.channels_last)
     xc = x.permute(0, 3, 1, 2)
@@ -267,7 +284,7 @@ def check_kernels(geometry, B=16):
             lambda: stem.stem_conv_pool_plain(x, w, scale, bias)),
         library_ms=time_ms(library_stem),
         library_graph_ms=graph_ms(library_stem), bound_ms=bnd, bound_by=by,
-        bytes=nbytes, flops=flops,
+        bytes=nbytes, flops=flops, slope_max_abs_errs=slope_errs,
         shapes=dict(x=list(x.shape), out=list(k_out.shape),
                     pooled=list(k_pool.shape)))
 
@@ -304,33 +321,53 @@ def check_kernels(geometry, B=16):
         shapes=dict(maps=[list(m.shape) for m in maps],
                     out=[list(o.shape) for o in [k_lat] + k_sk]))
 
-    # ---- compose: per-frame thresholds, one negative; masked points
+    # ---- compose: per-frame thresholds, one negative; masked points; then
+    # every real point of a frame within 3 pixels of one spot (the
+    # longest culled lists)
     resp = torch.rand((B, K, ph, pw), generator=g, device=dev) \
         * mask[:, :, None, None]
     thr = torch.linspace(-0.3, 0.5, B, device=dev)
     points = points.contiguous()
-    k_d, k_r = compose.compose_patches(resp, points, mask, FRAME, (ph, pw),
-                                       thr)
-    p_d, p_r = patches.compose_patches(resp, points, mask, FRAME, (ph, pw),
-                                       thr)
-    torch.cuda.synchronize()
-    err = max(float((k_d - p_d).abs().max()), float((k_r - p_r).abs().max()))
-    if not (torch.equal(k_d, p_d) and torch.equal(k_r, p_r)):
-        raise AssertionError(f"compose {geometry}: not bitwise equal "
-                             f"(max err {err})")
-    nbytes = 4 * (compose_read_elems(points, mask, FRAME, (ph, pw))
-                  + points.numel() + mask.numel() + B
-                  + k_d.numel() + k_r.numel())
+    spot = torch.rand((B, 1, 2), generator=g, device=dev) * torch.tensor(
+        [Wp, Hp], device=dev)
+    near = spot + 3 * (2 * torch.rand((B, K, 2), generator=g, device=dev)
+                       - 1)
+    clustered = torch.cat([near, points[..., 2:]], -1) * mask[..., None]
+
+    def compose_err(pts):
+        k_d, k_r = compose.compose_patches(resp, pts, mask, FRAME, (ph, pw),
+                                           thr)
+        p_d, p_r = patches.compose_patches(resp, pts, mask, FRAME, (ph, pw),
+                                           thr)
+        torch.cuda.synchronize()
+        err = max(float((k_d - p_d).abs().max()),
+                  float((k_r - p_r).abs().max()))
+        if not (torch.equal(k_d, p_d) and torch.equal(k_r, p_r)):
+            raise AssertionError(f"compose {geometry}: not bitwise equal "
+                                 f"(max err {err})")
+        return err
+
+    def compose_bytes(pts):
+        """The responses that land in the frame, the points, masks and
+        thresholds read once, the two maps written once."""
+        return 4 * (compose_read_elems(pts, mask, FRAME, (ph, pw))
+                    + pts.numel() + mask.numel() + B + 2 * B * H * W)
+
+    err, err_clustered = compose_err(points), compose_err(clustered)
+    nbytes = compose_bytes(points)
     bnd, by = bound_ms(nbytes)
     run = lambda: compose.compose_patches(resp, points, mask, FRAME,
                                           (ph, pw), thr)
     out["compose"] = dict(
-        max_abs_err=err, tolerance="bitwise",
+        max_abs_err=max(err, err_clustered), tolerance="bitwise",
         ms=time_ms(run), graph_ms=graph_ms(run),
         plain_ms=time_ms(lambda: patches.compose_patches(
             resp, points, mask, FRAME, (ph, pw), thr)),
         library_ms=None, bound_ms=bnd, bound_by=by, bytes=nbytes,
-        shapes=dict(responses=list(resp.shape), out=list(k_d.shape)))
+        clustered_graph_ms=graph_ms(lambda: compose.compose_patches(
+            resp, clustered, mask, FRAME, (ph, pw), thr)),
+        clustered_bound_ms=bound_ms(compose_bytes(clustered))[0],
+        shapes=dict(responses=list(resp.shape), out=[B, H, W]))
     return out
 
 
@@ -495,13 +532,14 @@ def lane_call_shapes(cfg, n):
                     ("lane_conv3x3", (n, h, w), (f0,), 4, False)]
 
 
-def check_lane_kernels(preset, B=16):
-    """B7 and B8 against their plain versions at every call shape of one
-    decode_full of the preset at batch B, with CUDA-event times of the
-    kernel, the plain version and cuDNN (bf16 conv of the concatenated
-    inputs, or of the nearest x2 map, then BN and leaky).  Returns {kernel
-    name: record} summed over one decode's calls, per-call records in
-    `calls`."""
+def check_lane_kernels(preset, B=16, kinds=("lane_conv3x3",
+                                            "lane_upconv2x")):
+    """B7 and B8 (those of `kinds`) against their plain versions at every
+    call shape of one decode_full of the preset at batch B, with CUDA-
+    event times of the kernel, the plain version and cuDNN (bf16 conv of
+    the concatenated inputs, or of the nearest x2 map, then BN and leaky);
+    B8's also by CUDA-graph replay.  Returns {kernel name: record} summed
+    over one decode's calls, per-call records in `calls`."""
     import torch
     import torch.nn.functional as F
     from riders_tpu_torch.ops.kernels import lane_decoder as LD
@@ -512,6 +550,8 @@ def check_lane_kernels(preset, B=16):
     calls = []
     for kind, (n, h, w), cis, co, act in lane_call_shapes(
             cfg, B * GEOMETRIES[preset]["bucket"]):
+        if kind not in kinds:
+            continue
         xs = [torch.randn((n, h, w, c), generator=g, device=dev).to(
             torch.bfloat16) for c in cis]
         k = torch.randn((3, 3, sum(cis), co), generator=g, device=dev) * (
@@ -570,7 +610,10 @@ def check_lane_kernels(preset, B=16):
         ms, lib_ms = time_ms(run, n=10, warmup=2), time_ms(library, n=10,
                                                             warmup=2)
         dev_ms, lib_dev_ms = device_ms(run), device_ms(library)
-        calls.append(dict(
+        graphs = (dict(graph_ms=graph_ms(run),
+                       library_graph_ms=graph_ms(library))
+                  if kind == "lane_upconv2x" else {})
+        calls.append(dict(**graphs,
             kernel=kind, input=[n, h, w], widths=list(cis), out=co,
             max_abs_err=float(diff.max()), ms=ms,
             plain_ms=time_ms(plain, n=3, warmup=1),
@@ -586,13 +629,18 @@ def check_lane_kernels(preset, B=16):
             f"({lib_ms / ms:.2f}x) bound {bnd:.4f} ms ({by}) "
             f"{flops / ms / 1e9:.1f} TFLOP/s; back to back: kernel "
             f"{dev_ms:.4f} ms cuDNN {lib_dev_ms:.4f} ms "
-            f"({lib_dev_ms / dev_ms:.2f}x)")
+            f"({lib_dev_ms / dev_ms:.2f}x)"
+            + (f"; graph: kernel {graphs['graph_ms']:.4f} ms cuDNN "
+               f"{graphs['library_graph_ms']:.4f} ms" if graphs else ""))
         del xs, xc, got, want, a, p, diff
     out = {}
-    for kind in ("lane_conv3x3", "lane_upconv2x"):
+    for kind in kinds:
         mine = [c for c in calls if c["kernel"] == kind]
         total = lambda key: sum(c[key] for c in mine)
-        out[kind] = dict(
+        graphs = (dict(graph_ms=total("graph_ms"),
+                       library_graph_ms=total("library_graph_ms"))
+                  if kind == "lane_upconv2x" else {})
+        out[kind] = dict(**graphs,
             max_abs_err=max(c["max_abs_err"] for c in mine),
             tolerance="|k-p| <= 2^-7 |p| + 1e-3 max|p|",
             ms=total("ms"), plain_ms=total("plain_ms"),
@@ -1174,14 +1222,16 @@ def profile(fn, batch, path):
 
 def kernel_times(smi):
     """`--kernel-times`: phase 2's, phase 5's RoI forward and phase 4b's
-    B6 checks and times alone, B6 on random maps at the fused path's
-    shapes; one {"kernel_times": ...} line.  Run from a copy of another
-    tree, it times that tree's kernels with these same inputs."""
+    B6 and B8 checks and times alone, B6 on random maps at the fused
+    path's shapes, B8 at each call shape of one decode_full; one
+    {"kernel_times": ...} line.  Run from a copy of another tree, it
+    times that tree's kernels with these same inputs."""
     import torch
-    keep = ("ms", "graph_ms", "kernel_graph_ms", "library_ms",
-            "library_graph_ms",
+    keep = ("ms", "graph_ms", "kernel_graph_ms", "device_ms", "library_ms",
+            "library_graph_ms", "library_device_ms",
             "plain_ms", "bound_ms", "bound_by", "launches_per_call",
-            "b2_graph_ms", "max_abs_err")
+            "b2_graph_ms", "clustered_graph_ms", "clustered_bound_ms",
+            "slope_max_abs_errs", "max_abs_err")
     rows = {}
     for geometry in GEOMETRIES:
         recs = check_kernels(geometry)
@@ -1191,6 +1241,11 @@ def kernel_times(smi):
                                            GEOMETRIES[geometry]["patch"])
         recs["roi_pool_f32"] = check_training_kernels(geometry)[
             "roi_pool_f32"]
+        up = check_lane_kernels(geometry, kinds=("lane_upconv2x",))
+        for c in up["lane_upconv2x"]["calls"]:
+            n, h, w = c["input"]
+            recs[f"lane_upconv2x {n}x{h}x{w} {c['widths'][0]}->{c['out']}"] \
+                = c
         for name, r in recs.items():
             rows[f"{name} [{geometry}]"] = {k: r[k] for k in keep if k in r}
         del maps, boxes

@@ -65,17 +65,25 @@
 // 128-column tiles, 512-pixel tiles, more A register sets in flight and an
 // mma.sync.m16n8k16 version all ran no faster.
 //
-// B8 runs lane_conv_kernel below with UP = true, unchanged: a WMMA
-// implicit GEMM, 64 coarse pixels x BN channels per block, chunks of 32
-// channels of one tap through a two-stage cp.async ring; a block whose
-// columns lie in one phase runs only that phase's 2x2 coarse taps.  Its
-// UP = false form was B7's earlier kernel and is no longer launched; a
-// copy pruned to the upconv alone ran 1-2% slower on an NVIDIA H100 80GB
-// HBM3 at 700 W (PERF.md), so the template stays whole.
+// B8 design: B7's machinery with the phase-composed weights.  Its bound:
+// the operations where Ci, F >= 128 (decode calls at 9x3 and 15x6), the
+// bytes at ZJU's 60x25 call (64 -> 32: 98 MB in, 197 MB out).  Rows and
+// halo are staged as for B7 and each phase multiplies only its four
+// nonzero taps.  Where F <= 32, the inputs come in 16-byte runs and the
+// 16 phase taps' weights fit, one block takes all four phases of its
+// pixels (4F columns) with the weights resident (upconv_res_kernel, B7's
+// persistent walk, A by descriptor), so each input byte is staged once
+// and each staged tap serves every phase that reads it.  Otherwise the
+// weights stream with 64-column tiles of one phase (upconv_kernel).  The
+// epilogue sends coarse pixel (y, x), phase (r, s) to fine pixel (2y + r,
+// 2x + s) as whole 16-byte channel runs; the resident form writes them
+// straight from registers after a transpose within each lane quad, since
+// at ZJU's 60x25 call (four phases of 32 channels a pixel) the staged
+// epilogue's passes and barriers took about half the time (an ablation
+// on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -91,9 +99,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
@@ -284,15 +289,16 @@ template <> struct Wgmma<64> {
 };
 
 // A block: BM output pixels (two warpgroups of BM / 2 rows, each in m64
-// tiles) x BN output channels; chunks of BK input channels.
-template <int BN, int BM, int BK>
+// tiles) x BN output channels; chunks of BK input channels, TAPS taps of
+// BN columns each per chunk.
+template <int BN, int BM, int BK, int TAPS = 9>
 struct Tile {
   static constexpr int MT = BM / 128;         // m64 tiles per warpgroup
   static constexpr int PITCH = BK + 8;        // bf16 per staged row of A
   static constexpr int CPITCH = BN + 8;       // bf16 per epilogue row
-  // one chunk's 9 x BN x BK weights in 8 x 8 core matrices (8 output
+  // one chunk's TAPS x BN x BK weights in 8 x 8 core matrices (8 output
   // channels x 16 bytes), K-major
-  static constexpr int WCHUNK = 9 * BN * BK;
+  static constexpr int WCHUNK = TAPS * BN * BK;
   static __host__ __device__ size_t a_stage(int rows) {
     return (size_t)rows * PITCH;
   }
@@ -414,19 +420,26 @@ __device__ __forceinline__ void load_w(const Args& a, const Chunk& c,
   }
 }
 
-// acc += the nine taps of the chunk staged at shared addresses sa (rows
-// of A) and sb (weights).  Each tap's A fragments alternate between two
+// The row shift of tap (dy, dx) in the staged padded rows.
+__device__ __forceinline__ int tap_shift(int dy, int dx, int Wp) {
+  return (dy - 1) * Wp + (dx - 1);
+}
+
+// acc += the TAPS taps of the chunk staged at shared addresses sa (rows
+// of A) and sb (weights, tap t's at t * BN * BK), tap t reading the rows
+// shifted by shift(t).  Each tap's A fragments alternate between two
 // register sets, so the next tap's ldmatrix overlaps this tap's wgmma.
-template <int BN, int BK, int MT>
+template <int BN, int BK, int MT, int TAPS, typename Shift>
 __device__ __forceinline__ void mma_chunk(float (&acc)[MT][BN / 2],
                                           unsigned sa, unsigned sb,
-                                          const int (&arow)[MT], int Wp) {
+                                          const int (&arow)[MT],
+                                          Shift shift_of) {
   constexpr int ASETS = 2;                  // A register sets in flight
   const int a_k = ((threadIdx.x & 31) >> 4) * 8;   // ldmatrix lane: k
   uint32_t af[ASETS][MT][4];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    const int shift = (t / 3 - 1) * Wp + (t % 3 - 1);
+  for (int t = 0; t < TAPS; ++t) {
+    const int shift = shift_of(t);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       const int s = (t * (BK / 16) + kk / 16) % ASETS;
@@ -555,9 +568,10 @@ conv_kernel(const Args a) {
     cp_async_commit();
     if (busy) {
       const unsigned sa = smem_base + (unsigned)((q & 1) * st_elems * 2);
-      mma_chunk<BN, BK, MT>(acc, sa,
-                            sa + (unsigned)(T::a_stage(a.rows) * 2), arow,
-                            a.W + 2);
+      const int Wp = a.W + 2;
+      mma_chunk<BN, BK, MT, 9>(
+          acc, sa, sa + (unsigned)(T::a_stage(a.rows) * 2), arow,
+          [Wp](int t) { return tap_shift(t / 3, t % 3, Wp); });
     }
   }
   cp_async_wait_all();
@@ -663,7 +677,7 @@ conv_res_kernel(const Args a) {
     wg_fence();
 #pragma unroll
     for (int t = 0; t < 9; ++t) {
-      const int shift = (t / 3 - 1) * Wp + (t % 3 - 1);
+      const int shift = tap_shift(t / 3, t % 3, Wp);
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         const uint64_t bd = smem_desc(
@@ -740,237 +754,358 @@ int launch_res(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace halo
-
 // ---------------------------------------------------------------- B8
 
-constexpr int BM = 64;            // output pixels per block
-constexpr int BK = 32;            // input channels per chunk
-constexpr int LDS = BK + 8;       // shared row pitch (bf16), 16-byte rows
-constexpr int THREADS = 128;      // four warps, 16 pixel rows each
+// Phase p = (r, s) = (p / 2, p % 2) of the upconv reads the coarse taps
+// (r + i / 2, s + i % 2), i = 0..3: the 2x2 taps where its phase-composed
+// weights are nonzero (the other five are zero).
+__device__ __forceinline__ int phase_tap(int p, int i) {
+  return ((p >> 1) + (i >> 1)) * 3 + (p & 1) + (i & 1);
+}
 
-template <int BN>
-struct Tiles {
-  union {
-    struct {
-      bf16 a[2][BM][LDS];
-      bf16 b[2][BN][LDS];
-    } in;
-    float c[BM][BN + 4];
-  };
-};
+// The chunk's weights of phases p0 .. p0 + PH - 1, each phase's four taps
+// and its columns f0 .. f0 + BN - 1 (row p F + f of the packed (4F, 3, 3,
+// ci) weights; a.Co = F), into sb: phase tap (p - p0) * 4 + i at that
+// multiple of BN * BK, in load_w's 8 x 8 core matrices.
+template <int BN, int BK, int PH, bool VEC>
+__device__ __forceinline__ void load_w_up(const Args& a, const Chunk& c,
+                                          int p0, int f0, bf16* sb) {
+  constexpr int PARTS = BK / 8;
+  for (int e = threadIdx.x; e < PH * 4 * BN * PARTS; e += THREADS) {
+    const int row = e / PARTS, part = e % PARTS;
+    const int pt = row / BN, n = row % BN, f = f0 + n, p = p0 + pt / 4;
+    const int ch = c.c0 + part * 8;
+    bf16* dst = sb + pt * (BN * BK) + ((n >> 3) * PARTS + part) * 64 +
+                (n & 7) * 8;
+    const size_t at =
+        ((size_t)(p * a.Co + f) * 9 + phase_tap(p, pt % 4)) * c.ci + ch;
+    if (VEC) {
+      const bool full = f < a.Co && ch < c.ci;
+      cp_async16(dst, full ? (const void*)(c.w + at) : (const void*)c.w,
+                 full);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dst[j] = f < a.Co && ch + j < c.ci ? c.w[at + j]
+                                           : __float2bfloat16(0.f);
+    }
+  }
+}
 
-struct Input {
-  const bf16* x;    // (N, H, W, ci)
-  const bf16* w;    // (Cg, 3, 3, ci): Cg = Co (conv) or 4F (upconv)
-  int ci;
-  int nc;           // chunks of BK channels
-};
-
-// One conv or upconv.  up == false: out (N, H, W, Cg).  up == true: the
-// input is the coarse map, Cg = 4F, and GEMM column co = p * F + f goes to
-// phase p = (py, px) of the (N, 2H, 2W, F) output.
-template <int BN, bool VEC, bool UP>
+// B8 with streamed weights: nearest x2 + 3x3 conv + BN + leaky as a GEMM
+// over the coarse map (N, H, W, ci) (a.H, a.W coarse; a.Co = F) against
+// the phase-composed weights, streamed as conv_kernel does.  A block owns
+// bm coarse pixels and BN columns of one phase (gridDim.y = 4 phases x
+// the column tiles of F) and sums that phase's four nonzero taps only.
+// Coarse pixel (y, x), phase (r, s) goes to fine pixel (2 y + r, 2 x + s)
+// in whole 16-byte channel runs; the BN fold is indexed by the column
+// within F.
+template <int BN, int BM, int BK, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-lane_conv_kernel(Input in0, Input in1, int n_inputs,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ bias, bf16* __restrict__ out,
-                 int M, int H, int W, int Cg, int F, float slope, int act) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char raw[sizeof(Tiles<BN>)];
-  Tiles<BN>& t = *reinterpret_cast<Tiles<BN>*>(raw);
+upconv_kernel(const Args a) {
+  using T = Tile<BN, BM, BK, 4>;
+  constexpr int MT = T::MT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const size_t st_elems = T::a_stage(a.rows) + T::WCHUNK;
+  int* src_row = reinterpret_cast<int*>(smem + T::region(a.rows));
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int m0 = blockIdx.x * BM;
-  const int co0 = blockIdx.y * BN;
+  const int ftiles = (a.Co + BN - 1) / BN;      // column tiles per phase
+  const int p0 = blockIdx.y / ftiles, r = p0 >> 1, s = p0 & 1;
+  const int f0 = (blockIdx.y % ftiles) * BN;
+  const int m0 = blockIdx.x * a.bm;
+  const int q0 = padpos(a, m0) - (a.W + 3);
+  source_rows(a, q0, src_row);
+  int arow[MT];
+  pixel_rows<BM>(a, m0, q0, arow);
+  const bool busy = (threadIdx.x >> 7) * (BM / 2) < a.bm;
+  const int nq = (a.in[0].ci + BK - 1) / BK;
+  const int Wp = a.W + 2;
+  __syncthreads();                        // src_row ready
 
-  // Taps: all nine, or the 2x2 coarse taps of one output phase when the
-  // block's columns lie in one phase (upconv with F a multiple of BN).
-  int py = -1, px = -1;
-  if (UP) {
-    const int p0 = co0 / F;
-    const int p1 = (min(co0 + BN, Cg) - 1) / F;
-    if (p0 == p1) {
-      py = p0 >> 1;
-      px = p0 & 1;
-    }
-  }
-  const int ntaps = py >= 0 ? 4 : 9;
-
-  // The two A slots of this thread: rows tid / 4 and 32 + tid / 4, part
-  // tid % 4 (8 channels each).  Their pixels stay fixed over the chunks.
-  const int part = tid & 3;
-  int pix[2], ph[2], pw[2];
-  bool mok[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int m = m0 + (tid >> 2) + 32 * j;
-    mok[j] = m < M;
-    const int mm = mok[j] ? m : 0;
-    const int hw = mm % (H * W);
-    pix[j] = mm;
-    ph[j] = hw / W;
-    pw[j] = hw - ph[j] * W;
-  }
-
-  const int nq0 = ntaps * in0.nc;
-  const int nq = nq0 + (n_inputs > 1 ? ntaps * in1.nc : 0);
-
-  auto load = [&](int q, int stage) {
-    const Input& s = q < nq0 ? in0 : in1;
-    const int r = q < nq0 ? q : q - nq0;
-    const int ti = r / s.nc;
-    const int c0 = (r - ti * s.nc) * BK;
-    const int dy = py >= 0 ? py + (ti >> 1) : ti / 3;
-    const int dx = px >= 0 ? px + (ti & 1) : ti % 3;
-    const int tap = dy * 3 + dx;
-    const int ch = c0 + part * 8;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int hs = ph[j] + dy - 1, ws = pw[j] + dx - 1;
-      const bool ok = mok[j] && hs >= 0 && hs < H && ws >= 0 && ws < W;
-      const size_t at =
-          (size_t)(pix[j] + (dy - 1) * W + (dx - 1)) * s.ci + ch;
-      bf16* dst = &t.in.a[stage][(tid >> 2) + 32 * j][part * 8];
-      if (VEC) {
-        const bool full = ok && ch < s.ci;
-        cp_async16(dst, full ? (const void*)(s.x + at) : (const void*)s.x,
-                   full);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = ok && ch + e < s.ci ? s.x[at + e] : __float2bfloat16(0.f);
-      }
-    }
-    for (int slot = tid; slot < BN * 4; slot += THREADS) {
-      const int row = slot >> 2;
-      const int c = c0 + (slot & 3) * 8;
-      const int co = co0 + row;
-      const bool ok = co < Cg;
-      const size_t at = ((size_t)co * 9 + tap) * s.ci + c;
-      bf16* dst = &t.in.b[stage][row][(slot & 3) * 8];
-      if (VEC) {
-        const bool full = ok && c < s.ci;
-        cp_async16(dst, full ? (const void*)(s.w + at) : (const void*)s.w,
-                   full);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = ok && c + e < s.ci ? s.w[at + e] : __float2bfloat16(0.f);
-      }
-    }
+  auto load = [&](int q, int st) {
+    const Chunk c{a.in[0].x, a.in[0].w, a.in[0].ci, q * BK};
+    bf16* sa = smem + st * st_elems;
+    load_a<BK, VEC>(a, c, src_row, sa);
+    load_w_up<BN, BK, 1, VEC>(a, c, p0, f0, sa + T::a_stage(a.rows));
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
+  float acc[MT][BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 16; ++i) wmma::fill_fragment(acc[i], 0.f);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[mt][j] = 0.f;
 
+  const unsigned smem_base = (unsigned)__cvta_generic_to_shared(smem);
   load(0, 0);
   cp_async_commit();
   for (int q = 0; q < nq; ++q) {
+    cp_async_wait_all();
+    fence_async_shared();
+    __syncthreads();
     if (q + 1 < nq) load(q + 1, (q + 1) & 1);
     cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const int st = q & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, &t.in.a[st][warp * 16][kk], LDS);
-#pragma unroll
-      for (int i = 0; i < BN / 16; ++i) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, &t.in.b[st][i * 16][kk], LDS);
-        wmma::mma_sync(acc[i], fa, fb, acc[i]);
-      }
+    if (busy) {
+      const unsigned sa = smem_base + (unsigned)((q & 1) * st_elems * 2);
+      mma_chunk<BN, BK, MT, 4>(
+          acc, sa, sa + (unsigned)(T::a_stage(a.rows) * 2), arow,
+          [=](int i) { return tap_shift(r + (i >> 1), s + (i & 1), Wp); });
     }
-    __syncthreads();
   }
   cp_async_wait_all();
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < BN / 16; ++i)
-    wmma::store_matrix_sync(&t.c[warp * 16][i * 16], acc[i], BN + 4,
-                            wmma::mem_row_major);
-  __syncthreads();
+  fence_async_shared();
+  __syncthreads();                        // the epilogue tile overlaps
 
-  for (int e = tid; e < BM * BN; e += THREADS) {
-    const int row = e / BN, col = e - (e / BN) * BN;
-    const int m = m0 + row, co = co0 + col;
-    if (m >= M || co >= Cg) continue;
-    float v = t.c[row][col];
-    if (scale != nullptr) v = __fadd_rn(__fmul_rn(v, scale[co]), bias[co]);
-    if (act && !(v > 0.f)) v = __fmul_rn(slope, v);
-    size_t at;
-    if (UP) {
-      const int n = m / (H * W);
-      const int hw = m - n * (H * W);
-      const int i = hw / W, j = hw - (hw / W) * W;
-      const int p = co / F, f = co - p * F;
-      at = (((size_t)n * 2 * H + 2 * i + (p >> 1)) * (2 * W) + 2 * j +
-            (p & 1)) * F + f;
-    } else {
-      at = (size_t)m * Cg + co;
-    }
-    out[at] = __float2bfloat16_rn(v);
-  }
+  const int HW = a.H * a.W;
+  epilogue<BN, BM, MT>(a, acc, smem, f0, min(a.bm, a.N * HW - m0),
+                       [&](int i) {
+    const int m = m0 + i, n = m / HW, rem = m - n * HW, y = rem / a.W;
+    return (n * 2 * a.H + 2 * y + r) * (2 * a.W) + 2 * (rem - y * a.W) + s;
+  });
 }
 
-template <int BN, bool UP>
-int launch_bn(bool vec, const Input& a, const Input& b, int n_inputs,
-              const float* scale, const float* bias, bf16* out, int M, int H,
-              int W, int Cg, int F, float slope, int act,
-              cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM, (Cg + BN - 1) / BN);
-  if (vec)
-    lane_conv_kernel<BN, true, UP><<<grid, THREADS, 0, stream>>>(
-        a, b, n_inputs, scale, bias, out, M, H, W, Cg, F, slope, act);
-  else
-    lane_conv_kernel<BN, false, UP><<<grid, THREADS, 0, stream>>>(
-        a, b, n_inputs, scale, bias, out, M, H, W, Cg, F, slope, act);
+template <int BN, int BM, int BK>
+int launch_up(const Args& a, bool vec, cudaStream_t stream) {
+  const size_t smem = Tile<BN, BM, BK, 4>::smem_bytes(a.rows);
+  if (smem > 232448 || a.bm > BM) return (int)cudaErrorInvalidValue;
+  const int M = a.N * a.H * a.W, ftiles = (a.Co + BN - 1) / BN;
+  dim3 grid((M + a.bm - 1) / a.bm, 4 * ftiles);
+  auto kernel = vec ? upconv_kernel<BN, BM, BK, true>
+                    : upconv_kernel<BN, BM, BK, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// BN: the column tile.  For a conv the smallest of 16..128 covering Co
-// (128 beyond); for an upconv the largest of 128..16 dividing F, so each
-// block's columns lie in one phase (F not a multiple of 16: by 4F, all
-// nine taps).
-template <bool UP>
-int launch(int bn, bool vec, const Input& a, const Input& b, int n_inputs,
-           const float* scale, const float* bias, bf16* out, int M, int H,
-           int W, int Cg, int F, float slope, int act, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 16:
-      return launch_bn<16, UP>(vec, a, b, n_inputs, scale, bias, out, M, H,
-                               W, Cg, F, slope, act, s);
-    case 32:
-      return launch_bn<32, UP>(vec, a, b, n_inputs, scale, bias, out, M, H,
-                               W, Cg, F, slope, act, s);
-    case 64:
-      return launch_bn<64, UP>(vec, a, b, n_inputs, scale, bias, out, M, H,
-                               W, Cg, F, slope, act, s);
-    default:
-      return launch_bn<128, UP>(vec, a, b, n_inputs, scale, bias, out, M, H,
-                                W, Cg, F, slope, act, s);
+// Shared memory of the resident upconv: nq chunks' 16 phase taps of
+// weights, two stages of part-major rows, the rows' source table.
+template <int BN, int BK>
+size_t up_res_smem_bytes(int rows, int nq) {
+  return ((size_t)nq * 16 * BN * BK + 2 * (size_t)rows * BK) * sizeof(bf16) +
+         4 * (size_t)rows;
+}
+
+// The resident upconv's epilogue for one phase, straight from the
+// accumulators of an m64 tile (BN = 32 columns, accumulator j at row g +
+// 8 ((j / 2) % 2), column 8 (j / 4) + 2 tg + j % 2): the BN fold (sc, bi:
+// this lane's eight columns) and leaky in f32, one rounding to bf16, then
+// a 4 x 4 transpose of 32-bit words among the four lanes of a row quad
+// (three shuffles), so lane tg holds columns 8 tg .. 8 tg + 7 of both its
+// rows and writes each as one 16-byte run to out + fine[h] * F, fine[h]
+// the phase's fine pixel of row g + 8 h (-1: none).  No shared staging,
+// no barrier.
+__device__ __forceinline__ void store_phase(const Args& a,
+                                            const float (&acc)[16],
+                                            const float (&sc)[8],
+                                            const float (&bi)[8],
+                                            const int (&fine)[2]) {
+  const int lane = threadIdx.x & 31, tg = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t w[4];                        // n-block nb's two columns
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        v[e] = acc[4 * nb + 2 * h + e];
+        if (a.scale != nullptr)
+          v[e] = __fadd_rn(__fmul_rn(v[e], sc[2 * nb + e]), bi[2 * nb + e]);
+        if (a.act && !(v[e] > 0.f)) v[e] = __fmul_rn(a.slope, v[e]);
+      }
+      __nv_bfloat162 b2 = __floats2bfloat162_rn(v[0], v[1]);
+      w[nb] = *reinterpret_cast<uint32_t*>(&b2);
+    }
+    // lane tg gathers word tg (its own n-block) of each quad lane t:
+    // from lane (tg - k) & 3 in round k, which sends its word tg
+    uint32_t o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int send = (tg + k) & 3, from = (tg - k) & 3;
+      const uint32_t x = send == 0 ? w[0] : send == 1 ? w[1]
+                       : send == 2 ? w[2] : w[3];
+      const uint32_t y =
+          k == 0 ? x : __shfl_sync(0xffffffffu, x, (lane & ~3) | from);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) o[t] = from == t ? y : o[t];
+    }
+    const int c0 = 8 * tg;
+    if (fine[h] < 0 || c0 >= a.Co) continue;
+    bf16* d = a.out + (size_t)fine[h] * a.Co + c0;
+    if (a.Co % 8 == 0) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+      unsigned short* ds = reinterpret_cast<unsigned short*>(d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (c0 + i < a.Co)
+          ds[i] = (unsigned short)(o[i / 2] >> (16 * (i % 2)));
+    }
   }
 }
 
-int conv_tile(int co) {
-  return co <= 16 ? 16 : co <= 32 ? 32 : co <= 64 ? 64 : 128;
+// B8 with resident weights and all four phases per block (F <= BN = 32,
+// the inputs in whole 16-byte channel runs): conv_res_kernel's walk (a
+// persistent grid over tiles of BM consecutive padded positions of the
+// coarse stack, the border ones computed and dropped, A by descriptor
+// from part-major rows, the next unit's rows loading while this one
+// multiplies) with each phase's four taps, every wgmma of a chunk issued
+// back to back, and store_phase's epilogue from registers for each phase.
+template <int BN, int BK, int BM>
+__global__ void __launch_bounds__(THREADS)
+upconv_res_kernel(const Args a) {
+  static_assert(BN == 32, "store_phase transposes four n-blocks");
+  constexpr int MT = BM / 128, WCHUNK = 16 * BN * BK;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nq = (a.in[0].ci + BK - 1) / BK;
+  const int Wp = a.W + 2, HWp = (a.H + 2) * Wp;
+  bf16* sw = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sa0 = sw + (size_t)nq * WCHUNK;
+  const size_t a_st = (size_t)a.rows * BK;
+  int* src_row = reinterpret_cast<int*>(sa0 + 2 * a_st);
+
+  // the padded positions from the first map pixel to the last
+  const int first = Wp + 1, last = (a.N - 1) * HWp + a.H * Wp + a.W;
+  const int tiles = (last - first) / BM + 1;
+  if ((int)blockIdx.x >= tiles) return;
+  const int units = ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * nq;
+  auto tile_p0 = [&](int j) {
+    return first + (blockIdx.x + j * gridDim.x) * BM;
+  };
+  auto chunk_q = [&](int q) {
+    return Chunk{a.in[0].x, a.in[0].w, a.in[0].ci, q * BK};
+  };
+
+  for (int q = 0; q < nq; ++q)
+    load_w_up<BN, BK, 4, true>(a, chunk_q(q), 0, 0, sw + q * WCHUNK);
+  source_rows(a, tile_p0(0) - first, src_row);
+  __syncthreads();
+  load_a_parts<BK>(a, chunk_q(0), src_row, sa0);
+  cp_async_commit();
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const unsigned sw_base = (unsigned)__cvta_generic_to_shared(sw);
+  const unsigned sa_base = (unsigned)__cvta_generic_to_shared(sa0);
+  // this lane's eight columns' BN fold, the same for every tile
+  float sc[8], bi[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int f = 8 * (i / 2) + 2 * (lane & 3) + i % 2;
+    const bool on = a.scale != nullptr && f < a.Co;
+    sc[i] = on ? a.scale[f] : 1.f;
+    bi[i] = on ? a.bias[f] : 0.f;
+  }
+  float acc[4][MT][BN / 2];
+  for (int u = 0; u < units; ++u) {
+    const int j = u / nq, q = u - j * nq;
+    cp_async_wait_all();
+    fence_async_shared();
+    __syncthreads();        // unit u landed; its slot's old reads are done
+    if (u + 1 < units) {
+      const int j1 = (u + 1) / nq, q1 = u + 1 - j1 * nq;
+      if (q1 == 0) {        // a new tile: its rows' sources first
+        source_rows(a, tile_p0(j1) - first, src_row);
+        __syncthreads();
+      }
+      load_a_parts<BK>(a, chunk_q(q1), src_row, sa0 + ((u + 1) & 1) * a_st);
+    }
+    cp_async_commit();
+    if (q == 0) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[p][mt][i] = 0.f;
+    }
+    // position i of the tile reads staged row i + first + shift
+    const unsigned sa = sa_base + (unsigned)((u & 1) * a_st * 2);
+    const unsigned sb = sw_base + (unsigned)(q * WCHUNK * 2);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int dy = t / 3, dx = t % 3, shift = tap_shift(dy, dx, Wp);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int iy = dy - (p >> 1), ix = dx - (p & 1);
+          if (iy < 0 || iy > 1 || ix < 0 || ix > 1) continue;
+          const uint64_t bd = smem_desc(
+              sb + (unsigned)(((p * 4 + iy * 2 + ix) * BN * BK +
+                               (kk / 8) * 64) * 2),
+              128, (BK / 8) * 128);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const int row = wg * (BM / 2) + mt * 64 + first + shift;
+            const uint64_t ad = smem_desc(
+                sa + (unsigned)(((kk / 8) * a.rows + row) * 16),
+                (unsigned)a.rows * 16, 128);
+            Wgmma<BN>::run(acc[p][mt], ad, bd);
+          }
+        }
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+    if (q == nq - 1) {
+      const int P0 = tile_p0(j);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        // phase (0, 0)'s fine pixel of this lane's rows g and g + 8
+        int fine[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int P = P0 + wg * (BM / 2) + mt * 64 +
+                        ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2) + 8 * h;
+          const int n = P / HWp, rem = P - n * HWp, y = rem / Wp - 1;
+          const int x = rem - (y + 1) * Wp - 1;
+          fine[h] = P <= last && y >= 0 && y < a.H && x >= 0 && x < a.W
+                        ? (n * 2 * a.H + 2 * y) * (2 * a.W) + 2 * x
+                        : -1;
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int step = (p >> 1) * 2 * a.W + (p & 1);
+          const int at[2] = {fine[0] < 0 ? -1 : fine[0] + step,
+                             fine[1] < 0 ? -1 : fine[1] + step};
+          store_phase(a, acc[p][mt], sc, bi, at);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
 }
 
-int upconv_tile(int f) {
-  for (int bn = 128; bn >= 16; bn /= 2)
-    if (f % bn == 0) return bn;
-  return conv_tile(4 * f);
+// The persistent grid, as launch_res: as many blocks as fit on the card
+// at once, at most one per tile.  rows must be BM + 2 (W + 3).
+template <int BN, int BK, int BM>
+int launch_up_res(const Args& a, cudaStream_t stream) {
+  const size_t smem =
+      up_res_smem_bytes<BN, BK>(a.rows, (a.in[0].ci + BK - 1) / BK);
+  if (smem > 232448 || a.rows != BM + 2 * (a.W + 3) || a.Co > BN)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = upconv_res_kernel<BN, BK, BM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int Wp = a.W + 2, HWp = (a.H + 2) * Wp;
+  const int tiles = ((a.N - 1) * HWp + a.H * Wp + a.W - (Wp + 1)) / BM + 1;
+  const int x = max(1, min(tiles, sms * max(per_sm, 1)));
+  kernel<<<x, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-Input make_input(const void* x, const void* w, int ci) {
-  return Input{static_cast<const bf16*>(x), static_cast<const bf16*>(w), ci,
-               (ci + BK - 1) / BK};
-}
+}  // namespace halo
 
 }  // namespace
 
@@ -1035,18 +1170,51 @@ extern "C" int riders_lane_conv3x3(const void* x0, const void* w0, int ci0,
   return (int)cudaErrorInvalidValue;
 }
 
-// x (N, h, w, ci) bf16; w (4F, 3, 3, ci) bf16, the phase-composed kernel;
-// scale, bias (4F) f32 (the BN fold tiled over the four phases); out
-// (N, 2h, 2w, F) bf16.  vec as above.  Returns cudaGetLastError().
+// x (N, h, w, ci) bf16; w (4F, 3, 3, ci) bf16, the phase-composed
+// weights (ops/kernels/lane_decoder.py:pack_upconv); scale, bias (F) f32,
+// both NULL for a linear conv; out (N, 2h, 2w, F) bf16.  vec as above.
+// The plan (ops/kernels/lane_decoder.py:upconv_plan): bn columns of F per
+// block and phase, tile_m and bk naming one of the compiled tiles below;
+// resident != 0 for the resident-weights kernel (all four phases a block;
+// vec only; its tiles are tile_m padded positions and rows = tile_m + 2
+// (w + 3)); else one phase a block, bm coarse pixels per block (a
+// multiple of 16, at most tile_m) and rows staged per block, as for the
+// conv.  Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan
+// it does not take.
 extern "C" int riders_lane_upconv2x(const void* x, const void* w, int ci,
                                     const void* scale, const void* bias,
                                     void* out, int N, int h, int w_, int F,
-                                    float slope, int act, int vec,
-                                    void* stream) {
-  const Input a = make_input(x, w, ci);
-  return launch<true>(upconv_tile(F), vec != 0, a, a, 1,
-                      static_cast<const float*>(scale),
-                      static_cast<const float*>(bias),
-                      static_cast<bf16*>(out), N * h * w_, h, w_, 4 * F, F,
-                      slope, act, stream);
+                                    float slope, int act, int vec, int bn,
+                                    int tile_m, int bk, int resident, int bm,
+                                    int rows, void* stream) {
+  halo::Args a;
+  a.in[0] = halo::Src{static_cast<const bf16*>(x),
+                      static_cast<const bf16*>(w), ci};
+  a.in[1] = a.in[0];
+  a.n_inputs = 1;
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<bf16*>(out);
+  a.N = N;
+  a.H = h;
+  a.W = w_;
+  a.Co = F;
+  a.bm = bm;
+  a.rows = rows;
+  a.slope = slope;
+  a.act = act;
+  if (bm <= 0 || bm % 16 || rows <= 0 || (resident && !vec))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define UP_TILE(BN, BM, BK)                                                \
+  if (!resident && bn == BN && tile_m == BM && bk == BK)                   \
+    return halo::launch_up<BN, BM, BK>(a, vec != 0, s);
+  UP_TILE(64, 256, 16)
+#undef UP_TILE
+#define UP_RES_TILE(BN, BM, BK)                                            \
+  if (resident && bn == BN && tile_m == BM && bk == BK)                    \
+    return halo::launch_up_res<BN, BK, BM>(a, s);
+  UP_RES_TILE(32, 128, 32)
+#undef UP_RES_TILE
+  return (int)cudaErrorInvalidValue;
 }

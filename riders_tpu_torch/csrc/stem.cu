@@ -1,6 +1,7 @@
 // Fused RC-Net stem: 7x7 stride-2 conv (Cin 3 -> Cout 32) with the
-// BatchNorm folded into the weights, + bias, leaky-relu, bf16 out, and
-// MaxPool2d(3, 2, 1) of that output, in one kernel.
+// BatchNorm folded into the weights, + bias, max(y, slope * y) (slope 0.2
+// leaky-relu, 0 relu, 1 linear, as the Pallas kernel's negative_slope),
+// bf16 out, and MaxPool2d(3, 2, 1) of that output, in one kernel.
 //
 // Replaces: riders_tpu/ops/pallas/stem.py:stem_conv_pallas (pool=True),
 // the Pallas im2col-matmul stem of the JAX package.
@@ -40,8 +41,8 @@
 //    (ops/kernels/stem.py:pack_weights, once per call) and sits in shared
 //    memory: two 16-byte loads give a lane its fragments of one k-step.
 //    Each warp runs four 16-pixel M tiles, two at a time.
-//  * Epilogue: bias and leaky relu in f32, rounded to bf16 into a shared
-//    conv tile (the pool's -inf outside the conv extent; a pixel's four
+//  * Epilogue: bias and max(y, slope * y) in f32, rounded to bf16 into a
+//    shared conv tile (the pool's -inf outside the conv extent; a pixel's four
 //    16-byte channel groups swizzled by its column, so the stores from the
 //    accumulators are conflict-free); then the owned conv pixels and the
 //    3x3/s2 maxima leave in 16-byte stores.
@@ -81,7 +82,6 @@ constexpr int RAW_PITCH = CHUNKS * 8;
 constexpr int GROUPS = 3 * KS;           // groups of 8 GEMM rows: 21
 constexpr int KSTEPS = (GROUPS + 1) / 2; // 11: K = 176
 constexpr int CP = 40;                   // conv tile pitch per pixel (bf16)
-constexpr float SLOPE = 0.2f;            // leaky-relu negative slope
 constexpr int B_BYTES = KSTEPS * 2 * 32 * 16;
 constexpr int CONV_BYTES = NPIX * CP * 2;
 constexpr int IN_BYTES = TIH * SP * 2;
@@ -170,7 +170,8 @@ stem_conv_pool_kernel(const __nv_bfloat16* __restrict__ x,
                       const float* __restrict__ bias,
                       __nv_bfloat16* __restrict__ out,
                       __nv_bfloat16* __restrict__ pooled,
-                      int H, int W, int Ho, int Wo, int Hp, int Wp) {
+                      int H, int W, int Ho, int Wo, int Hp, int Wp,
+                      float slope) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* s_b = reinterpret_cast<uint4*>(smem);         // [s][half][lane]
   __nv_bfloat16* conv_s =
@@ -285,8 +286,8 @@ stem_conv_pool_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
     // Epilogue: rows g (c0, c1) and g + 8 (c2, c3) of each tile, channels
-    // 8n + 2t and + 1: bias, leaky, bf16, into the conv tile.  Every warp
-    // is past its reads of the raw rows (the barrier above).
+    // 8n + 2t and + 1: bias, max(y, slope y), bf16, into the conv tile.
+    // Every warp is past its reads of the raw rows (the barrier above).
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       int lr, lc;
@@ -305,8 +306,8 @@ stem_conv_pool_kernel(const __nv_bfloat16* __restrict__ x,
           const float2 bb = __ldg(
               reinterpret_cast<const float2*>(bias + 8 * n + 2 * t));
           const float y0 = c[0] + bb.x, y1 = c[1] + bb.y;
-          __nv_bfloat162 r = __floats2bfloat162_rn(fmaxf(y0, SLOPE * y0),
-                                                   fmaxf(y1, SLOPE * y1));
+          __nv_bfloat162 r = __floats2bfloat162_rn(fmaxf(y0, slope * y0),
+                                                   fmaxf(y1, slope * y1));
           v = *reinterpret_cast<unsigned*>(&r);
         }
         *reinterpret_cast<unsigned*>(px + 8 * (n ^ sw)) = v;
@@ -351,12 +352,13 @@ stem_conv_pool_kernel(const __nv_bfloat16* __restrict__ x,
 
 // x: (B, H, W, 3) bf16 NHWC, 16-byte aligned; w: the (176, 32) folded bf16
 // weights in fragment order (ops/kernels/stem.py:pack_weights); bias:
-// (32,) f32; out: (B, ceil(H/2), ceil(W/2), 32) bf16; pooled:
-// (B, ceil(Ho/2), ceil(Wo/2), 32) bf16.  Returns cudaGetLastError().
+// (32,) f32; slope: the activation max(y, slope * y); out: (B,
+// ceil(H/2), ceil(W/2), 32) bf16; pooled: (B, ceil(Ho/2), ceil(Wo/2), 32)
+// bf16.  Returns cudaGetLastError().
 extern "C" int riders_stem_conv_pool(const void* x, const void* w,
                                      const void* bias, void* out,
                                      void* pooled, int B, int H, int W,
-                                     void* stream) {
+                                     float slope, void* stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -373,6 +375,6 @@ extern "C" int riders_stem_conv_pool(const void* x, const void* w,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint4*>(w),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out),
-      static_cast<__nv_bfloat16*>(pooled), H, W, Ho, Wo, Hp, Wp);
+      static_cast<__nv_bfloat16*>(pooled), H, W, Ho, Wo, Hp, Wp, slope);
   return (int)cudaGetLastError();
 }

@@ -16,12 +16,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from riders_tpu_torch.ops.kernels.stem import (KERNEL_SIZE, NEGATIVE_SLOPE,
-                                               stem_conv_pool)
+from riders_tpu_torch.ops.kernels.stem import KERNEL_SIZE, stem_conv_pool
 from riders_tpu_torch.ops.resize import resize_nchw
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1           # flax momentum 0.9: ra = 0.9 ra + 0.1 batch
+# the activations the fused stem kernel applies, as max(y, slope * y)
+STEM_SLOPES = {"leaky_relu": 0.2, "relu": 0.0, "linear": 1.0}
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -95,35 +96,36 @@ class ConvBlock(nn.Module):
 
 
 class FusedStemConv(nn.Module):
-    """7x7 stride-2 conv -> BN -> leaky-relu(0.2), plus MaxPool2d(3, 2, 1) of
+    """7x7 stride-2 conv -> BN -> activation, plus MaxPool2d(3, 2, 1) of
     its output.
 
-    In eval on a bf16 image it runs the fused stem kernel with the BN
-    running statistics folded in (its plain version on the CPU).  In
-    training, and in eval on an f32 image, it runs the library conv, the
-    BN (over the batch in training), the leaky relu and the max pool, as
-    the JAX stem does off its Pallas path.  Takes the NHWC image and
-    returns (conv map, pooled map) as NCHW tensors, channels_last on the
-    kernel path."""
+    In eval on a bf16 image, for the activations of `STEM_SLOPES`, it runs
+    the fused stem kernel with the BN running statistics folded in (its
+    plain version on the CPU).  Otherwise (training, an f32 image, elu or
+    sigmoid) it runs the library conv, the BN (over the batch in
+    training), the activation and the max pool, as the JAX stem does off
+    its Pallas path.  Takes the NHWC image and returns (conv map, pooled
+    map) as NCHW tensors, channels_last on the kernel path."""
 
     def __init__(self, in_ch: int = 3, features: int = 32,
                  activation_name: str = "leaky_relu"):
         super().__init__()
-        if activation_name != "leaky_relu":
-            raise ValueError(f"stem activation {activation_name}: the fused "
-                             f"stem applies leaky-relu(0.2) only")
+        self.activation = activation_fn(activation_name)
+        self.slope = STEM_SLOPES.get(activation_name)
         self.conv = nn.Conv2d(in_ch, features, KERNEL_SIZE, 2,
                               KERNEL_SIZE // 2, bias=False)
         self.bn = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.training or x.dtype != torch.bfloat16:
-            h = F.leaky_relu(self.bn(self.conv(x.permute(0, 3, 1, 2))),
-                             NEGATIVE_SLOPE)
+        if (self.training or x.dtype != torch.bfloat16
+                or self.slope is None):
+            h = self.bn(self.conv(x.permute(0, 3, 1, 2)))
+            if self.activation is not None:
+                h = self.activation(h)
             return h, F.max_pool2d(h, 3, 2, 1)
         out, pooled = stem_conv_pool(x.contiguous(), self.conv.weight,
-                                     *bn_fold(self.bn))
+                                     *bn_fold(self.bn), self.slope)
         return out.permute(0, 3, 1, 2), pooled.permute(0, 3, 1, 2)
 
 

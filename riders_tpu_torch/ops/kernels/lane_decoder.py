@@ -22,6 +22,14 @@ RESIDENT_SMEM_LIMIT, the weights stay resident in a persistent grid
 whose tiles are runs of 256 padded positions; otherwise they stream with
 the rows, one block per tile of output pixels, shrunk until two stages
 fit.
+
+`upconv_plan` sizes the upconv kernel's blocks the same way on the
+coarse map: where F <= 32, the input comes in whole 16-byte runs and the
+weights fit within RESIDENT_SMEM_LIMIT, all four output phases of a
+tile go to one block of a persistent grid with the weights resident, so
+each input byte is staged once; otherwise the weights stream with
+64-column tiles of one phase.  Each phase multiplies only the four
+coarse taps `phase_taps` names, where its composed weights are nonzero.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ _CONV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                   + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 _UP_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                + [ctypes.c_float] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 # the conv kernel's tiles (compiled in csrc/lane_decoder.cu): output
 # channels per block -> (most output pixels per block, input channels per
@@ -58,6 +66,14 @@ SMEM_LIMIT = 232448         # bytes of shared memory a block may use
 # memory: beyond it (a block per SM) it ran no faster than streaming the
 # weights on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
 RESIDENT_SMEM_LIMIT = 128 * 1024
+# the upconv kernel's tiles (compiled in csrc/lane_decoder.cu): streamed
+# weights take (columns of one phase, most coarse pixels, input channels
+# per staged chunk) per block; resident weights take all four phases of
+# F <= 32 columns and UPCONV_RESIDENT_M padded positions per tile with
+# RESIDENT_BK channels per chunk (256 positions, one block per SM, ran
+# slower than 128, two, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md)
+UPCONV_TILE = (64, 256, 16)
+UPCONV_RESIDENT_BN, UPCONV_RESIDENT_M = 32, 128
 
 
 @dataclass(frozen=True)
@@ -82,21 +98,24 @@ def halo_rows(bm: int, H: int, W: int) -> int:
     return span + 2 * (W + 3) + 1
 
 
-def conv_smem(bn: int, tile_m: int, bk: int, rows: int) -> int:
+def conv_smem(bn: int, tile_m: int, bk: int, rows: int,
+              taps: int = 9) -> int:
     """Bytes of shared memory with streamed weights: two stages of `rows`
-    staged rows of bk + 8 bf16 and 9 x bn x bk weights, the epilogue tile
-    (tile_m rows of bn + 8 bf16) overlapping them, and the rows' source
-    table."""
-    ring = 2 * (rows * (bk + 8) + 9 * bn * bk) * 2
+    staged rows of bk + 8 bf16 and taps x bn x bk weights, the epilogue
+    tile (tile_m rows of bn + 8 bf16) overlapping them, and the rows'
+    source table."""
+    ring = 2 * (rows * (bk + 8) + taps * bn * bk) * 2
     return max(ring, tile_m * (bn + 8) * 2) + 4 * rows
 
 
-def resident_smem(bn: int, bk: int, rows: int, chunks: int) -> int:
+def resident_smem(bn: int, bk: int, rows: int, chunks: int,
+                  taps: int = 9, epilogue_rows: int = 256) -> int:
     """Bytes of shared memory with resident weights: all `chunks` chunks'
-    9 x bn x bk weights, two stages of `rows` rows of bk bf16, the
-    256-row epilogue tile and the rows' source table."""
-    return (chunks * 9 * bn * bk + 2 * rows * bk + 256 * (bn + 8)) * 2 \
-        + 4 * rows
+    taps x bn x bk weights, two stages of `rows` rows of bk bf16, the
+    epilogue tile (the conv's 256 rows of bn + 8 bf16; none for the
+    upconv, which stores from registers) and the rows' source table."""
+    return (chunks * taps * bn * bk + 2 * rows * bk
+            + epilogue_rows * (bn + 8)) * 2 + 4 * rows
 
 
 def padded_span(N: int, H: int, W: int) -> Tuple[int, int]:
@@ -130,6 +149,55 @@ def conv_plan(N: int, H: int, W: int, cis: Sequence[int], co: int,
             return ConvPlan(bn, tile_m, bk, False, bm, rows, smem,
                             -(-M // bm))
     raise ValueError(f"lane_conv3x3: maps {W} wide need a halo beyond "
+                     f"shared memory")
+
+
+@dataclass(frozen=True)
+class UpconvPlan:
+    bn: int                 # columns of F per block and phase
+    tile_m: int             # the tile's most coarse pixels per block
+    bk: int                 # input channels per staged chunk
+    resident: bool          # weights resident, a persistent grid, all
+                            # four phases a block (else one)
+    bm: int                 # coarse pixels (resident: padded positions)
+                            # per tile
+    rows: int               # padded positions staged per tile and chunk
+    smem: int               # bytes of shared memory per block
+    tiles: int              # tiles (streamed: blocks) along the pixels
+    col_blocks: int         # blocks along the columns (gridDim.y)
+
+
+def phase_taps(p: int) -> Tuple[Tuple[int, int], ...]:
+    """The coarse taps (dy, dx) that output phase p = (r, s) = divmod(p, 2)
+    reads, in the kernel's order i = 0..3: (r + i // 2, s + i % 2)."""
+    r, s = divmod(p, 2)
+    return tuple((r + i // 2, s + i % 2) for i in range(4))
+
+
+def upconv_plan(N: int, h: int, w: int, ci: int, f: int,
+                vec: bool = True) -> UpconvPlan:
+    """The upconv kernel's tiling of an (N, h, w) coarse map stack with
+    Ci input channels into 4F columns (vec: the input comes in whole
+    16-byte channel runs); raises where even 16 pixels' halo does not
+    fit."""
+    if f <= UPCONV_RESIDENT_BN and vec:
+        bn, bm = UPCONV_RESIDENT_BN, UPCONV_RESIDENT_M
+        rows = bm + 2 * (w + 3)
+        smem = resident_smem(bn, RESIDENT_BK, rows, -(-ci // RESIDENT_BK),
+                             16, 0)
+        if smem <= RESIDENT_SMEM_LIMIT:
+            first, last = padded_span(N, h, w)
+            return UpconvPlan(bn, bm, RESIDENT_BK, True, bm, rows, smem,
+                              (last - first) // bm + 1, 1)
+    bn, tile_m, bk = UPCONV_TILE
+    M = N * h * w
+    for bm in range(min(tile_m, -(-M // 16) * 16), 0, -16):
+        rows = halo_rows(bm, h, w)
+        smem = conv_smem(bn, tile_m, bk, rows, 4)
+        if smem <= SMEM_LIMIT:
+            return UpconvPlan(bn, tile_m, bk, False, bm, rows, smem,
+                              -(-M // bm), 4 * -(-f // bn))
+    raise ValueError(f"lane_upconv2x: maps {w} wide need a halo beyond "
                      f"shared memory")
 
 
@@ -253,19 +321,18 @@ def lane_upconv2x(x: torch.Tensor, w: torch.Tensor,
     f = w.shape[0] // 4
     require(x, "x", torch.bfloat16)
     require(w, "w", torch.bfloat16, (4 * f, 3, 3, ci))
-    _scale_bias(scale, bias, f)
-    s4, b4 = ((scale.repeat(4), bias.repeat(4)) if scale is not None
-              else (None, None))
+    sp, bp = _scale_bias(scale, bias, f)
     out = torch.empty((N, 2 * h, 2 * w_, f), dtype=torch.bfloat16,
                       device=x.device)
     if out.numel() == 0:
         return out
+    vec = _vectorised(x, w)
+    plan = upconv_plan(N, h, w_, ci, f, bool(vec))
     fn = kernel_function("lane_decoder", "riders_lane_upconv2x",
                          _UP_ARGTYPES)
-    check(fn(x.data_ptr(), w.data_ptr(), ci,
-             0 if s4 is None else s4.data_ptr(),
-             0 if b4 is None else b4.data_ptr(), out.data_ptr(), N, h, w_, f,
-             *_act(slope), _vectorised(x, w), stream_handle(out)),
+    check(fn(x.data_ptr(), w.data_ptr(), ci, sp, bp, out.data_ptr(), N, h,
+             w_, f, *_act(slope), vec, plan.bn, plan.tile_m, plan.bk,
+             int(plan.resident), plan.bm, plan.rows, stream_handle(out)),
           "lane_upconv2x")
     LAUNCHES["lane_upconv2x"] += 1
     return out

@@ -1,10 +1,12 @@
-"""Fused stem: 7x7/s2 conv + folded BN + leaky-relu, and MaxPool2d(3, 2, 1).
+"""Fused stem: 7x7/s2 conv + folded BN + max(y, slope * y), and
+MaxPool2d(3, 2, 1).
 
 `stem_conv_pool` launches the CUDA kernel (csrc/stem.cu) for CUDA
 tensors and runs `stem_conv_pool_plain` for CPU tensors.  Both fold the
 BN scale into the weights in f32 and round them to the input dtype (as
-the TPU kernel does), accumulate in f32, add the bias, apply the leaky
-relu, round to the input dtype, then max-pool that rounded map.
+the TPU kernel does), accumulate in f32, add the bias, apply max(y,
+slope * y) (slope 0.2: RC-Net's leaky relu; 0: relu; 1: linear), round
+to the input dtype, then max-pool that rounded map.
 
 The kernel runs the 7x7x3 contraction as a GEMM on the tensor cores
 (mma.sync m16n8k16) with K = the 147 taps (ky, kx, ci), each kernel
@@ -33,7 +35,8 @@ K_STEPS = 11                      # K = 7 kernel rows x 24 padded to 176:
                                   # eleven 16-deep mma steps
 POOLED_TILE = (8, 16)             # pooled rows, columns of a block (stem.cu)
 STAGED_ROW_PITCH = 216            # bf16 per staged input row (stem.cu SP)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
+             + [ctypes.c_void_p])
 
 
 def _folded(weight: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -88,28 +91,31 @@ def k_offsets() -> np.ndarray:
 
 
 def stem_conv_pool_plain(x: torch.Tensor, weight: torch.Tensor,
-                         scale: torch.Tensor, bias: torch.Tensor
+                         scale: torch.Tensor, bias: torch.Tensor,
+                         slope: float = NEGATIVE_SLOPE
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, H, W, Cin) NHWC; weight (Cout, Cin, k, k); scale, bias
-    (Cout,).  Returns the conv map (B, ceil(H/2), ceil(W/2), Cout) and its
-    MaxPool2d(3, 2, 1), both NHWC in x's dtype."""
+    (Cout,); the activation max(y, slope * y).  Returns the conv map (B,
+    ceil(H/2), ceil(W/2), Cout) and its MaxPool2d(3, 2, 1), both NHWC in
+    x's dtype."""
     k = weight.shape[-1]
     w = _folded(weight, scale).to(x.dtype).float()
     y = F.conv2d(x.permute(0, 3, 1, 2).float(), w, stride=2, padding=k // 2)
     y = y + bias.float()[None, :, None, None]
-    y = F.leaky_relu(y, NEGATIVE_SLOPE).to(x.dtype)
+    y = torch.maximum(y, slope * y).to(x.dtype)
     pooled = F.max_pool2d(y, 3, 2, 1)
     return y.permute(0, 2, 3, 1), pooled.permute(0, 2, 3, 1)
 
 
 def stem_conv_pool(x: torch.Tensor, weight: torch.Tensor,
-                   scale: torch.Tensor, bias: torch.Tensor
+                   scale: torch.Tensor, bias: torch.Tensor,
+                   slope: float = NEGATIVE_SLOPE
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused stem; see `stem_conv_pool_plain` for the contract.  On
     CUDA it takes a contiguous bf16 NHWC image with 3 channels and a
     (32, 3, 7, 7) weight, and returns contiguous NHWC outputs."""
     if on_cpu(x, weight, scale, bias):
-        return stem_conv_pool_plain(x, weight, scale, bias)
+        return stem_conv_pool_plain(x, weight, scale, bias, slope)
     require(x, "image", torch.bfloat16, (None, None, None, CIN))
     if tuple(weight.shape) != (COUT, CIN, KERNEL_SIZE, KERNEL_SIZE):
         raise ValueError(f"stem weight: expected {(COUT, CIN, 7, 7)}, got "
@@ -118,10 +124,12 @@ def stem_conv_pool(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError("stem scale/bias: expected (32,)")
     if x.data_ptr() % 16:
         raise ValueError("image: the stem kernel reads 16-byte aligned rows")
-    return _launch(x, pack_weights(weight, scale), bias.float().contiguous())
+    return _launch(x, pack_weights(weight, scale), bias.float().contiguous(),
+                   slope)
 
 
-def _launch(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
+def _launch(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
+            slope: float = NEGATIVE_SLOPE
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on a checked CUDA image, `pack_weights`' output and the
     f32 bias."""
@@ -136,6 +144,7 @@ def _launch(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor
         return out, pooled
     fn = kernel_function("stem", "riders_stem_conv_pool", _ARGTYPES)
     check(fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-             pooled.data_ptr(), B, H, W, stream_handle(x)), "stem")
+             pooled.data_ptr(), B, H, W, float(slope), stream_handle(x)),
+          "stem")
     LAUNCHES["stem"] += 1
     return out, pooled

@@ -51,6 +51,34 @@ def test_stem_kernel_matches_plain(dev, hw):
         assert bool(((a - b).abs() <= limit).all())
 
 
+@pytest.mark.parametrize("slope", [0.0, 1.0], ids=["relu", "linear"])
+@pytest.mark.parametrize("hw", [(37, 53), (130, 202), (9, 70)])
+def test_stem_kernel_slopes_match_plain(dev, hw, slope):
+    """relu (slope 0) and linear (slope 1) within one bf16 step of the
+    plain version; slope 0.2 given explicitly is the default call, bit
+    for bit."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((2,) + hw + (3,), generator=g, device=dev).to(
+        torch.bfloat16)
+    w = 0.2 * torch.randn((32, 3, 7, 7), generator=g, device=dev)
+    scale = 0.5 + torch.rand(32, generator=g, device=dev)
+    bias = 0.1 * torch.randn(32, generator=g, device=dev)
+    got = stem.stem_conv_pool(x, w, scale, bias, slope)
+    want = stem.stem_conv_pool_plain(x, w, scale, bias, slope)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        a, b = a.float(), b.float()
+        limit = 2 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-4
+        assert bool(((a - b).abs() <= limit).all())
+    if slope == 0.0:
+        assert float(got[0].float().min()) >= 0.0
+    else:
+        assert float(got[0].float().min()) < 0.0
+    for a, b in zip(stem.stem_conv_pool(x, w, scale, bias, 0.2),
+                    stem.stem_conv_pool(x, w, scale, bias)):
+        assert torch.equal(a, b)
+
+
 def _boxes(g, dev, B, K, H, W, scale, out_size):
     """Fractional boxes of the pool's patch size around and past the map:
     box 0 at the origin, box 1 entirely outside, box 2 on a half pixel."""
@@ -224,6 +252,33 @@ def test_compose_kernel_matches_plain(dev, K):
     assert all(torch.equal(a, b) for a, b in zip(scalar, ref))
 
 
+@pytest.mark.parametrize("K,frame,patch", [
+    (48, (512, 640), (150, 50)), (300, (45, 70), (30, 12)),
+    (300, (200, 700), (24, 10))])
+def test_compose_kernel_clustered_points_match_plain(dev, K, frame, patch):
+    """Bitwise with every point of a frame within 3 pixels of one spot,
+    so the tiles there list all K (the longest culled lists), masked
+    points at the origin; a frame whose width is not a multiple of 4
+    takes the scalar stores."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, (H, W), (ph, pw) = 2, frame, patch
+    spot = torch.rand((B, 1, 2), generator=g, device=dev) * torch.tensor(
+        [W + pw, H + ph], device=dev)
+    uv = spot + 3 * (2 * torch.rand((B, K, 2), generator=g, device=dev) - 1)
+    z = 1 + 50 * torch.rand((B, K, 1), generator=g, device=dev)
+    mask = (torch.rand((B, K), generator=g, device=dev) > 0.2).float()
+    pts = (torch.cat([uv, z], -1) * mask[..., None]).contiguous()
+    resp = torch.rand((B, K, ph, pw), generator=g, device=dev)
+    thr = torch.tensor([0.2, -0.1], device=dev)
+    for W_ in (W, W - 3):
+        got = compose.compose_patches(resp, pts, mask, (H, W_), (ph, pw),
+                                      thr)
+        want = patches.compose_patches(resp, pts, mask, (H, W_), (ph, pw),
+                                       thr)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.rand((1, 20, 20, 3), device=dev)
     w = torch.randn((32, 3, 7, 7), device=dev)
@@ -307,9 +362,13 @@ def test_lane_conv3x3_kernel_matches_plain(dev, N, H, W, cis, co, act):
 @pytest.mark.parametrize("N,h,w,ci,f", [
     (3, 9, 3, 256, 128),                 # NTU deconv3
     (2, 5, 3, 24, 16),                   # odd extent
-    (3, 4, 7, 40, 12),                   # F % 16 != 0: tiles span phases
+    (3, 4, 7, 40, 12),                   # F = 12: 16-byte runs split
     (2, 3, 2, 12, 32),                   # Ci % 8 != 0: scalar loads
-    (1, 60, 25, 64, 32)])                # ZJU deconv1
+    (1, 60, 25, 64, 32),                 # ZJU deconv1
+    (4, 15, 6, 256, 128),                # ZJU deconv3
+    (2, 7, 5, 16, 8),                    # F = 8, Ci = 16: one chunk
+    (2, 6, 4, 64, 72),                   # F = 72: a partial column tile
+    (2, 9, 3, 256, 32)])                 # F = 32, weights too big to keep
 def test_lane_upconv2x_kernel_matches_plain(dev, N, h, w, ci, f):
     g = torch.Generator(device=dev).manual_seed(12)
     x = torch.randn((N, h, w, ci), generator=g, device=dev).to(torch.bfloat16)
@@ -364,3 +423,7 @@ def test_lane_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                    None, None, None)
     with pytest.raises(ValueError):                         # mixed devices
         lane_decoder.lane_conv3x3([x], [w.cpu()], None, None, None)
+    wu = lane_decoder.pack_upconv(torch.randn((3, 3, 8, 8), device=dev))
+    with pytest.raises(ValueError):                         # a 4F scale
+        lane_decoder.lane_upconv2x(x, wu, torch.ones(32, device=dev),
+                                   torch.zeros(32, device=dev), 0.2)

@@ -1,11 +1,13 @@
-"""The host-side plans of the lane conv (B7), RoI backward (B5), stem
-(B1) and RoI forward (B2 / B6) kernels, on the CPU: the conv's weight
-packing, its block tiling and the halo each block stages, mirrored index
-for index from csrc/lane_decoder.cu; the backward's tiles and the boxes
-each tile lists, against brute force from `ops.patches`' bin bounds; the
-stem's packed B fragments, its K -> shared offset table and its tiles
+"""The host-side plans of the lane conv (B7), lane upconv (B8), RoI
+backward (B5), stem (B1), RoI forward (B2 / B6) and compose (B4)
+kernels, on the CPU: the conv's and upconv's weight packing, block
+tiling and the halo each block stages, mirrored index for index from
+csrc/lane_decoder.cu; the backward's tiles and the boxes each tile
+lists, against brute force from `ops.patches`' bin bounds; the stem's
+packed B fragments, its K -> shared offset table and its tiles
 (csrc/stem.cu); the forward's work table and per-block bin table
-(csrc/roi_pool.cu) against `ops.patches`."""
+(csrc/roi_pool.cu) against `ops.patches`; compose's per-tile point lists
+(csrc/compose.cu) against brute force."""
 
 import numpy as np
 import pytest
@@ -14,7 +16,7 @@ import torch
 from riders_tpu_torch.models.layers import nearest2x_phase_kernel
 from riders_tpu_torch.ops import patches
 from riders_tpu_torch.ops.kernels import lane_decoder as LD
-from riders_tpu_torch.ops.kernels import roi_pool, stem
+from riders_tpu_torch.ops.kernels import compose, roi_pool, stem
 
 # (N, H, W, input widths, Co): decode_full's call geometries at a small
 # patch batch, and the edges of the plan (tiny maps, a wide map, one
@@ -58,7 +60,7 @@ def _tile_outputs(plan, N, H, W, t):
     pixel of each row or -1, each row's padded position, the padded
     position the tile's staged rows start at)."""
     M, Wp, HWp = N * H * W, W + 2, (H + 2) * (W + 2)
-    if plan.resident:
+    if getattr(plan, "resident", False):
         first, last = LD.padded_span(N, H, W)
         P = first + t * plan.bm + np.arange(plan.bm)
         P = P[P <= last]
@@ -126,7 +128,10 @@ def test_conv_plan_halo_holds_every_tap(N, H, W, cis, co):
     positions from its start, with a source table that is -1 on the zero
     border; every tap of every output row must land in the staged rows,
     on its pixel's true neighbour (or on the border)."""
-    plan = _plan(N, H, W, cis, co)
+    _check_halo(_plan(N, H, W, cis, co), N, H, W)
+
+
+def _check_halo(plan, N, H, W):
     Wp, HWp = W + 2, (H + 2) * (W + 2)
     for t in range(plan.tiles):
         pix, P, p0 = _tile_outputs(plan, N, H, W, t)
@@ -147,6 +152,93 @@ def test_conv_plan_halo_holds_every_tap(N, H, W, cis, co):
                 inside = (ys >= 0) & (ys < H) & (xs >= 0) & (xs < W)
                 want = np.where(inside, (n_m * H + ys) * W + xs, -1)
                 np.testing.assert_array_equal(src[row[real]], want)
+
+
+# (N, h, w, Ci, F): decode_full's upconv calls at a small patch batch
+# (NTU 9x3 256 -> 128, ZJU 15x6 256 -> 128 and 60x25 64 -> 32) and the
+# card tests' odd ones (F not a multiple of 16, Ci not of 8)
+UPCONV_SHAPES = [(5, 9, 3, 256, 128), (4, 15, 6, 256, 128),
+                 (3, 60, 25, 64, 32), (3, 9, 3, 256, 128), (2, 5, 3, 24, 16),
+                 (3, 4, 7, 40, 12), (2, 3, 2, 12, 32), (1, 60, 25, 64, 32),
+                 (2, 7, 5, 16, 8), (2, 6, 4, 64, 72), (2, 9, 3, 256, 32)]
+
+
+def _up_plan(N, h, w, ci, f):
+    return LD.upconv_plan(N, h, w, ci, f, ci % 8 == 0)
+
+
+@pytest.mark.parametrize("N,h,w,ci,f", UPCONV_SHAPES)
+def test_upconv_plan_writes_every_fine_output_once(N, h, w, ci, f):
+    """The upconv grid as csrc/lane_decoder.cu decodes it: block (x, y)
+    owns tile x (coarse pixels x bm .., or with resident weights the
+    padded positions of tile x, the border ones dropped) and, with all
+    four phases (resident, F <= bn) or phase y // tiles of F, columns f0
+    = (y % tiles) bn ..; coarse pixel (n, i, j), phase (r, s) goes to
+    fine pixel (n, 2i + r, 2j + s).  Every fine (pixel, channel) is
+    written once."""
+    plan = _up_plan(N, h, w, ci, f)
+    phases = 4 if plan.resident else 1
+    assert phases == 1 or f <= plan.bn
+    ftiles = -(-f // plan.bn)
+    assert plan.col_blocks == 4 // phases * ftiles
+    if plan.resident:
+        assert ci % 8 == 0 and plan.bn == LD.UPCONV_RESIDENT_BN
+        bm = LD.UPCONV_RESIDENT_M
+        assert (plan.tile_m, plan.bk, plan.bm) == (bm, LD.RESIDENT_BK, bm)
+        assert plan.rows == bm + 2 * (w + 3)
+        assert plan.smem == LD.resident_smem(plan.bn, plan.bk, plan.rows,
+                                             -(-ci // plan.bk), 16, 0)
+        assert plan.smem <= LD.RESIDENT_SMEM_LIMIT
+    else:
+        assert (plan.bn, plan.tile_m, plan.bk) == LD.UPCONV_TILE
+        assert 0 < plan.bm <= plan.tile_m and plan.bm % 16 == 0
+        assert plan.rows == LD.halo_rows(plan.bm, h, w)
+        assert plan.smem == LD.conv_smem(plan.bn, plan.tile_m, plan.bk,
+                                         plan.rows, 4)
+        assert plan.smem <= LD.SMEM_LIMIT
+    written = np.zeros((N, 2 * h, 2 * w, f), np.int64)
+    for bx in range(plan.tiles):
+        m = _tile_outputs(plan, N, h, w, bx)[0]
+        n, rem = np.divmod(m[m >= 0], h * w)
+        i, j = np.divmod(rem, w)
+        for by in range(plan.col_blocks):
+            p0 = 0 if phases == 4 else by // ftiles
+            f0 = (by % ftiles) * plan.bn
+            cols = np.arange(f0, min(f0 + plan.bn, f))
+            for p in range(p0, p0 + phases):
+                r, s_ = divmod(p, 2)
+                np.add.at(written, (n[:, None], 2 * i[:, None] + r,
+                                    2 * j[:, None] + s_, cols[None]), 1)
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("N,h,w,ci,f", UPCONV_SHAPES)
+def test_upconv_plan_halo_holds_every_tap(N, h, w, ci, f):
+    """The upconv stages rows as the conv does: every tap of every coarse
+    pixel of a block lands in its staged rows."""
+    _check_halo(_up_plan(N, h, w, ci, f), N, h, w)
+
+
+@pytest.mark.parametrize("p", range(4))
+def test_upconv_phase_taps_are_the_nonzero_taps(p):
+    """Phase p's four taps (the ones the kernel multiplies) decode from
+    `pack_upconv` to the composed kernel's taps for that phase's columns,
+    bit for bit, and the five others are zero there."""
+    rng = np.random.default_rng(p)
+    ci, f = 12, 8
+    k = torch.from_numpy(rng.standard_normal((3, 3, ci, f)).astype(
+        np.float32))
+    packed = LD.pack_upconv(k)[p * f:(p + 1) * f]            # (F, 3, 3, ci)
+    composed = nearest2x_phase_kernel(k)[..., p * f:(p + 1) * f]
+    taps = LD.phase_taps(p)
+    assert len(set(taps)) == 4
+    for dy, dx in np.ndindex(3, 3):
+        got = packed[:, dy, dx].permute(1, 0)
+        if (dy, dx) in taps:
+            assert bool(got.ne(0).all())
+            assert torch.equal(got, composed[dy, dx].to(torch.bfloat16))
+        else:
+            assert not bool(got.any()) and not bool(composed[dy, dx].any())
 
 
 def test_conv_plan_shrinks_then_refuses_wide_maps():
@@ -422,3 +514,124 @@ def test_fwd_slot_table_matches_bin_bounds(scale, out_w, W, C, vec):
             q = j // per_pixel
             assert (w0, w1) == (int(lo[i, q]), int(hi[i, q]))
             assert c0 == (j % per_pixel) * vec
+
+
+# ---- compose (B4): each tile's culled point list
+
+def _compose_points(geometry, rng):
+    """(points (B, K, 3) in padded coordinates, frame, patch): the fused
+    path's NTU and ZJU buckets (real points at pixels, the masked slots
+    at the origin as the path zeroes them), the card test's K = 300 with
+    points off the frame and on half pixels, and every real point of a
+    frame within 3 pixels of one spot."""
+    frame, patch, B, K, real = {
+        "ntu": ((512, 640), (150, 50), 2, 48, 40),
+        "zju": ((512, 640), (240, 100), 2, 32, 30),
+        "k300": ((45, 70), (30, 12), 3, 300, 300),
+        "clustered": ((512, 640), (150, 50), 2, 48, 40)}[geometry]
+    (H, W), (ph, pw) = frame, patch
+    if geometry == "k300":
+        u = rng.random((B, K)) * (W + 2 * pw) - pw // 2
+        v = rng.random((B, K)) * (H + 2 * ph) - ph // 2
+        u[:, ::3] = np.floor(u[:, ::3]) + 0.5
+    elif geometry == "clustered":
+        spot = rng.random((B, 1, 2)) * [W + pw, H + ph]
+        u, v = np.moveaxis(spot + rng.uniform(-3, 3, (B, K, 2)), -1, 0)
+    else:
+        u = rng.integers(0, W, (B, K)) + pw // 2
+        v = rng.integers(0, H, (B, K)) + ph // 2
+    pts = np.stack([u, v, 1 + 50 * rng.random((B, K))], -1)
+    pts[:, real:] = 0.0
+    return torch.from_numpy(pts.astype(np.float32)), frame, patch
+
+
+def _covered(points, frame, patch):
+    """(B, K, H, W): the output pixels inside each point's patch window,
+    its origin rounded half to even and clipped to the padded frame."""
+    (H, W), (ph, pw) = frame, patch
+    pts = points.numpy().astype(np.float64)
+    y0 = np.clip(np.rint(pts[..., 1]).astype(np.int64) - ph // 2, 0,
+                 H + 2 * (ph // 2) - ph)
+    x0 = np.clip(np.rint(pts[..., 0]).astype(np.int64) - pw // 2, 0,
+                 W + 2 * (pw // 2) - pw)
+    ys = np.arange(H) + ph // 2
+    xs = np.arange(W) + pw // 2
+    rows = (ys >= y0[..., None]) & (ys < y0[..., None] + ph)
+    cols = (xs >= x0[..., None]) & (xs < x0[..., None] + pw)
+    return rows[..., :, None] & cols[..., None, :]
+
+
+COMPOSE_GEOMETRIES = ["ntu", "zju", "k300", "clustered"]
+
+
+@pytest.mark.parametrize("geometry", COMPOSE_GEOMETRIES)
+def test_tile_points_match_brute_force(geometry):
+    """Each tile's list is the k whose patch covers one of its pixels,
+    in ascending order, then -1; the counts match."""
+    points, frame, patch = _compose_points(geometry,
+                                           np.random.default_rng(6))
+    (H, W), (th, tw) = frame, compose.TILE
+    lists, counts = compose.tile_points(points, frame, patch)
+    cover = _covered(points, frame, patch)
+    B, K = points.shape[:2]
+    assert lists.shape == (B, -(-H // th), -(-W // tw), K)
+    for b, i, j in np.ndindex(*lists.shape[:3]):
+        want = [k for k in range(K)
+                if cover[b, k, i * th:(i + 1) * th, j * tw:(j + 1) * tw].any()]
+        got = lists[b, i, j].tolist()
+        assert got == want + [-1] * (K - len(want))
+        assert int(counts[b, i, j]) == len(want)
+
+
+@pytest.mark.parametrize("geometry", COMPOSE_GEOMETRIES)
+def test_tile_lists_hold_every_covering_point(geometry):
+    """Every (pixel, k) with the pixel inside k's window has k in the
+    list of the pixel's tile, and no tile lists more than K points."""
+    points, frame, patch = _compose_points(geometry,
+                                           np.random.default_rng(7))
+    th, tw = compose.TILE
+    lists, counts = compose.tile_points(points, frame, patch)
+    cover = _covered(points, frame, patch)
+    listed = np.zeros(lists.shape, bool)         # (B, TY, TX, K) by k
+    b, i, j, slot = np.nonzero(lists.numpy() >= 0)
+    listed[b, i, j, lists.numpy()[b, i, j, slot]] = True
+    b, k, y, x = np.nonzero(cover)
+    assert listed[b, y // th, x // tw, k].all()
+    if geometry == "clustered":      # 40 real points in one spot's tiles
+        assert int(counts.max()) >= 40
+
+
+@pytest.mark.parametrize("geometry", ["k300", "clustered_small"])
+def test_compose_over_tile_lists_equals_plain(geometry):
+    """The kernel's gather in torch: each tile composed from its listed
+    points alone (the others' masks 0: a point that covers none of the
+    tile's pixels adds nothing to them) equals the plain composition of
+    all points, bit for bit."""
+    rng = np.random.default_rng(8)
+    if geometry == "k300":
+        points, frame, patch = _compose_points("k300", rng)
+    else:
+        frame, patch = (40, 300), (20, 10)
+        spot = rng.random((2, 1, 2)) * [310, 60]
+        uv = spot + rng.uniform(-3, 3, (2, 24, 2))
+        z = 1 + 50 * rng.random((2, 24, 1))
+        points = torch.from_numpy(np.concatenate([uv, z], -1).astype(
+            np.float32))
+    B, K = points.shape[:2]
+    (H, W), (ph, pw), (th, tw) = frame, patch, compose.TILE
+    resp = torch.from_numpy(rng.random((B, K, ph, pw)).astype(np.float32))
+    mask = torch.from_numpy((rng.random((B, K)) > 0.2).astype(np.float32))
+    thr = torch.tensor([0.3, -0.2, 0.6][:B])
+    want = patches.compose_patches(resp, points, mask, frame, patch, thr)
+    lists, _ = compose.tile_points(points, frame, patch)
+    for i, j in np.ndindex(*lists.shape[1:3]):
+        keep = torch.zeros((B, K))
+        for b in range(B):
+            ks = lists[b, i, j]
+            keep[b, ks[ks >= 0]] = 1.0
+        got = patches.compose_patches(resp, points, mask * keep, frame,
+                                      patch, thr)
+        tile = (slice(None), slice(i * th, (i + 1) * th),
+                slice(j * tw, (j + 1) * tw))
+        for g, w in zip(got, want):
+            assert torch.equal(g[tile], w[tile])

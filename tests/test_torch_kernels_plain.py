@@ -191,3 +191,37 @@ def test_stem_plain_matches_pallas_bf16(rng):
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), ref,
                                    rtol=2 ** -8, atol=1e-3)
+
+
+@pytest.mark.parametrize("slope", [0.0, 0.2, 1.0],
+                         ids=["relu", "leaky_relu", "linear"])
+def test_stem_plain_slopes_match_pallas(rng, slope):
+    """The plain stem at each slope JAX's FusedStemConv sends to its
+    Pallas kernel (relu 0, leaky-relu 0.2, linear 1) against
+    stem_conv_pallas(negative_slope=slope, pool=True) in interpret mode:
+    max(y, slope * y) in both, the same bf16 products summed in f32 in
+    other orders, so one bf16 rounding step (2^-8 relative; atol 1e-3
+    for values near 0)."""
+    model, variables, image = _stem_vars(rng)
+    bn, stats = variables["params"]["bn"], variables["batch_stats"]["bn"]
+    g = (bn["scale"] / np.sqrt(stats["var"] + 1e-5)).astype(np.float32)
+    b = (bn["bias"] - stats["mean"] * g).astype(np.float32)
+    kernel = variables["params"]["conv"]["kernel"]
+    ref_h, ref_p = stem_conv_pallas(
+        jnp.asarray(image), jnp.asarray(kernel), jnp.asarray(g),
+        jnp.asarray(b), k=7, negative_slope=slope, pool=True,
+        interpret=True)
+    Ho, Wo = -(-image.shape[1] // 2), -(-image.shape[2] // 2)
+    h, p = stem.stem_conv_pool_plain(
+        t(image).to(torch.bfloat16),
+        t(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))), t(g), t(b),
+        slope)
+    for got, ref in ((h, np.asarray(ref_h[:, :Ho, :Wo], np.float32)),
+                     (p, np.asarray(ref_p, np.float32))):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        np.testing.assert_allclose(got.float().numpy(), ref,
+                                   rtol=2 ** -8, atol=1e-3)
+    if slope == 0.0:
+        assert float(p.float().min()) >= 0.0
+    if slope == 1.0:
+        assert float(h.float().min()) < 0.0

@@ -14,10 +14,12 @@ import jax.numpy as jnp
 from riders_tpu.core.config import RCNetConfig as JaxRCNetConfig
 from riders_tpu.models.efficientnet import EfficientNetLite3 as JaxEffNet
 from riders_tpu.models.rcnet import RCNet as JaxRCNet
+from riders_tpu.models.rcnet import ResNetEncoder as JaxEncoder
 from riders_tpu_torch.core.config import RCNetConfig
 from riders_tpu_torch.models.efficientnet import EfficientNetLite3
 from riders_tpu_torch.models.from_jax import (load_jax_variables,
                                               rcnet_from_jax)
+from riders_tpu_torch.models.rcnet import ResNetEncoder
 from torch_common import NARROW_RCNET, TINY_STAGES, perturbed, rcnet_inputs
 
 t = torch.from_numpy
@@ -64,3 +66,39 @@ def test_from_jax_rejects_unused_and_missing_leaves(rng):
     del short["batch_stats"]["bn_stem"]
     with pytest.raises(KeyError, match="missing"):
         load_jax_variables(port, short)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["relu", "linear"])
+def test_encoder_stem_activations_match_jax(rng, activation, dtype):
+    """The encoder with the stem activations besides leaky-relu that JAX's
+    stem sends to its kernel (slope 0 and 1), from the same variables.
+    f32: the library conv -> BN -> activation path on both sides, rtol
+    1e-4 with atol 1e-5 of the map's max (with no activation the maps
+    grow to ~10, and values that cancel to near 0 keep that much f32
+    error).  bf16 eval: JAX on the CPU takes its literal branch, the port
+    the stem kernel's plain version (BN folded, max(y, slope y)); both
+    round at other places through nine convolutions, so each output is
+    held to 5% of its max, the lane decoder's bar."""
+    filters = NARROW_RCNET["n_filters_encoder_image"]
+    image = rng.random((2, 46, 58, 3)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    model = JaxEncoder(filters, activation, dtype=jdt)
+    variables = perturbed(model.init(jax.random.PRNGKey(1),
+                                     jnp.asarray(image)), rng)
+    ref_lat, ref_skips = model.apply(variables, jnp.asarray(image))
+    port = load_jax_variables(ResNetEncoder(filters, activation),
+                              variables).to(getattr(torch, dtype)).eval()
+    with torch.no_grad():
+        lat, skips = port(t(image).to(getattr(torch, dtype)))
+    errs = []
+    for got, ref in zip([lat] + skips, [ref_lat] + list(ref_skips)):
+        got = got.permute(0, 2, 3, 1).float().numpy()
+        ref = np.asarray(ref, np.float32)
+        assert got.shape == ref.shape and np.isfinite(got).all()
+        if dtype == "float32":
+            np.testing.assert_allclose(
+                got, ref, rtol=1e-4, atol=1e-5 * max(1.0, np.abs(ref).max()))
+        else:
+            errs.append(np.abs(got - ref).max() / np.abs(ref).max())
+    assert all(e <= 0.05 for e in errs), errs
