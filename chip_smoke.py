@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's fused inference path and its RC-Net
-and SML training steps on one GPU.
+"""Drive the PyTorch / CUDA port's fused inference path, its RC-Net and
+SML training steps, and its staged inference, serving and drivers on one
+GPU.
 
     python3 chip_smoke.py                 # all phases, report lines
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
@@ -54,16 +55,32 @@ Phases, each fatal on failure:
      save / restore round trip;
   7. one RC-Net training step on the card in f32 against the port's f32
      CPU step: loss to rtol 1e-4, each gradient within 1e-3 of its max
-     or within 3x the CPU's own spread under a one-ulp input nudge.
+     or within 3x the CPU's own spread under a one-ulp input nudge;
+  8. staged inference and serving, each path with the launch counters
+     reset just before it: (a) staged RC-Net (make_rcnet_infer_fn) at the
+     NTU preset, 640x512, B=16, K=48 with 40 real points, bf16, its
+     threshold between the frames' maximum responses so that some frames
+     retry and some do not: stem >= 1, one RoI pool and 1 + rounds
+     compose launches per call, outputs bitwise equal to the retry loop
+     over the plain composition of the same card responses; (b) staged
+     SML (make_infer_fn, 288x352 net, B=16) on (a)'s depth with a sparse
+     GT: its metrics within rtol 1e-5 of the CPU's on the same depth;
+     (c) FusedServer(depth=2) over six compact NTU B=16 batches, bitwise
+     equal to direct fused calls, the uploader joined after the run and
+     after an early close, served, sequential and card-resident
+     frames/s; (d) the on-disk drivers on an 8-frame NTU mini-dataset
+     written under build/: run_rcnet, evaluate_results_dir on its tree,
+     validate_sml over two checkpoints.
 Report lines: the card's name and power limit, one {"kernels": [...]}
-line, one fused line, one lane_decoder line, one training line; the last
-line is
+line, one fused line, one lane_decoder line, one training line, one
+staged line; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
 import copy
 import inspect
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1205,6 +1222,355 @@ def training_agreement(seed=5):
     return res
 
 
+def ntu_staged_config():
+    """The NTU preset at the benchmark frame with the fused path's
+    48-point bucket."""
+    import dataclasses
+    from riders_tpu_torch.core.config import ntu_config
+    cfg = ntu_config()
+    return cfg.replace(dataset=dataclasses.replace(
+        cfg.dataset, image_shape=FRAME,
+        max_points=GEOMETRIES["ntu"]["bucket"]))
+
+
+def staged_rcnet(B=16, seed=0):
+    """Phase 8a: staged RC-Net (make_rcnet_infer_fn) at the NTU preset,
+    bf16, its threshold set between the frames' maximum responses so
+    that about half the frames retry and the others do not; launch
+    counts of one
+    call, its outputs bitwise against the port's retry loop fed the same
+    card responses through the plain composition."""
+    import dataclasses
+    import torch
+    from riders_tpu_torch.ops import patches
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.ops.resize import edge_pad2d
+    from riders_tpu_torch.pipelines.rcnet_inference import (
+        make_rcnet_infer_fn, shift_points_and_boxes)
+
+    geo = GEOMETRIES["ntu"]
+    cfg = ntu_staged_config()
+    rcnet, _ = build_models(cfg, seed, None, torch.bfloat16)
+    raw = make_batch(seed + 20, B, geo["bucket"], geo["real"], FRAME,
+                     "cuda")
+    ph, pw = cfg.rcnet.patch_size
+    batch = {"image": edge_pad2d(raw["image"], ph // 2, pw // 2),
+             "points": raw["radar_points"], "point_mask": raw["point_mask"]}
+
+    def with_threshold(thr):
+        return cfg.replace(rcnet=dataclasses.replace(
+            cfg.rcnet, response_threshold=thr))
+
+    # Random weights saturate the sigmoid (every frame's maximum response
+    # is 1); the last conv, linear and without bias, is scaled so that
+    # the largest logit of a real point is 3, as a trained head's are.
+    points, boxes = shift_points_and_boxes(batch["points"], (ph, pw))
+    with torch.inference_mode():
+        logits = rcnet(batch["image"], points, boxes, batch["point_mask"])
+    top_logit = float(logits[batch["point_mask"] > 0].float().abs().max())
+    with torch.no_grad():
+        rcnet.decoder.output0.conv.weight.mul_(3.0 / top_logit)
+    # the frames' maximum responses, from a call at threshold 0; the
+    # threshold splits them at the gap nearest their median
+    probe = make_rcnet_infer_fn(with_threshold(0.0), rcnet)(batch)
+    tops = probe["response"].reshape(B, -1).amax(1).sort().values
+    gaps = [i for i in range(B - 1) if tops[i + 1] > tops[i]]
+    split = min(gaps, key=lambda i: abs(i + 1 - B // 2)) if gaps else 0
+    thr0 = float(0.5 * (tops[split] + tops[split + 1]))
+    if not float(tops[split + 1]) > thr0 > float(tops[split]):
+        raise AssertionError(f"staged rcnet: no threshold splits the "
+                             f"frames' maximum responses {tops.tolist()}")
+    cfg = with_threshold(thr0)
+    fn = make_rcnet_infer_fn(cfg, rcnet)
+
+    captured = []
+    hook = rcnet.register_forward_hook(lambda m, i, o: captured.append(o))
+    LAUNCHES.clear()
+    out = fn(batch)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    hook.remove()
+    retries = out["retries"].tolist()
+    rounds = max(retries)
+    if not (launches.get("stem", 0) >= 1 and launches.get("roi_pool") == 1
+            and launches.get("compose") == 1 + rounds):
+        raise AssertionError(f"staged rcnet: launches {launches} for "
+                             f"{rounds} retry rounds")
+    if not (min(retries) == 0 < rounds):
+        raise AssertionError(f"staged rcnet: retries {retries}: not some "
+                             f"frames retrying and some not")
+    resp = captured[0][..., 0].float().contiguous()
+    rc = cfg.rcnet
+    plain = patches.adaptive_compose(
+        resp, points.contiguous(), batch["point_mask"].contiguous(), FRAME,
+        rc.patch_size, rc.response_threshold, rc.threshold_decay,
+        rc.max_threshold_retries, compose=patches.compose_patches)
+    for name, want in zip(("depth", "response", "threshold", "retries"),
+                          plain):
+        if not torch.equal(out[name], want):
+            diff = float((out[name].float() - want.float()).abs().max())
+            raise AssertionError(f"staged rcnet: {name} differs from the "
+                                 f"plain composition's by {diff}")
+    depth = out["depth"]
+    if not bool(torch.isfinite(depth).all()) or float(depth.max()) <= 0:
+        raise AssertionError("staged rcnet: depth not finite or all zero")
+    ms = time_ms(lambda: fn(batch), n=10)
+    hist = {str(k): retries.count(k) for k in sorted(set(retries))}
+    record = dict(batch=B, bucket=geo["bucket"], real_points=geo["real"],
+                  head_scale=3.0 / top_logit, threshold0=thr0,
+                  frame_max_responses=tops.tolist(),
+                  retries=retries, retry_histogram=hist, launches=launches,
+                  final_thresholds=out["threshold"].tolist(),
+                  positive_share=float((depth > 0).float().mean()),
+                  bitwise_vs_plain=True, ms_per_call=ms,
+                  frames_per_s=B / (ms / 1e3))
+    return record, raw, depth
+
+
+def staged_sml(raw, rcnet_depth, seed=0):
+    """Phase 8b: staged SML (make_infer_fn) at the NTU preset (288x352
+    net), bf16, B frames, on phase 8a's frames and quasi-dense depth and
+    a synthetic sparse GT; its metrics against the port's metrics of the
+    same depth on the CPU."""
+    import torch
+    from riders_tpu_torch.core.metrics import compute_depth_metrics
+    from riders_tpu_torch.pipelines.fused import _scatter_points
+    from riders_tpu_torch.pipelines.sml_inference import make_infer_fn
+
+    cfg = ntu_staged_config()
+    B = raw["image"].shape[0]
+    sml = build_sml(cfg, seed + 1, None, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    depth_field = 1.0 / (raw["mono_pred"] * 0.05)
+    gt = torch.where(torch.rand(depth_field.shape, generator=g,
+                                device="cuda") < 0.01, depth_field,
+                     torch.zeros_like(depth_field))
+    batch = {"image": raw["image"], "mono_pred": raw["mono_pred"],
+             "radar": _scatter_points(raw["radar_points"],
+                                      raw["point_mask"], FRAME),
+             "rcnet": rcnet_depth, "gt_sparse": gt}
+    fn = make_infer_fn(cfg, sml)
+    out = fn(batch)
+    ev = cfg.eval
+    ref = compute_depth_metrics(out["depth"].cpu(), gt.cpu(),
+                                ev.min_depth_val, ev.max_depth_val,
+                                ev.delta_threshold)
+    worst = 0.0
+    for k, v in ref.items():
+        got = out["metrics"][k].cpu()
+        if not torch.allclose(got, v, rtol=1e-5, atol=0):
+            raise AssertionError(f"staged sml: metric {k} on the card "
+                                 f"{got.tolist()} vs the CPU {v.tolist()}")
+        worst = max(worst, float(((got - v).abs() / v.abs().clamp(
+            min=1e-12)).max()))
+    d = out["depth"]
+    if tuple(d.shape) != (B,) + FRAME or not bool(torch.isfinite(d).all()):
+        raise AssertionError(f"staged sml: depth {tuple(d.shape)} or "
+                             f"non-finite")
+    ms = time_ms(lambda: fn(batch), n=10)
+    means = {k: float(v.mean()) for k, v in out["metrics"].items()}
+    return dict(batch=B, net=list(cfg.sml.net_shape), ms_per_call=ms,
+                frames_per_s=B / (ms / 1e3), metric_max_rel_err=worst,
+                metrics=means)
+
+
+def served(ntu_fn, n_batches=6, B=16, seed=0):
+    """Phase 8c: FusedServer(depth=2) over compact NTU batches (uint8
+    image, uint16 mono) against direct calls of the same fused function,
+    bitwise; the uploader joined after a full run and after an early
+    close; served, sequential and device-resident frames/s."""
+    import numpy as np
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.pipelines.serving import FusedServer
+
+    geo = GEOMETRIES["ntu"]
+    batches = []
+    for i in range(n_batches):
+        b = make_batch(seed + 40 + i, B, geo["bucket"], geo["real"], FRAME,
+                       "cpu")
+        batches.append({
+            "image": (b["image"] * 255).round().to(torch.uint8).numpy(),
+            "mono_pred": (b["mono_pred"] * 256).numpy().astype(np.uint16),
+            "radar_points": b["radar_points"].numpy(),
+            "point_mask": b["point_mask"].numpy()})
+    direct = [ntu_fn(b).cpu().numpy() for b in batches]
+    server = FusedServer(ntu_fn, depth=2)
+    list(server.run(iter(batches[:2])))                 # warm
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    outs = list(server.run(iter(batches)))
+    served_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if server.uploader.is_alive():
+        raise AssertionError("served: the uploader outlived its run")
+    if not (launches.get("roi_pool") == n_batches
+            and launches.get("compose") == n_batches
+            and launches.get("stem", 0) >= n_batches):
+        raise AssertionError(f"served: launches {launches} for "
+                             f"{n_batches} batches")
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(outs, direct)]
+    if len(outs) != n_batches or max(diffs) != 0.0:
+        raise AssertionError(f"served: {len(outs)} outputs, max abs "
+                             f"difference to direct calls {diffs}")
+    # Host-clock seconds of the served run, the sequential loop, and the
+    # calls on batches already on the card (a yardstick of the call
+    # alone), three each in turns: the call is host-bound and its time
+    # spreads by +-15% from run to run.
+    resident = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+                for b in batches]
+    loops = {
+        "served": lambda: list(server.run(iter(batches))),
+        "sequential": lambda: [ntu_fn(b).cpu().numpy() for b in batches],
+        "resident": lambda: [ntu_fn(b).cpu().numpy() for b in resident]}
+    seconds = {name: [served_s] if name == "served" else []
+               for name in loops}
+    for name in ("sequential", "resident", "resident", "sequential",
+                 "served", "served", "sequential", "resident"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loops[name]()
+        seconds[name].append(time.perf_counter() - t0)
+    pin_ms = []                         # the uploader's host time a batch
+    for b in batches:
+        t1 = time.perf_counter()
+        [torch.from_numpy(v).pin_memory() for v in b.values()]
+        pin_ms.append((time.perf_counter() - t1) * 1e3)
+    run = server.run(iter(batches))
+    next(run)
+    run.close()
+    if server.uploader.is_alive():
+        raise AssertionError("served: the uploader outlived an early close")
+    frames = n_batches * B
+    fps = {f"{name}_frames_per_s": frames / statistics.median(t)
+           for name, t in seconds.items()}
+    return dict(batches=n_batches, batch=B, launches=launches,
+                max_abs_diff_vs_direct=max(diffs), **fps,
+                seconds=seconds, pin_ms_per_batch=statistics.median(pin_ms))
+
+
+def write_ntu_scene(root, scene, n_frames, seed):
+    """A mini-dataset scene of NTU frames (512x640): thermal PNGs, the
+    x256 PNG16 mono prior and lidar GT, sparse radar PNGs of 40 returns,
+    from a smooth seeded depth field."""
+    import numpy as np
+    from PIL import Image
+    from riders_tpu_torch.io import depthio
+    rng = np.random.default_rng(seed)
+    H, W = FRAME
+    dirs = {d: depthio.ensure_dir(str(root / scene / d)) for d in (
+        "thermal_undistort", "any", "radar_png", "lidar_png",
+        "lidar_png_int")}
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for f in range(n_frames):
+        name = f"{f:06d}.png"
+        depth = (5.0 + 30.0 * yy / H + 10.0 * xx / W
+                 + rng.random((H, W))).astype(np.float32)
+        Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+                        ).save(str(Path(dirs["thermal_undistort"]) / name))
+        depthio.save_depth((1.0 / depth) / 0.05,
+                           str(Path(dirs["any"]) / name))
+        for d, n in (("radar_png", 40), ("lidar_png", 3000)):
+            sparse = np.zeros((H, W), np.float32)
+            idx = rng.choice(H * W, n, replace=False)
+            sparse.reshape(-1)[idx] = depth.reshape(-1)[idx]
+            depthio.save_depth(sparse, str(Path(dirs[d]) / name))
+        depthio.save_depth(depth, str(Path(dirs["lidar_png_int"]) / name))
+
+
+def disk_drivers(seed=0, n_frames=8):
+    """Phase 8d: the on-disk drivers on an 8-frame NTU mini-dataset:
+    run_rcnet from an RC-Net checkpoint (its depth PNGs become stage 3's
+    knots), evaluate_results_dir on that tree, validate_sml over two SML
+    checkpoints, each timed, with the kernels' launches of run_rcnet."""
+    import dataclasses
+    import shutil
+    import torch
+    from riders_tpu_torch.core import checkpoint
+    from riders_tpu_torch.core.config import ntu_config
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.pipelines import drivers
+    from riders_tpu_torch.pipelines.rcnet_training import \
+        init_rcnet_train_state
+    from riders_tpu_torch.pipelines.sml_training import init_train_state
+
+    root = HERE / "build" / "phase8_data"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        scene = "scene-ntu"
+        write_ntu_scene(root, scene, n_frames, seed)
+        cfg = ntu_config(root=str(root))
+        cfg = cfg.replace(
+            dataset=dataclasses.replace(cfg.dataset, image_shape=FRAME,
+                                        train_scenes=(scene,),
+                                        val_scenes=(scene,)),
+            sml_train=dataclasses.replace(cfg.sml_train,
+                                          rcnet_interp_val=None))
+        rc_dir, sml_dir = root / "ckpt_rcnet", root / "ckpt_sml"
+        rcnet, _ = build_models(cfg, seed, None, torch.float32)
+        state = init_rcnet_train_state(cfg, rcnet, 1)
+        state.step = 1
+        checkpoint.save_train_state(rc_dir, state)
+        for step in (1, 2):
+            state = init_train_state(cfg, build_sml(cfg, seed + step, None,
+                                                    torch.float32), 1)
+            state.step = step
+            checkpoint.save_train_state(sml_dir, state)
+        del rcnet, state
+        times = {}
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        drivers.run_rcnet(cfg, str(rc_dir), str(root / "output"),
+                          scenes=(scene,))
+        times["run_rcnet_s"] = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        if launches.get("roi_pool") != n_frames or launches.get(
+                "compose", 0) < n_frames or launches.get("stem", 0) < 1:
+            raise AssertionError(f"run_rcnet: launches {launches} for "
+                                 f"{n_frames} frames")
+        tree = root / "output" / f"rcnet_{cfg.rcnet.response_threshold}"
+        written = sorted(p.name for p in (tree / scene /
+                                          "depth_predicted").iterdir())
+        if len(written) != n_frames or len(list(
+                (tree / scene / "depth_predicted_colors").iterdir())) \
+                != n_frames:
+            raise AssertionError(f"run_rcnet wrote {written}")
+        t0 = time.perf_counter()
+        scored = drivers.evaluate_results_dir(cfg, str(tree),
+                                              "depth_predicted")
+        times["evaluate_results_dir_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        best = drivers.validate_sml(cfg, str(sml_dir),
+                                    output_path=str(root / "val"),
+                                    save_output=True)
+        times["validate_sml_s"] = time.perf_counter() - t0
+        if best["step"] not in (1, 2) or not all(
+                math.isfinite(best[k]) for k in ("mae", "rmse", "delta1")):
+            raise AssertionError(f"validate_sml: best {best}")
+        mosaics = sorted(p.name for p in (root / "val" / "SML").glob(
+            "mosaic-step*.png"))
+        if mosaics != ["mosaic-step1.png", "mosaic-step2.png"]:
+            raise AssertionError(f"validate_sml mosaics {mosaics}")
+        if not math.isfinite(scored["mae"]):
+            raise AssertionError(f"evaluate_results_dir: {scored}")
+        return dict(frames=n_frames, run_rcnet_launches=launches,
+                    rcnet_tree_scores=scored, sml_best=best, **times)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def staged_phase(ntu_fn):
+    """Phase 8: 8a-8d in order."""
+    import torch
+    rc, raw, depth = staged_rcnet()
+    sml = staged_sml(raw, depth)
+    del raw, depth
+    serve = served(ntu_fn)
+    torch.cuda.empty_cache()
+    disk = disk_drivers()
+    return dict(rcnet=rc, sml=sml, served=serve, drivers=disk)
+
+
 def profile(fn, batch, path):
     """Device time by kernel for one call of `fn` (torch.profiler)."""
     import torch
@@ -1347,6 +1713,9 @@ def main(argv):
     log(f"checkpoint: {json.dumps(training['checkpoint'])}")
     train_agree = training_agreement()
     log(f"training agreement: {json.dumps(train_agree)}")
+    staged = staged_phase(ntu_fn)
+    for name, rec in staged.items():
+        log(f"staged {name}: {json.dumps(rec)}")
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -1400,7 +1769,7 @@ def main(argv):
                    fused=dict(ntu=ntu, zju=zju), reference=agree,
                    lane_kernels=lane_kernels, lane_decoder=lane,
                    training_kernels=train_kernels, training=training,
-                   training_agreement=train_agree)
+                   training_agreement=train_agree, staged=staged)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -1423,6 +1792,18 @@ def main(argv):
         sml_ntu_b12_ms_per_step=training["sml"]["ms_per_step"],
         sml_frames_per_s=training["sml"]["frames_per_s"],
         grad_rel_err_vs_cpu=train_agree["worst_grad_rel_err"])}))
+    log(json.dumps({"staged": dict(
+        card=smi,
+        rcnet_ntu_b16_ms_per_call=staged["rcnet"]["ms_per_call"],
+        rcnet_retry_histogram=staged["rcnet"]["retry_histogram"],
+        rcnet_launches=staged["rcnet"]["launches"],
+        sml_ntu_b16_ms_per_call=staged["sml"]["ms_per_call"],
+        served_frames_per_s=staged["served"]["served_frames_per_s"],
+        sequential_frames_per_s=staged["served"][
+            "sequential_frames_per_s"],
+        resident_frames_per_s=staged["served"]["resident_frames_per_s"],
+        drivers_s={k: v for k, v in staged["drivers"].items()
+                   if k.endswith("_s")})}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,10 @@ One step-indexed layout for both stages:
                               statistics), optimizer, scheduler, step
 
 `save_train_state` / `restore_train_state` round-trip a TrainState (the
-restore fills a template state in place); `save_params` /
-`restore_params` keep weights only; `latest_step` finds the resume
-point.
+restore fills a template state in place); `restore_model` loads only the
+model of a step, as the validation sweeps do; `save_params` /
+`restore_params` keep weights only; `all_steps` lists the saved steps
+and `latest_step` finds the resume point.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import os
 import shutil
 from pathlib import Path
-from typing import Any, Mapping, Optional
+from typing import Any, List, Mapping, Optional
 
 import torch
 import torch.nn as nn
@@ -24,7 +25,8 @@ import torch.nn as nn
 STATE_FILE = "state.pt"
 
 
-def _steps(directory) -> list:
+def all_steps(directory) -> List[int]:
+    """The steps saved under `directory`, ascending ([] if none)."""
     root = Path(directory)
     if not root.is_dir():
         return []
@@ -50,14 +52,31 @@ def save_train_state(directory, state, max_to_keep: Optional[int] = None
                   "scheduler": state.scheduler.state_dict()},
                  step_dir / STATE_FILE)
     if max_to_keep is not None:
-        for old in _steps(directory)[:-max_to_keep]:
+        for old in all_steps(directory)[:-max_to_keep]:
             shutil.rmtree(Path(directory) / str(old))
     return step_dir
 
 
 def latest_step(directory) -> Optional[int]:
-    steps = _steps(directory)
+    steps = all_steps(directory)
     return steps[-1] if steps else None
+
+
+def _load_step(directory, step: Optional[int]) -> Mapping:
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+    return torch.load(Path(directory) / str(step) / STATE_FILE,
+                      map_location="cpu", weights_only=True)
+
+
+def restore_model(directory, model: nn.Module,
+                  step: Optional[int] = None) -> nn.Module:
+    """Load the model of the checkpoint at `step` (the latest by default)
+    into `model`, cast to its dtype and device; returns the model."""
+    model.load_state_dict(_load_step(directory, step)["model"])
+    return model
 
 
 def restore_train_state(directory, state, step: Optional[int] = None):
@@ -67,12 +86,7 @@ def restore_train_state(directory, state, step: Optional[int] = None):
     goes where its template keeps it: model and optimizer moments on the
     model's device, the optimizer's step counters on the CPU, as torch's
     Adam keeps them."""
-    if step is None:
-        step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints in {directory}")
-    saved = torch.load(Path(directory) / str(step) / STATE_FILE,
-                       map_location="cpu", weights_only=True)
+    saved = _load_step(directory, step)
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
     state.scheduler.load_state_dict(saved["scheduler"])

@@ -1,11 +1,11 @@
-"""Configuration tree of the fused inference path and the training steps.
+"""Configuration tree of the inference paths, the drivers and the
+training steps.
 
 The port's own copy of the dataclasses and the ZJU / NTU presets of the
-JAX package's configuration, cut to the fields the fused path and the
-RC-Net / SML training steps read (dataset layout, augmentation,
-evaluation and mesh settings are left out).  All shapes are static:
-frame size, patch size, the radar-point bucket and the SML network
-input are part of the config.
+JAX package's configuration, cut to the fields the port reads (RC-Net's
+training augmentation, the summary and checkpoint cadence and the mesh
+layout are left out).  All shapes are static: frame size, patch size, the radar-point
+bucket and the SML network input are part of the config.
 """
 
 from __future__ import annotations
@@ -16,10 +16,21 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class DatasetConfig:
-    """Frame geometry.  ZJU thermal: 480x640; NTU thermal: 512x640."""
+    """On-disk dataset layout and frame geometry.  ZJU thermal: 480x640;
+    NTU thermal: 512x640."""
 
     name: str = "zju"
+    root: str = ""
+    # Directory names inside each scene directory.
+    image_dir: str = "thermal_undistort"
+    mono_pred_dir: str = "any"          # monocular depth prior
+    radar_dir: str = "radar_png"
+    gt_interp_dir: str = "lidar_png_int"
+    gt_sparse_dir: str = "lidar_png"
+    rcnet_output_dir: str = "output"    # root of the stage-2 depth maps
     image_shape: Tuple[int, int] = (480, 640)
+    train_scenes: Tuple[str, ...] = ()
+    val_scenes: Tuple[str, ...] = ()
     # Fixed radar-point bucket (static shapes).
     max_points: int = 64
 
@@ -28,8 +39,9 @@ class DatasetConfig:
 class AlignmentConfig:
     """Stage-1 global scale alignment of the mono prior.
 
-    ``mode`` 's' is the bounded 1-D scale search; bounds depend on whether
-    the prior is inverse ('inv') or positive ('pos') depth.
+    ``mode`` 's' is the bounded 1-D scale search, 'st' the closed-form
+    scale and shift least squares; bounds depend on whether the prior is
+    inverse ('inv') or positive ('pos') depth.
     """
 
     mode: str = "s"
@@ -52,6 +64,8 @@ class AlignmentConfig:
 class SMLConfig:
     """Scale Map Learner (MiDaS-small topology, efficientnet-lite3)."""
 
+    # 'midas-small' | 'midas-small-depth'; the DPT families are not ported
+    model_type: str = "midas-small"
     features: int = 64
     expand: bool = True
     in_channels: int = 3                # (int_depth, int_scales, gray)
@@ -129,9 +143,26 @@ class SMLTrainConfig:
     gt_outlier_removal_kernel_size: int = 3
     gt_outlier_removal_threshold: float = 1.5
     gt_dilation_kernel_size: int = -1
+    # Host augmentations of SMLFrameDataset(train=True).
+    random_flip: bool = True
+    random_crop_size: Optional[Tuple[int, int]] = None
+    random_radar_noise: Optional[Tuple[float, float]] = (-0.01, 0.01)
+    random_rcnet_thresholds: Optional[Tuple[float, ...]] = None
     # Scale-map knot source: 'rcnet_<thr>' feeds the quasi-dense stage-2
     # depth; 'none' uses the raw radar knots only.
     rcnet_interp: str = "rcnet_0.1"
+    # Validation-time knot source when it differs from training (NTU
+    # trains on rcnet_0.4 and validates on rcnet_0.5); None = the same.
+    rcnet_interp_val: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation protocol: the depth window of the metrics."""
+
+    min_depth_val: float = 0.0
+    max_depth_val: float = 50.0                     # NTU: 70.0
+    delta_threshold: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,28 +176,50 @@ class RidersConfig:
         default_factory=RCNetTrainConfig)
     sml_train: SMLTrainConfig = dataclasses.field(
         default_factory=SMLTrainConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    # Compute dtype of the models the drivers build; weights load in it.
+    compute_dtype: str = "bfloat16"
 
     def replace(self, **kw) -> "RidersConfig":
         return dataclasses.replace(self, **kw)
 
 
-def zju_config(**overrides) -> RidersConfig:
-    """ZJU-Multispectrum preset: 480x640 frames, 240x100 patches."""
+def zju_config(root: str = "", **overrides) -> RidersConfig:
+    """ZJU-Multispectrum preset: 480x640 frames, 240x100 patches, eval
+    cap 50 m."""
     cfg = RidersConfig(
-        dataset=DatasetConfig(name="zju", image_shape=(480, 640)),
+        dataset=DatasetConfig(
+            name="zju",
+            root=root,
+            image_shape=(480, 640),
+            train_scenes=(
+                "2023-10-19-19-25-47",
+                "2023-10-20-10-05-18", "2023-10-20-10-21-14",
+                "2023-10-20-10-35-20", "2023-10-20-13-56-28",
+                "2023-10-20-14-23-10", "2023-10-20-14-28-18",
+                "2023-10-20-14-38-17", "2023-10-20-14-53-28",
+            ),
+            val_scenes=(
+                "2023-10-20-10-07-22",
+                "2023-10-20-10-28-46",
+                "2023-10-20-14-35-31",
+            ),
+        ),
         sml=SMLConfig(net_shape=(288, 384)),
         rcnet=RCNetConfig(patch_size=(240, 100), response_threshold=0.1),
         rcnet_train=RCNetTrainConfig(points_per_frame=30, batch_size=4),
         sml_train=SMLTrainConfig(w_lidar_loss=1.5, rcnet_interp="rcnet_0.1"),
+        eval=EvalConfig(max_depth_val=50.0),
     )
     return cfg.replace(**overrides) if overrides else cfg
 
 
-def ntu_config(**overrides) -> RidersConfig:
+def ntu_config(root: str = "", **overrides) -> RidersConfig:
     """NTU4DRadLM preset: 512x640 frames, 150x50 patches, threshold 0.4;
-    RC-Net trains at batch 24 with 40 points, SML on rcnet_0.4 knots."""
+    RC-Net trains at batch 24 with 40 points, SML on rcnet_0.4 knots and
+    validates on rcnet_0.5; eval cap 70 m."""
     cfg = RidersConfig(
-        dataset=DatasetConfig(name="ntu", image_shape=(512, 640),
+        dataset=DatasetConfig(name="ntu", root=root, image_shape=(512, 640),
                               max_points=96),
         sml=SMLConfig(net_shape=(288, 352)),
         rcnet=RCNetConfig(patch_size=(150, 50), response_threshold=0.4),
@@ -174,6 +227,8 @@ def ntu_config(**overrides) -> RidersConfig:
             points_per_frame=40, batch_size=24, learning_rates=(2e-4,)),
         sml_train=SMLTrainConfig(
             w_lidar_loss=1.0, rcnet_interp="rcnet_0.4",
+            rcnet_interp_val="rcnet_0.5",
             learning_rates=(5e-5, 2e-5), learning_schedule=(10, 80)),
+        eval=EvalConfig(max_depth_val=70.0),
     )
     return cfg.replace(**overrides) if overrides else cfg

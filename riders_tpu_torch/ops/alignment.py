@@ -1,21 +1,92 @@
 """Stage-1 global alignment of a monocular depth prior to sparse radar.
 
 Batched over frames: maps are (B, H, W) and each frame gets its own
-scale.  The bounded scale-only L1 solve is a golden-section search with
-a fixed iteration count, the same update rule (`fc < fd`) and the same
-valid-pixel gather as the JAX package, so both converge to the same
-point.
+scale (and shift).  The bounded scale-only L1 solve is a golden-section
+search with a fixed iteration count, the same update rule (`fc < fd`)
+and the same valid-pixel gather as the JAX package, so both converge to
+the same point.  `scale_shift_ls` is the closed-form scale and shift
+least squares; `scale_shift_ransac` fits it to random 5-pixel samples
+and keeps the hypothesis with the most inliers.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 # 1/phi and 1/phi^2 for golden-section interval reduction.
 _INVPHI = 0.6180339887498949
 _INVPHI2 = 0.3819660112501051
+
+
+def scale_shift_ls(prediction: torch.Tensor, target: torch.Tensor,
+                   mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row least-squares scale and shift, min over (s, t) of
+    sum(mask * (s * pred + t - target)^2), reducing every dim but the
+    first: (B, ...) maps give (B,) scales and shifts.  A row whose normal
+    matrix is not positive definite gets (0, 0)."""
+    B = prediction.shape[0]
+    p = prediction.float().reshape(B, -1)
+    t = target.float().reshape(B, -1)
+    m = mask.float().reshape(B, -1)
+    a00 = torch.sum(m * p * p, dim=1)
+    a01 = torch.sum(m * p, dim=1)
+    a11 = torch.sum(m, dim=1)
+    b0 = torch.sum(m * p * t, dim=1)
+    b1 = torch.sum(m * t, dim=1)
+    det = a00 * a11 - a01 * a01
+    valid = det > 0
+    safe = torch.where(valid, det, torch.ones_like(det))
+    zero = torch.zeros_like(det)
+    scale = torch.where(valid, (a11 * b0 - a01 * b1) / safe, zero)
+    shift = torch.where(valid, (-a01 * b0 + a00 * b1) / safe, zero)
+    return scale, shift
+
+
+def scale_shift_ransac(prediction: torch.Tensor, target: torch.Tensor,
+                       mask: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       gumbel=None, num_iterations: int = 60,
+                       sample_size: int = 5,
+                       inlier_threshold: float = 0.02
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RANSAC scale and shift of one frame (maps of any shape, N pixels).
+
+    Every hypothesis draws `sample_size` valid pixels without replacement
+    by Gumbel top-k (invalid pixels score -inf; ties go to the lower
+    index, so a mask with fewer valid pixels fills its sample with the
+    first invalid ones), fits `scale_shift_ls` to them, and counts the
+    valid pixels within `inlier_threshold`; the first hypothesis with the
+    most inliers wins.  The Gumbel noise, (num_iterations, N), is drawn
+    from `generator` unless `gumbel` hands it in (numpy or tensor).
+    Returns (scale, shift) as 0-dim tensors.
+    """
+    p = prediction.reshape(-1).float()
+    t = target.reshape(-1).float()
+    m = mask.reshape(-1).float()
+    shape = (num_iterations, p.numel())
+    if gumbel is None:
+        expo = torch.empty(shape, device=p.device).exponential_(
+            generator=generator)
+        g = -torch.log(expo)
+    else:
+        if not isinstance(gumbel, torch.Tensor):
+            gumbel = torch.tensor(gumbel)
+        g = gumbel.to(device=p.device, dtype=torch.float32)
+        if tuple(g.shape) != shape:
+            raise ValueError(f"gumbel noise {tuple(g.shape)}, expected "
+                             f"{shape}")
+    scores = torch.where(m > 0, g, torch.full_like(g, float("-inf")))
+    idx = torch.sort(scores, dim=1, descending=True,
+                     stable=True).indices[:, :sample_size]
+    ps, ts = p[idx], t[idx]
+    scale, shift = scale_shift_ls(ps, ts, torch.ones_like(ps))
+    residual = torch.abs(p * scale[:, None] + shift[:, None] - t)
+    inliers = torch.sum((residual < inlier_threshold).float() * m, dim=1)
+    best = torch.argmax(inliers)
+    return scale[best], shift[best]
 
 
 def _l1_objective(s: torch.Tensor, p: torch.Tensor, t: torch.Tensor,
@@ -115,12 +186,16 @@ def align_mono_prior(mono_pred: torch.Tensor,
                      max_pred: float | None = 255.0,
                      max_valid: int | None = None) -> torch.Tensor:
     """Stage-1 alignment of (B, H, W) priors; returns the aligned,
-    clamped inverse depth `int_depth`.  Only the scale-only mode 's' is
-    ported: both presets use it."""
-    if mode != "s":
-        raise ValueError(f"Unsupported alignment mode: {mode}")
-    bounds = bounds_inv if mono_type == "inv" else bounds_pos
-    scale = optimize_scale(mono_pred, target_inv, valid, bounds,
-                           iterations, max_valid=max_valid)
-    out = mono_pred * scale[:, None, None]
+    clamped inverse depth `int_depth`.  Mode 's' scales each prior by the
+    bounded L1 solve, 'st' by the least-squares scale and shift."""
+    if mode == "st":
+        scale, shift = scale_shift_ls(mono_pred, target_inv, valid)
+        out = mono_pred * scale[:, None, None] + shift[:, None, None]
+    elif mode == "s":
+        bounds = bounds_inv if mono_type == "inv" else bounds_pos
+        scale = optimize_scale(mono_pred, target_inv, valid, bounds,
+                               iterations, max_valid=max_valid)
+        out = mono_pred * scale[:, None, None]
+    else:
+        raise ValueError(f"Unknown alignment mode: {mode}")
     return clamp_inverse_depth(out, min_pred, max_pred)

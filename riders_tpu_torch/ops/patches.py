@@ -16,11 +16,13 @@ integer arithmetic; an empty bin gives 0.
 Composition thresholds each response patch, pastes it at the clipped
 (round(v) - ph/2, round(u) - pw/2) of the padded canvas (round half to
 even), and accumulates max r, sum r and sum r*z in ascending k.
+`adaptive_compose` runs the staged path's threshold-decay retry around
+a composition.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -218,3 +220,52 @@ def adaptive_threshold_value(responses: torch.Tensor,
     thr0 = torch.tensor(response_threshold, dtype=torch.float32,
                         device=responses.device)
     return thr0 - k * threshold_decay
+
+
+def adaptive_compose(responses: torch.Tensor, points: torch.Tensor,
+                     point_mask: torch.Tensor, image_shape: Tuple[int, int],
+                     patch_size: Tuple[int, int], response_threshold: float,
+                     threshold_decay: float = 0.05, max_retries: int = 8,
+                     compose: Optional[Callable] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Composition with the bounded threshold-decay retry: while a
+    frame's composed depth is all zero, lower its threshold by
+    `threshold_decay` and compose again, at most `max_retries` times.
+
+    The loop itself runs (not the closed form of
+    `adaptive_threshold_value`, which can differ by one f32 ulp), with
+    the JAX package's f32 threshold sequence: f32(thr0) first, then
+    f32(thr0 - decay) (subtracted in doubles), then minus f32(decay) in
+    f32 at each later retry; the threshold returned is the next one plus
+    f32(decay).  Each round composes every frame at its current
+    threshold and keeps the result of the frames still retrying, so on
+    the card a round is one launch of `compose` (the kernel wrapper by
+    default; `ops.patches.compose_patches` gives the plain version).
+
+    Returns (depth, response, threshold, retries): (B, H, W) maps and
+    (B,) final thresholds and retry counts.
+    """
+    if compose is None:
+        from riders_tpu_torch.ops.kernels.compose import compose_patches \
+            as compose
+    B = responses.shape[0]
+    dev = responses.device
+    args = (responses, points, point_mask, image_shape, patch_size)
+    depth, resp = compose(*args, frame_thresholds(response_threshold, B,
+                                                  dev).contiguous())
+    decay = torch.tensor(threshold_decay, dtype=torch.float32, device=dev)
+    thr = torch.full((B,), response_threshold - threshold_decay,
+                     dtype=torch.float32, device=dev)
+    retries = torch.zeros((B,), dtype=torch.int64, device=dev)
+    for _ in range(max_retries):
+        active = depth.sum(dim=(1, 2)) == 0
+        if not bool(active.any()):
+            break
+        d, r = compose(*args, thr)
+        keep = active[:, None, None]
+        depth = torch.where(keep, d, depth)
+        resp = torch.where(keep, r, resp)
+        thr = torch.where(active, thr - decay, thr)
+        retries = retries + active.long()
+    return depth, resp, thr + decay, retries

@@ -14,11 +14,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-import numpy as np
 import torch
 
 from riders_tpu_torch.core.config import RidersConfig
-from riders_tpu_torch.core.device import resolve_device
+from riders_tpu_torch.core.device import (check_model_device,
+                                          resolve_device, to_device)
 from riders_tpu_torch.models.rcnet import RCNet
 from riders_tpu_torch.models.sml import ScaleMapLearner
 from riders_tpu_torch.ops.kernels.compose import compose_patches
@@ -57,20 +57,15 @@ def make_fused_fn(cfg: RidersConfig, rcnet: RCNet, sml: ScaleMapLearner,
     Tensors or numpy arrays; they are moved to the device.
     """
     device = resolve_device(device)
-    for name, model in (("rcnet", rcnet), ("sml", sml)):
-        where = next(model.parameters()).device
-        if where.type != device.type:
-            raise ValueError(f"{name} lives on {where}, not on {device}")
+    check_model_device("rcnet", rcnet, device)
+    check_model_device("sml", sml, device)
     patch = cfg.rcnet.patch_size
     H, W = cfg.dataset.image_shape
     pad_y, pad_x = patch[0] // 2, patch[1] // 2
     rc_dtype = next(rcnet.parameters()).dtype
     sml_dtype = next(sml.parameters()).dtype
 
-    def as_tensor(x) -> torch.Tensor:
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        return x.to(device)
+    as_tensor = lambda x: to_device(x, device)
 
     @torch.inference_mode()
     def fused(batch: Dict) -> torch.Tensor:
@@ -79,7 +74,9 @@ def make_fused_fn(cfg: RidersConfig, rcnet: RCNet, sml: ScaleMapLearner,
             image = image.float() * (1.0 / 255.0)
         mono = as_tensor(batch["mono_pred"])
         if mono.dtype == torch.uint16:
-            mono = mono.float() * (1.0 / 256.0)
+            # through int16 bits: CUDA's uint16 support is bare
+            codes = mono.view(torch.int16).int() & 0xFFFF
+            mono = codes.float() * (1.0 / 256.0)
         radar_points = as_tensor(batch["radar_points"]).float()
         mask = as_tensor(batch["point_mask"]).float().contiguous()
 

@@ -1,14 +1,25 @@
-"""Stage-1 inputs of the Scale Map Learner, batched over frames."""
+"""Stage-1 inputs of the Scale Map Learner and staged stage-3 inference,
+batched over frames.
+
+`make_infer_fn` runs validity / inversion -> bounded scale alignment ->
+clamp -> scale-map synthesis -> resize to the network shape ->
+normalisation -> SML forward -> bicubic upsample of 1 / pred, and the
+per-frame depth metrics when the batch carries the sparse lidar GT.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from riders_tpu_torch.core import metrics as metrics_lib
 from riders_tpu_torch.core.config import RidersConfig
+from riders_tpu_torch.core.device import (check_model_device,
+                                          resolve_device, to_device)
+from riders_tpu_torch.models.sml import ScaleMapLearner
 from riders_tpu_torch.ops import alignment, scale_map
-from riders_tpu_torch.ops.resize import resize_nchw
+from riders_tpu_torch.ops.resize import resize2d, resize_nchw
 
 
 def prepare_sml_inputs(cfg: RidersConfig, image: torch.Tensor,
@@ -56,3 +67,45 @@ def prepare_sml_inputs(cfg: RidersConfig, image: torch.Tensor,
         d_net, s_net, cfg.sml.int_depth_mean, cfg.sml.int_depth_std,
         cfg.sml.int_scales_mean, cfg.sml.int_scales_std)
     return torch.stack([dn, sn, gray], dim=-1), d_net[..., None]
+
+
+def make_infer_fn(cfg: RidersConfig, model: ScaleMapLearner,
+                  with_metrics: bool = True, device=None
+                  ) -> Callable[[Dict], Dict]:
+    """Build fn(batch) on `device` (the card unless device='cpu'; without
+    a card and without that request this raises).  The model is put in
+    eval mode.
+
+    batch (tensors or numpy arrays): image (B, H, W, 3) in [0, 1];
+    mono_pred, radar (B, H, W); rcnet (B, H, W), read only when
+    sml_train.rcnet_interp names an 'rcnet' source; gt_sparse (B, H, W),
+    optional.  Returns 'depth' (B, H, W) metric depth at frame
+    resolution, 'int_depth' (B, net_h, net_w) the aligned inverse depth,
+    'scales' (B, net_h, net_w, 1), and, when `with_metrics` and the batch
+    carries 'gt_sparse', 'metrics': the per-frame metric bundle.
+    """
+    device = resolve_device(device)
+    check_model_device("sml", model, device)
+    model.eval()
+    frame = cfg.dataset.image_shape
+    dtype = next(model.parameters()).dtype
+    use_rcnet = "rcnet" in (cfg.sml_train.rcnet_interp or "")
+    ev = cfg.eval
+
+    @torch.inference_mode()
+    def infer(batch: Dict) -> Dict:
+        get = lambda k: to_device(batch[k], device).float()
+        rcnet = get("rcnet") if use_rcnet and "rcnet" in batch else None
+        x, d = prepare_sml_inputs(cfg, get("image"), get("mono_pred"),
+                                  get("radar"), rcnet)
+        pred_inv, scales = model(x.to(dtype), d)
+        depth = resize2d(1.0 / pred_inv, frame, "bicubic",
+                         align_corners=False)[..., 0]
+        out = {"depth": depth, "int_depth": d[..., 0], "scales": scales}
+        if with_metrics and "gt_sparse" in batch:
+            out["metrics"] = metrics_lib.compute_depth_metrics(
+                depth, get("gt_sparse"), ev.min_depth_val,
+                ev.max_depth_val, ev.delta_threshold)
+        return out
+
+    return infer

@@ -427,3 +427,131 @@ def test_lane_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):                         # a 4F scale
         lane_decoder.lane_upconv2x(x, wu, torch.ones(32, device=dev),
                                    torch.zeros(32, device=dev), 0.2)
+
+
+# ---- the staged, served and driver paths on the card -----------------------
+
+def _narrow_cfg(frame=(64, 96), patch=(66, 34), K=8):
+    import dataclasses
+    from riders_tpu_torch.core.config import ntu_config
+    cfg = ntu_config()
+    return cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, image_shape=frame,
+                                    max_points=K),
+        sml=dataclasses.replace(cfg.sml, net_shape=(64, 96), features=8),
+        # narrow widths, but the stem kernel's 32 output channels
+        rcnet=dataclasses.replace(
+            cfg.rcnet, patch_size=patch,
+            n_filters_encoder_image=(32, 16, 32, 32, 32),
+            n_neurons_encoder_depth=(8, 16, 32, 32, 32),
+            n_filters_decoder=(64, 32, 16, 8, 4), attention_layers=1,
+            attention_heads=4))
+
+
+def _points(g, dev, B, K, frame, n_real):
+    H, W = frame
+    u = torch.randint(0, W, (B, K), generator=g, device=dev).float()
+    v = torch.randint(0, H, (B, K), generator=g, device=dev).float()
+    z = 1 + 40 * torch.rand((B, K), generator=g, device=dev)
+    mask = torch.zeros((B, K), device=dev)
+    mask[:, :n_real] = 1.0
+    return torch.stack([u, v, z], -1), mask
+
+
+def test_adaptive_compose_on_card_matches_plain(dev):
+    """Every round of the retry is one B4 launch, and the card's loop is
+    bitwise the plain composition's on the same responses."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    B, K, frame, patch = 4, 12, (72, 96), (30, 16)
+    pts, mask = _points(g, dev, B, K, frame, 9)
+    pts[..., 0] += patch[1] // 2
+    pts[..., 1] += patch[0] // 2
+    resp = torch.rand((B, K) + patch, generator=g, device=dev)
+    resp *= torch.tensor([0.9, 0.33, 0.21, 0.05], device=dev)[
+        :, None, None, None]
+    before = LAUNCHES["compose"]
+    got = patches.adaptive_compose(resp, pts, mask, frame, patch, 0.4)
+    rounds = LAUNCHES["compose"] - before - 1
+    want = patches.adaptive_compose(resp, pts, mask, frame, patch, 0.4,
+                                    compose=patches.compose_patches)
+    assert rounds == int(got[3].max()) > 0
+    assert len(set(got[3].tolist())) > 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_rcnet_infer_fn_launches_the_kernels(dev):
+    import numpy as np
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.pipelines.rcnet_inference import (
+        make_rcnet_infer_fn, pad_image_for_patches)
+    cfg = _narrow_cfg()
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, K = 2, cfg.dataset.max_points
+    pts, mask = _points(g, dev, B, K, cfg.dataset.image_shape, 6)
+    frames = torch.rand((B,) + cfg.dataset.image_shape + (3,),
+                        generator=g, device=dev).cpu().numpy()
+    image = torch.from_numpy(np.stack(
+        [pad_image_for_patches(f, cfg.rcnet.patch_size) for f in frames]))
+    model = init_random_(RCNet(cfg.rcnet, dtype=torch.bfloat16), 0)
+    fn = make_rcnet_infer_fn(cfg, model)
+    LAUNCHES.clear()
+    out = fn({"image": image, "points": pts, "point_mask": mask})
+    assert LAUNCHES["stem"] >= 1 and LAUNCHES["roi_pool"] == 1
+    assert LAUNCHES["compose"] == 1 + int(out["retries"].max())
+    assert out["depth"].shape == (B,) + cfg.dataset.image_shape
+    assert bool(torch.isfinite(out["depth"]).all())
+
+
+def test_fused_server_on_card_equals_direct_calls(dev):
+    import numpy as np
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.models.sml import ScaleMapLearner
+    from riders_tpu_torch.pipelines.fused import make_fused_fn
+    from riders_tpu_torch.pipelines.serving import FusedServer
+    cfg = _narrow_cfg()
+    rcnet = init_random_(RCNet(cfg.rcnet, dtype=torch.bfloat16), 0)
+    sml = init_random_(ScaleMapLearner(cfg.sml, dtype=torch.bfloat16), 1)
+    fn = make_fused_fn(cfg, rcnet, sml)
+    rng = np.random.default_rng(0)
+    H, W = cfg.dataset.image_shape
+    K = cfg.dataset.max_points
+    batches = []
+    for _ in range(4):
+        g = torch.Generator(device="cpu").manual_seed(len(batches))
+        pts, mask = _points(g, "cpu", 2, K, (H, W), 5)
+        batches.append({
+            "image": rng.integers(0, 256, (2, H, W, 3), dtype=np.uint8),
+            "mono_pred": rng.integers(300, 9000, (2, H, W),
+                                      dtype=np.uint16),
+            "radar_points": pts.numpy(), "point_mask": mask.numpy()})
+    direct = [fn(b).cpu().numpy() for b in batches]
+    server = FusedServer(fn, depth=2)
+    served = list(server.run(iter(batches)))
+    assert not server.uploader.is_alive()
+    for a, b in zip(served, direct):
+        assert np.array_equal(a, b)
+
+
+def test_metrics_and_loader_on_card(dev):
+    import numpy as np
+    from riders_tpu_torch.core.metrics import compute_depth_metrics
+    from riders_tpu_torch.io.input_pipeline import BatchLoader
+    g = torch.Generator().manual_seed(22)
+    pred = 1 + 60 * torch.rand((3, 40, 50), generator=g)
+    gt = 1 + 60 * torch.rand((3, 40, 50), generator=g)
+    gt[torch.rand(gt.shape, generator=g) < 0.7] = 0
+    cpu = compute_depth_metrics(pred, gt, 0.0, 50.0)
+    card = compute_depth_metrics(pred.to(dev), gt.to(dev), 0.0, 50.0)
+    for k in cpu:
+        torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=1e-5,
+                                   atol=0)
+    data = [{"x": np.full((4, 5), i, np.float32),
+             "c": np.full((3,), i, np.uint16)} for i in range(5)]
+    loader = BatchLoader(data, 2, shuffle=False, drop_last=False)
+    batches = list(loader.epoch())
+    assert [b["x"].device.type for b in batches] == ["cuda"] * 3
+    assert batches[-1]["x"].shape == (1, 4, 5)
+    assert int(batches[2]["c"].view(torch.int16)[0, 0]) == 4

@@ -85,3 +85,43 @@ def test_entry_points_refuse_the_cpu_without_a_request(monkeypatch):
         make_fused_fn(cfg, rcnet, sml)
     assert callable(make_fused_fn(cfg.replace(rcnet=small), rcnet, sml,
                                   device="cpu"))
+
+
+def _entry_points(tmp_path):
+    """The staged, serving and driver entry points, each called with no
+    device (so on the card by default)."""
+    from riders_tpu_torch.core.config import zju_config
+    from riders_tpu_torch.io.input_pipeline import BatchLoader
+    from riders_tpu_torch.pipelines import drivers
+    from riders_tpu_torch.pipelines.rcnet_inference import \
+        make_rcnet_infer_fn
+    from riders_tpu_torch.pipelines.serving import FusedServer
+    from riders_tpu_torch.pipelines.sml_inference import make_infer_fn
+
+    cfg = zju_config(root=str(tmp_path))
+    model = torch.nn.Linear(1, 1)
+    return {
+        "make_rcnet_infer_fn": lambda: make_rcnet_infer_fn(cfg, model),
+        "make_infer_fn": lambda: make_infer_fn(cfg, model),
+        "FusedServer": lambda: FusedServer(lambda b: b),
+        "BatchLoader": lambda: BatchLoader([], 1),
+        "run_rcnet": lambda: drivers.run_rcnet(cfg, str(tmp_path),
+                                               str(tmp_path)),
+        "validate_rcnet": lambda: drivers.validate_rcnet(cfg,
+                                                         str(tmp_path)),
+        "validate_sml": lambda: drivers.validate_sml(cfg, str(tmp_path)),
+        "evaluate_results_dir": lambda: drivers.evaluate_results_dir(
+            cfg, str(tmp_path)),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "make_rcnet_infer_fn", "make_infer_fn", "FusedServer", "BatchLoader",
+    "run_rcnet", "validate_rcnet", "validate_sml", "evaluate_results_dir"])
+def test_staged_and_driver_entry_points_refuse_the_cpu(monkeypatch,
+                                                       tmp_path, name):
+    """Without a card, each new entry point raises before it reads a
+    file or a model; with device='cpu' the staged ones build."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_points(tmp_path)[name]()
