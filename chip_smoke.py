@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's fused inference path, its RC-Net and
-SML training steps, and its staged inference, serving and drivers on one
-GPU.
+SML training steps, its staged inference, serving and drivers, and its
+command line (training, inference and preprocessing) on one GPU.
 
     python3 chip_smoke.py                 # all phases, report lines
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
@@ -70,10 +70,32 @@ Phases, each fatal on failure:
      after an early close, served, sequential and card-resident
      frames/s; (d) the on-disk drivers on an 8-frame NTU mini-dataset
      written under build/: run_rcnet, evaluate_results_dir on its tree,
-     validate_sml over two checkpoints.
+     validate_sml over two checkpoints;
+  9. the training drivers and the CLI (`riders_tpu_torch.cli.main`) at
+     the NTU preset's full widths, each command with the launch counters
+     reset just before it, on a dataset of 24 training and 4 validation
+     NTU frames (512x640) written under build/, the preset's cadence cut
+     to a summary every step and a checkpoint every 3: (a) train-rcnet,
+     B=24, K=40, 3 steps: finite loss at each step, the checkpoint and
+     summaries/step3.png at step 3, 15 RoI backward and 15 + 1 (the
+     summary's forward) f32 pyramid launches, the host interval between
+     step starts, and the trainer's loader alone (ms per batch); (b)
+     run-rcnet at thresholds 0.5 and 0.4 (one stem and one RoI pool
+     launch and 1 + rounds compose launches a frame); (c) train-sml,
+     B=12, 3 steps, with the IDW scale map ('interp') and with the
+     preset's rcnet_0.4 knots, step intervals and peak memory, and the
+     loader alone; (d) val-rcnet, val-sml --depth-predictor midas_small
+     and eval-dir, seconds each; (e) preprocess of a raw 4-frame NTU
+     scene (16-bit thermal PNGs, binary lidar .pcd of 40000 points and
+     radar .pcd of 200), ms per frame, each frame's lidar densified by
+     the native Delaunay and by scipy, their ms and the share of pixels
+     where they differ, each such pixel inside one of scipy's triangles
+     that has an exactly cocircular neighbour (a tie); (f) idw_scale_map
+     at 512x640 on the card against the CPU, 300, 40 and 0 knots: equal
+     knot indices and rtol 1e-5.
 Report lines: the card's name and power limit, one {"kernels": [...]}
 line, one fused line, one lane_decoder line, one training line, one
-staged line; the last line is
+staged line, one training_cli line; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -1571,6 +1593,355 @@ def staged_phase(ntu_fn):
     return dict(rcnet=rc, sml=sml, served=serve, drivers=disk)
 
 
+def write_raw_ntu_scene(root, scene, n_frames, seed, n_lidar=40000,
+                        n_radar=200):
+    """A raw NTU scene in the layout `preprocess` reads: 16-bit 640x512
+    thermal PNGs (thermal_sync/), binary lidar (lidar/) and radar
+    (radar_sync/) .pcd files of points seen through the NTU rig's
+    calibration (a few behind the camera or past the distance window)."""
+    import cv2
+    import numpy as np
+    from riders_tpu_torch.io.preprocess.project import ntu_calibration
+    calib = ntu_calibration()
+    rng = np.random.default_rng(seed)
+    H, W = calib.image_size
+    P = calib.projection_matrix
+    for d in ("thermal_sync", "lidar", "radar_sync"):
+        (root / scene / d).mkdir(parents=True, exist_ok=True)
+    for f in range(n_frames):
+        fid = f"{f:06d}"
+        cv2.imwrite(str(root / scene / "thermal_sync" / f"{fid}.png"),
+                    rng.integers(20000, 30000, (H, W), dtype=np.uint16))
+        for d, n, t in (("lidar", n_lidar, calib.t_camera_lidar),
+                        ("radar_sync", n_radar, calib.t_camera_radar)):
+            z = 0.5 + 119.5 * rng.random(n) ** 2
+            z[: n // 20] *= -1.0
+            u = rng.uniform(-20, W + 20, n)
+            v = rng.uniform(-20, H + 20, n)
+            cam = np.column_stack([(u - P[0, 2]) * z / P[0, 0],
+                                   (v - P[1, 2]) * z / P[1, 1], z,
+                                   np.ones(n)])
+            xyz = (cam @ np.linalg.inv(t).T)[:, :3].astype(np.float32)
+            with open(root / scene / d / f"{fid}.pcd", "wb") as fh:
+                fh.write((f"VERSION 0.7\nFIELDS x y z\nSIZE 4 4 4\n"
+                          f"TYPE F F F\nCOUNT 1 1 1\nWIDTH {n}\nHEIGHT 1\n"
+                          f"POINTS {n}\nDATA binary\n").encode("ascii"))
+                fh.write(xyz.tobytes())
+
+
+class _StepClock:
+    """Within its block, the training steps that `module.name` builds
+    note the host clock when they start, without synchronising (the
+    driver's summary writes read the loss on the host at every step
+    here, so a step's interval holds its device time)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.starts = module, name, []
+        self.factory = getattr(module, name)
+
+    def __enter__(self):
+        def factory(*args, **kw):
+            step = self.factory(*args, **kw)
+
+            def timed(state, batch):
+                self.starts.append(time.perf_counter())
+                return step(state, batch)
+            return timed
+        setattr(self.module, self.name, factory)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.factory)
+
+    def intervals_ms(self):
+        return [1e3 * (b - a) for a, b in zip(self.starts, self.starts[1:])]
+
+
+def _cli(args, root):
+    """One `riders-torch` command at the NTU preset on the card, with
+    the launch counters reset just before it: its seconds (synchronised)
+    and the kernels' launches."""
+    import torch
+    from riders_tpu_torch import cli
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rc = cli.main([args[0], "--dataset", "ntu", "--root", str(root),
+                   "--train-scenes", "train", "--val-scenes", "val",
+                   *args[1:]])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"riders-torch {args}: exit {rc}")
+    return time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def _trained(ckpt, steps):
+    """The losses a trainer wrote, checked finite at every step, and its
+    one checkpoint at `steps`."""
+    from riders_tpu_torch.core import checkpoint
+    with open(ckpt / "scalars-train.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    losses = {r["step"]: r["loss"] for r in recs if "loss" in r}
+    if (sorted(losses) != list(range(1, steps + 1))
+            or not all(math.isfinite(v) for v in losses.values())
+            or checkpoint.all_steps(ckpt) != [steps]):
+        raise AssertionError(f"{ckpt.name}: losses {losses}, checkpoints "
+                             f"{checkpoint.all_steps(ckpt)}")
+    return losses
+
+
+def loader_ms(cfg, kind, n_batches=3):
+    """Host ms per batch of the trainer's loader alone (decode,
+    augmentation, stacking and the pinned copy to the card, four decode
+    threads, as the driver runs it) over the training scenes: the
+    yardstick of a driver step that the loader bounds."""
+    import torch
+    from riders_tpu_torch.io import input_pipeline as ip
+    from riders_tpu_torch.io.manifest import build_manifest
+    if kind == "rcnet":
+        data = ip.RCNetTrainDataset(cfg, build_manifest(
+            cfg.dataset, cfg.dataset.train_scenes))
+        B = cfg.rcnet_train.batch_size
+    else:
+        t = cfg.sml_train
+        data = ip.SMLFrameDataset(cfg, build_manifest(
+            cfg.dataset, cfg.dataset.train_scenes,
+            rcnet_interp=t.rcnet_interp), train=True)
+        B = t.batch_size
+    loader = ip.BatchLoader(data, B, shuffle=True, device="cuda")
+    times = []
+    for _ in range(n_batches):
+        t0 = time.perf_counter()
+        for batch in loader.epoch():
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+    return times
+
+
+def training_cli_phase(n_train=24, n_val=4, steps=3, seed=0):
+    """Phase 9: the training drivers and the CLI at the NTU preset's full
+    widths, through `riders_tpu_torch.cli.main` on the card, on an NTU
+    dataset of 24 training and 4 validation frames (512x640) written
+    under build/.  The preset's summary and checkpoint cadence is cut to
+    every step and every 3 steps, so that a 3-step run writes its
+    summaries.  Then preprocessing of a raw scene (9e), and IDW on the
+    card against the CPU (9f)."""
+    import contextlib
+    import dataclasses
+    import shutil
+    import torch
+    from unittest import mock
+    from riders_tpu_torch.core import config
+    from riders_tpu_torch.pipelines import rcnet_training, sml_training
+
+    root = HERE / "build" / "phase9_data"
+    shutil.rmtree(root, ignore_errors=True)
+    preset = config.ntu_config
+
+    def cadence(root="", **kw):
+        cfg = preset(root, **kw)
+        return cfg.replace(**{k: dataclasses.replace(
+            getattr(cfg, k), n_step_per_summary=1,
+            n_step_per_checkpoint=steps)
+            for k in ("rcnet_train", "sml_train")})
+
+    out = {}
+    ckpt = {k: root / f"ckpt_{k}" for k in ("rcnet", "sml_interp", "sml")}
+    try:
+        write_ntu_scene(root, "train", n_train, seed)
+        write_ntu_scene(root, "val", n_val, seed + 1)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(config, "ntu_config",
+                                                  cadence))
+            # 9a: train-rcnet at B=24, K=40
+            with _StepClock(rcnet_training, "make_rcnet_train_step") as clk:
+                s, launches = _cli(["train-rcnet", "--ckpt",
+                                    str(ckpt["rcnet"]), "--max-steps",
+                                    str(steps)], root)
+            losses = _trained(ckpt["rcnet"], steps)
+            pngs = sorted(p.name for p in (ckpt["rcnet"] / "summaries"
+                                           ).glob("step*.png"))
+            # five pyramid launches and five backward launches a step;
+            # the summary's eval-mode forward pools once more
+            if (launches.get("roi_pool_bwd") != 5 * steps
+                    or launches.get("roi_pool_f32") != 5 * steps + 1
+                    or pngs != [f"step{steps}.png"]):
+                raise AssertionError(f"train-rcnet: launches {launches}, "
+                                     f"summaries {pngs}")
+            cfg = config.ntu_config(str(root))
+            cfg = cfg.replace(dataset=dataclasses.replace(
+                cfg.dataset, train_scenes=("train",), val_scenes=("val",)))
+            out["train_rcnet"] = dict(
+                seconds=s, launches=launches, losses=losses, batch=24,
+                points=40, step_intervals_ms=clk.intervals_ms(),
+                summaries=pngs, loader_ms_per_batch=loader_ms(cfg, "rcnet"))
+            # 9b: the stage-2 maps of the SML sources (rcnet_0.4 trains,
+            # rcnet_0.5 validates); the second run is the one reported
+            n = n_train + n_val
+            for thr in ("0.5", "0.4"):
+                s, launches = _cli(["run-rcnet", "--ckpt",
+                                    str(ckpt["rcnet"]), "--output",
+                                    str(root / "output"), "--threshold",
+                                    thr], root)
+            if (launches.get("roi_pool") != n
+                    or launches.get("stem", 0) < n
+                    or launches.get("compose", 0) < n):
+                raise AssertionError(f"run-rcnet: launches {launches} for "
+                                     f"{n} frames")
+            out["run_rcnet"] = dict(seconds=s, frames=n, launches=launches)
+            # 9c: train-sml at B=12, with the IDW scale map and with the
+            # preset's rcnet_0.4 knots
+            for name, extra in (("sml_interp", ["--rcnet-interp",
+                                                "interp"]), ("sml", [])):
+                torch.cuda.reset_peak_memory_stats()
+                with _StepClock(sml_training, "make_train_step") as clk:
+                    s, _ = _cli(["train-sml", "--ckpt", str(ckpt[name]),
+                                 "--max-steps", str(steps), *extra], root)
+                out[f"train_{name}"] = dict(
+                    seconds=s, losses=_trained(ckpt[name], steps),
+                    batch=12, step_intervals_ms=clk.intervals_ms(),
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            out["train_sml"]["loader_ms_per_batch"] = loader_ms(cfg, "sml")
+            # 9d: the inference subcommands on those checkpoints
+            s, launches = _cli(["val-rcnet", "--ckpt", str(ckpt["rcnet"])],
+                               root)
+            if launches.get("roi_pool") != n_val:
+                raise AssertionError(f"val-rcnet: launches {launches}")
+            out["val_rcnet"] = dict(seconds=s, launches=launches)
+            s, launches = _cli(["val-sml", "--ckpt", str(ckpt["sml"]),
+                                "--depth-predictor", "midas_small"], root)
+            out["val_sml"] = dict(seconds=s, launches=launches)
+            s, _ = _cli(["eval-dir", "--results",
+                         str(root / "output" / "rcnet_0.4"), "--subdir",
+                         "depth_predicted"], root)
+            out["eval_dir"] = dict(seconds=s)
+        out["preprocess"] = preprocess_phase(root, seed)
+        out["idw"] = idw_on_card(seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def cocircular_simplices(points):
+    """scipy's Delaunay triangulation of integer (row, col) knots, and
+    for each of its triangles whether a neighbour's far vertex lies
+    exactly on its circumcircle (an in-circle determinant of 0, exact in
+    f64 for pixel coordinates): there another triangulation is also a
+    Delaunay one."""
+    import numpy as np
+    from scipy.spatial import Delaunay
+    tri = Delaunay(points)
+    S = tri.simplices
+    ambiguous = np.zeros(len(S), bool)
+    for j in range(3):
+        nb = tri.neighbors[:, j]
+        has = np.flatnonzero(nb >= 0)
+        own, theirs = S[has], S[nb[has]]
+        far = theirs[~(theirs[:, :, None] == own[:, None, :]).any(-1)]
+        m = points[own] - points[far][:, None, :]           # (M, 3, 2)
+        sq = (m ** 2).sum(-1)
+        det = (m[:, 0, 0] * (m[:, 1, 1] * sq[:, 2] - sq[:, 1] * m[:, 2, 1])
+               - m[:, 0, 1] * (m[:, 1, 0] * sq[:, 2] - sq[:, 1] * m[:, 2, 0])
+               + sq[:, 0] * (m[:, 1, 0] * m[:, 2, 1]
+                             - m[:, 1, 1] * m[:, 2, 0]))
+        ambiguous[has[det == 0]] = True
+    return tri, ambiguous
+
+
+def preprocess_phase(root, seed, n_frames=4):
+    """Phase 9e: `preprocess` of a raw 4-frame NTU scene through the CLI
+    (the native Delaunay densifies each lidar frame), then each frame's
+    sparse lidar map densified again by the native library and by scipy:
+    their ms per frame, and the pixels where they differ by more than
+    1e-3, each of which must lie in one of scipy's triangles that has an
+    exactly cocircular neighbour (a tie that either triangulation may
+    break)."""
+    import numpy as np
+    from riders_tpu_torch import cli
+    from riders_tpu_torch.io import depthio
+    from riders_tpu_torch.io.native import build
+    from riders_tpu_torch.ops.interp import delaunay_interpolate
+
+    raw, processed = root / "raw", root / "processed"
+    write_raw_ntu_scene(raw, "scene", n_frames, seed)
+    t0 = time.perf_counter()
+    build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if cli.main(["preprocess", "--dataset", "ntu", "--root", str(raw),
+                 "--output", str(processed)]) != 0:
+        raise AssertionError("preprocess failed")
+    total = time.perf_counter() - t0
+    scene = processed / "scene"
+    times = {"native": [], "scipy": []}
+    differ, n_pts = [], []
+    for f in range(n_frames):
+        name = f"{f:06d}.png"
+        for d in ("thermal_undistort", "radar_png", "lidar_png",
+                  "lidar_png_int"):
+            if not (scene / d / name).exists():
+                raise AssertionError(f"preprocess wrote no {d}/{name}")
+        sparse = depthio.load_depth(str(scene / "lidar_png" / name))
+        dense = {}
+        for kind, native in (("native", True), ("scipy", False)):
+            t0 = time.perf_counter()
+            dense[kind] = delaunay_interpolate(sparse, use_native=native)
+            times[kind].append(1e3 * (time.perf_counter() - t0))
+        knots = np.argwhere(sparse > 0).astype(np.float64)
+        n_pts.append(len(knots))
+        diff = np.abs(dense["native"] - dense["scipy"]) > 1e-3
+        either = (dense["native"] > 0) | (dense["scipy"] > 0)
+        differ.append(float(diff[either].mean()))
+        tri, ambiguous = cocircular_simplices(knots)
+        at = tri.find_simplex(np.argwhere(diff).astype(np.float64))
+        unexplained = int(((at < 0) | ~ambiguous[np.maximum(at, 0)]).sum())
+        if unexplained:
+            raise AssertionError(
+                f"preprocess frame {f}: {unexplained} of {int(diff.sum())} "
+                f"pixels where native and scipy differ lie outside every "
+                f"cocircular triangle")
+    radar = np.load(scene / "radar_npy" / f"{0:06d}.npy")
+    return dict(frames=n_frames, ms_per_frame=1e3 * total / n_frames,
+                native_build_s=build_s, lidar_points_in_view=n_pts,
+                radar_points_in_view=len(radar),
+                delaunay_native_ms=times["native"],
+                delaunay_scipy_ms=times["scipy"],
+                native_vs_scipy_differing_share=differ,
+                differing_outside_cocircular=0)
+
+
+def idw_on_card(seed, knots=(300, 40, 0)):
+    """Phase 9f: idw_scale_map at 512x640 on the card against its CPU
+    run: the same knot indices (the first 128 valid pixels in row-major
+    order) and the map within rtol 1e-5."""
+    import torch
+    from riders_tpu_torch.ops import interp
+    g = torch.Generator().manual_seed(seed + 90)
+    B, (H, W) = len(knots), FRAME
+    prior = 0.05 + torch.rand((B, H, W), generator=g)
+    valid = torch.zeros((B, H * W))
+    for b, n in enumerate(knots):
+        valid[b, torch.randperm(H * W, generator=g)[:n]] = 1.0
+    valid = valid.reshape(B, H, W)
+    sparse = valid * (0.02 + 0.3 * torch.rand((B, H, W), generator=g))
+    cpu = interp.idw_scale_map(prior, sparse, valid)
+    args = [t.cuda() for t in (prior, sparse, valid)]
+    card = interp.idw_scale_map(*args)
+    same_knots = torch.equal(interp.knot_indices(args[2]).cpu(),
+                             interp.knot_indices(valid))
+    rel = float(((card.cpu() - cpu).abs() / cpu.abs()).max())
+    if not same_knots or rel > 1e-5:
+        raise AssertionError(f"idw on the card: knots equal {same_knots}, "
+                             f"max rel err {rel}")
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: interp.idw_scale_map(*args), n=5, warmup=1)
+    return dict(frames=B, knots=list(knots), same_knots=same_knots,
+                max_rel_err=rel, ms=ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 def profile(fn, batch, path):
     """Device time by kernel for one call of `fn` (torch.profiler)."""
     import torch
@@ -1716,6 +2087,11 @@ def main(argv):
     staged = staged_phase(ntu_fn)
     for name, rec in staged.items():
         log(f"staged {name}: {json.dumps(rec)}")
+    del ntu_fn
+    torch.cuda.empty_cache()
+    cli_runs = training_cli_phase()
+    for name, rec in cli_runs.items():
+        log(f"cli {name}: {json.dumps(rec)}")
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -1769,7 +2145,8 @@ def main(argv):
                    fused=dict(ntu=ntu, zju=zju), reference=agree,
                    lane_kernels=lane_kernels, lane_decoder=lane,
                    training_kernels=train_kernels, training=training,
-                   training_agreement=train_agree, staged=staged)
+                   training_agreement=train_agree, staged=staged,
+                   cli=cli_runs)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -1804,6 +2181,32 @@ def main(argv):
         resident_frames_per_s=staged["served"]["resident_frames_per_s"],
         drivers_s={k: v for k, v in staged["drivers"].items()
                    if k.endswith("_s")})}))
+    pre = cli_runs["preprocess"]
+    log(json.dumps({"training_cli": dict(
+        card=smi,
+        train_rcnet_step_intervals_ms=cli_runs["train_rcnet"][
+            "step_intervals_ms"],
+        rcnet_step_ms_phase6=training["rcnet"]["ms_per_step"],
+        train_rcnet_launches={k: cli_runs["train_rcnet"]["launches"].get(k)
+                              for k in ("roi_pool_f32", "roi_pool_bwd")},
+        **{f"{k}_loader_ms_per_batch": cli_runs[f"train_{k}"][
+            "loader_ms_per_batch"] for k in ("rcnet", "sml")},
+        **{f"train_{k}_step_intervals_ms": cli_runs[f"train_{k}"][
+            "step_intervals_ms"] for k in ("sml_interp", "sml")},
+        **{f"train_{k}_peak_mem_gb": cli_runs[f"train_{k}"]["peak_mem_gb"]
+           for k in ("sml_interp", "sml")},
+        sml_step_ms_phase6=training["sml"]["ms_per_step"],
+        run_rcnet_launches={k: cli_runs["run_rcnet"]["launches"].get(k)
+                            for k in ("stem", "roi_pool", "compose")},
+        seconds={k: r["seconds"] for k, r in cli_runs.items()
+                 if "seconds" in r},
+        preprocess_ms_per_frame=pre["ms_per_frame"],
+        delaunay_native_ms=pre["delaunay_native_ms"],
+        delaunay_scipy_ms=pre["delaunay_scipy_ms"],
+        native_vs_scipy_differing_share=pre[
+            "native_vs_scipy_differing_share"],
+        idw_max_rel_err=cli_runs["idw"]["max_rel_err"],
+        idw_same_knots=cli_runs["idw"]["same_knots"])}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,10 @@
 training steps.
 
 The port's own copy of the dataclasses and the ZJU / NTU presets of the
-JAX package's configuration, cut to the fields the port reads (RC-Net's
-training augmentation, the summary and checkpoint cadence and the mesh
-layout are left out).  All shapes are static: frame size, patch size, the radar-point
-bucket and the SML network input are part of the config.
+JAX package's configuration, cut to the fields the port reads (the mesh
+layout is left out).  All shapes are static: frame size, patch size,
+the radar-point bucket and the SML network input are part of the
+config.
 """
 
 from __future__ import annotations
@@ -114,7 +114,8 @@ class RCNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RCNetTrainConfig:
-    """RC-Net training step: batch, optimizer schedule and loss."""
+    """RC-Net training: batch, optimizer schedule, loss, the augmentation
+    of RCNetTrainDataset and the summary / checkpoint cadence."""
 
     batch_size: int = 4
     learning_rates: Tuple[float, ...] = (2e-4,)
@@ -123,12 +124,25 @@ class RCNetTrainConfig:
     w_positive_class: float = 2.5
     max_distance_correspondence: float = 0.5        # metres
     set_invalid_to_negative_class: bool = False
+    sample_probability_of_lidar: float = 0.10       # pseudo-radar frames
+    augmentation_probability: float = 1.0
+    random_brightness: Tuple[float, float] = (0.6, 1.4)
+    random_contrast: Tuple[float, float] = (0.6, 1.4)
+    random_saturation: Tuple[float, float] = (0.6, 1.4)
+    random_flip_type: Tuple[str, ...] = ("horizontal",)
+    # Noise on the point coordinates fed to the point encoder: 'none',
+    # 'gaussian' or 'uniform' (off in both presets).
+    random_noise_type: str = "none"
+    random_noise_spread: float = -1.0
+    n_step_per_summary: int = 100
+    n_step_per_checkpoint: int = 2000
 
 
 @dataclasses.dataclass(frozen=True)
 class SMLTrainConfig:
-    """SML training step: batch, optimizer schedule, loss and the GT
-    hygiene ops."""
+    """SML training: batch, optimizer schedule, loss, the GT hygiene ops,
+    the augmentation of SMLFrameDataset and the summary / checkpoint
+    cadence."""
 
     batch_size: int = 12
     learning_rates: Tuple[float, ...] = (1e-4, 5e-5)
@@ -149,11 +163,15 @@ class SMLTrainConfig:
     random_radar_noise: Optional[Tuple[float, float]] = (-0.01, 0.01)
     random_rcnet_thresholds: Optional[Tuple[float, ...]] = None
     # Scale-map knot source: 'rcnet_<thr>' feeds the quasi-dense stage-2
-    # depth; 'none' uses the raw radar knots only.
+    # depth; 'none' uses the raw radar knots only; 'interp' densifies the
+    # knot scales by IDW on the device, 'interp-exact' by scipy griddata
+    # on the host.
     rcnet_interp: str = "rcnet_0.1"
     # Validation-time knot source when it differs from training (NTU
     # trains on rcnet_0.4 and validates on rcnet_0.5); None = the same.
     rcnet_interp_val: Optional[str] = None
+    n_step_per_summary: int = 10
+    n_step_per_checkpoint: int = 1000
 
 
 @dataclasses.dataclass(frozen=True)

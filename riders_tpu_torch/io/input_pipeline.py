@@ -5,6 +5,11 @@
   its training augmentations: crop then resize back, horizontal flip,
   radar depth noise, a random stage-2 threshold, the fall-back of an
   all-zero stage-2 map to the raw radar, and the HSV photometric hooks.
+* ``RCNetTrainDataset`` - the patch-training samples of stage 2: the
+  edge-padded frame with photometric augmentation, a fixed number of
+  radar points (sparse frames repeated x100 first), pseudo-radar from
+  the lidar GT, horizontal and vertical flips, per-point boxes and GT
+  crops, and noise on the points fed to the point encoder.
 * ``RCNetInferenceDataset`` - the edge-padded frame and the fixed-size
   point bucket of stage 2.
 * ``BatchLoader`` - a prefetching batcher: threads (or, with
@@ -152,6 +157,128 @@ class SMLFrameDataset:
         keys = ("image", "mono_pred", "radar", "gt_interp", "gt_sparse",
                 "rcnet")
         return {k: m.astype(np.float32) for k, m in zip(keys, maps)}
+
+
+class RCNetTrainDataset:
+    """Per-frame samples of RC-Net training.  Each sample draws, from its
+    (seed, epoch, index) stream and in this order: the three photometric
+    coins and factors, the point sample, the pseudo-radar branch, the two
+    flips and the point noise."""
+
+    def __init__(self, cfg: RidersConfig, records: Sequence[FrameRecord],
+                 seed: int = 0):
+        self.cfg = cfg
+        self.records = list(records)
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _photometric(self, image01: np.ndarray, rng) -> np.ndarray:
+        """Brightness, contrast (about the image mean) and saturation
+        (about the luma), each with probability 0.5 x
+        augmentation_probability and a uniform factor, clipped to
+        [0, 1]."""
+        t = self.cfg.rcnet_train
+        img = image01
+        if rng.random() < 0.5 * t.augmentation_probability:
+            img = np.clip(img * rng.uniform(*t.random_brightness),
+                          0.0, 1.0)
+        if rng.random() < 0.5 * t.augmentation_probability:
+            mean = img.mean()
+            img = np.clip((img - mean) * rng.uniform(*t.random_contrast)
+                          + mean, 0.0, 1.0)
+        if rng.random() < 0.5 * t.augmentation_probability:
+            gray = (0.299 * img[..., 0] + 0.587 * img[..., 1]
+                    + 0.114 * img[..., 2])[..., None]
+            img = np.clip(gray + (img - gray)
+                          * rng.uniform(*t.random_saturation), 0.0, 1.0)
+        return img.astype(np.float32)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        t = cfg.rcnet_train
+        K = t.points_per_frame
+        ph, pw = cfg.rcnet.patch_size
+        pad_y, pad_x = ph // 2, pw // 2
+        rec = self.records[index]
+        rng = _sample_rng(self.seed, self._epoch, index)
+
+        image = depthio.load_image(rec.image, normalize=True)
+        image = np.pad(image, ((pad_y, pad_y), (pad_x, pad_x), (0, 0)),
+                       mode="edge")
+        image = self._photometric(image, rng)
+        image = _normalize_range(image, cfg.rcnet.normalized_image_range)
+
+        points = depthio.load_radar_points(rec.radar)
+        if points.shape[0] <= K:
+            points = np.repeat(points, 100, axis=0)
+        points = points[rng.integers(0, points.shape[0], K)].astype(
+            np.float32)
+
+        gt = depthio.load_depth(rec.gt_interp)
+        # Pseudo-radar from the lidar GT: x jittered, depth pushed back
+        # by up to 0.5 m; y stays the radar point's, as in the reference.
+        if rng.random() < t.sample_probability_of_lidar:
+            ly, lx = np.where(gt > 1)
+            if len(ly) >= K:
+                pick = rng.choice(len(ly), K, replace=False)
+                px = lx[pick] + rng.normal(0, 25, K)
+                px = np.clip(px, 0, gt.shape[1]).astype(np.int64)
+                pz = gt[ly[pick], lx[pick]] + rng.uniform(0.0, 0.5, K)
+                points = np.stack([px.astype(np.float32), points[:, 1],
+                                   pz.astype(np.float32)], axis=1)
+
+        H_img, W_img = gt.shape
+        if ("horizontal" in t.random_flip_type
+                and rng.random() < 0.5 * t.augmentation_probability):
+            image = np.ascontiguousarray(image[:, ::-1])
+            gt = np.ascontiguousarray(gt[:, ::-1])
+            points[:, 0] = W_img - 1 - points[:, 0]
+        if ("vertical" in t.random_flip_type
+                and rng.random() < 0.5 * t.augmentation_probability):
+            image = np.ascontiguousarray(image[::-1])
+            gt = np.ascontiguousarray(gt[::-1])
+            points[:, 1] = H_img - 1 - points[:, 1]
+
+        # to padded coordinates; a box is the patch around its point
+        points[:, 0] += pad_x
+        points[:, 1] += pad_y
+        boxes = np.stack([points[:, 0] - pad_x, points[:, 1] - pad_y,
+                          points[:, 0] + pad_x, points[:, 1] + pad_y],
+                         axis=1).astype(np.float32)
+        # A pseudo-radar x is clipped to [0, W], so a horizontal flip can
+        # put a point at x = -1, a patch one pixel left of the padded
+        # frame: one more zero row and column on the top and left give
+        # that patch its crop (the JAX package's loader raises there).
+        gt_pad = np.pad(gt, ((pad_y + 1, pad_y), (pad_x + 1, pad_x)),
+                        mode="constant")
+        crops = np.zeros((K, ph, pw, 1), np.float32)
+        for i in range(K):
+            y0 = int(points[i, 1]) - pad_y + 1
+            x0 = int(points[i, 0]) - pad_x + 1
+            crops[i, :, :, 0] = gt_pad[y0:y0 + ph, x0:x0 + pw]
+
+        # noise on the points the point encoder sees; boxes keep theirs
+        if (t.random_noise_type != "none" and t.random_noise_spread > 0
+                and rng.random() < 0.5 * t.augmentation_probability):
+            if t.random_noise_type == "gaussian":
+                noise = rng.standard_normal(points.shape).astype(np.float32)
+            elif t.random_noise_type == "uniform":
+                noise = rng.random(points.shape).astype(np.float32) - 0.5
+            else:
+                raise ValueError(
+                    f"unsupported noise type: {t.random_noise_type}")
+            points = (points + t.random_noise_spread * noise).astype(
+                np.float32)
+
+        return {"image": image, "points": points, "boxes": boxes,
+                "gt_crops": crops,
+                "point_mask": np.ones(K, np.float32)}
 
 
 class RCNetInferenceDataset:

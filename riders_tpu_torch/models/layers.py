@@ -292,6 +292,30 @@ def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
     return module
 
 
+@torch.no_grad()
+def init_training_(module: nn.Module, seed: int = 0) -> nn.Module:
+    """The seeded initial weights of a training run, with flax's default
+    initialisers, as the JAX package's trainers start from: conv and
+    linear weights LeCun-normal truncated at two standard deviations,
+    zero biases, BatchNorm and LayerNorm at scale 1 and shift 0, running
+    statistics 0 / 1.  Draws on the CPU from a torch.Generator, so every
+    device gets the same weights."""
+    g = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            # flax's variance_scaling(1, 'fan_in', 'truncated_normal')
+            std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                  generator=g)
+            m.weight.copy_(w.to(m.weight.dtype))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            m.reset_parameters()
+    return module
+
+
 def place(module: nn.Module, device: torch.device,
           dtype: torch.dtype) -> nn.Module:
     """Move a model to its device and dtype in eval mode (a trainer puts

@@ -1,5 +1,8 @@
-"""Inference and validation drivers over the on-disk dataset layout.
+"""Training, inference and validation drivers over the on-disk dataset
+layout.
 
+* ``train_sml``      - the stage-3 training loop;
+* ``train_rcnet``    - the stage-2 training loop, with visual summaries;
 * ``run_rcnet``      - stage-2 generation: quasi-dense depth PNGs;
 * ``validate_rcnet`` - stage-2 checkpoint sweep against the interpolated
                        lidar GT, with its best-results vote;
@@ -10,15 +13,16 @@
 They read and write the 16-bit PNG trees of the JAX package's drivers
 (x256 codec, the same directory names), so a tree written by either
 package is read by the other.  Checkpoints are the port's
-`<dir>/<step>/state.pt` (`core/checkpoint.py`).  Each driver runs on
-`device`: the card unless device='cpu'.
+`<dir>/<step>/state.pt` (`core/checkpoint.py`); a training run starts
+from `models.layers.init_training_` weights (seed 0) unless it resumes.
+Each driver runs on `device`: the card unless device='cpu'.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -31,10 +35,13 @@ from riders_tpu_torch.core.device import resolve_device
 from riders_tpu_torch.io import depthio
 from riders_tpu_torch.io.input_pipeline import (BatchLoader,
                                                 RCNetInferenceDataset,
+                                                RCNetTrainDataset,
                                                 SMLFrameDataset)
 from riders_tpu_torch.io.manifest import build_manifest
+from riders_tpu_torch.models.layers import init_training_
 from riders_tpu_torch.models.rcnet import RCNet
 from riders_tpu_torch.models.sml import ScaleMapLearner
+from riders_tpu_torch.pipelines import rcnet_training, sml_training
 from riders_tpu_torch.pipelines.rcnet_inference import make_rcnet_infer_fn
 from riders_tpu_torch.pipelines.sml_inference import make_infer_fn
 
@@ -69,6 +76,123 @@ def _numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x)
+
+
+def _train_loader(dataset, batch_size: int, what: str,
+                  device: torch.device) -> BatchLoader:
+    loader = BatchLoader(dataset, batch_size, shuffle=True, device=device)
+    if len(loader) == 0:
+        raise ValueError(
+            f"{len(dataset)} samples < batch size {batch_size}: no full "
+            f"batch to train on (reduce {what}.batch_size)")
+    return loader
+
+
+def _train_loop(cfg: RidersConfig, t, state, step_fn, loader: BatchLoader,
+                checkpoint_dir: str, what: str, log_path: Optional[str],
+                resume: bool, max_steps: Optional[int],
+                on_checkpoint: Callable) -> None:
+    """The loop both trainers share.  With `resume`, the latest
+    checkpoint (model, optimizer, scheduler, step) is restored first.
+    Epochs run from step // steps_per_epoch + 1 to the schedule's last;
+    every n_step_per_summary steps the step's scalars are written, every
+    n_step_per_checkpoint steps `on_checkpoint(state, info, batch, timer,
+    writer)` logs and the state is saved; at `max_steps` the state is
+    saved and the loop returns.  The loss is read on the host only at
+    those steps."""
+    if resume and ckpt_lib.latest_step(checkpoint_dir) is not None:
+        ckpt_lib.restore_train_state(checkpoint_dir, state)
+        log_lib.log(f"Resumed from step {state.step}", log_path)
+    steps_per_epoch = len(loader)
+    n_epochs = t.learning_schedule[-1]
+    writer = log_lib.ScalarWriter(checkpoint_dir, "train")
+    timer = log_lib.StepTimer(steps_per_epoch * n_epochs)
+    log_lib.log_params(log_path, dataclasses.asdict(cfg))
+    log_lib.log(f"Training {what}: {len(loader.dataset)} samples, "
+                f"{steps_per_epoch} steps/epoch, {n_epochs} epochs",
+                log_path)
+    try:
+        for _ in range(state.step // steps_per_epoch + 1, n_epochs + 1):
+            for batch in loader.epoch():
+                state, info = step_fn(state, batch)
+                timer.tick()
+                if state.step % t.n_step_per_summary == 0:
+                    writer.write(state.step, info)
+                if state.step % t.n_step_per_checkpoint == 0:
+                    on_checkpoint(state, info, batch, timer, writer)
+                    ckpt_lib.save_train_state(checkpoint_dir, state)
+                if max_steps is not None and state.step >= max_steps:
+                    ckpt_lib.save_train_state(checkpoint_dir, state)
+                    return
+        ckpt_lib.save_train_state(checkpoint_dir, state)
+    finally:
+        writer.close()
+        loader.close()
+
+
+def train_sml(cfg: RidersConfig, checkpoint_dir: str, resume: bool = False,
+              log_path: Optional[str] = None,
+              max_steps: Optional[int] = None, device=None) -> None:
+    """Stage-3 training on the training scenes (SMLFrameDataset with its
+    augmentations), f32, checkpoints under `checkpoint_dir`."""
+    device = resolve_device(device)
+    t = cfg.sml_train
+    records = build_manifest(cfg.dataset, cfg.dataset.train_scenes,
+                             rcnet_interp=_rcnet_dir(t.rcnet_interp))
+    loader = _train_loader(SMLFrameDataset(cfg, records, train=True),
+                           t.batch_size, "sml_train", device)
+    model = init_training_(build_sml_model(cfg, device, torch.float32))
+    state = sml_training.init_train_state(cfg, model, len(loader))
+
+    def on_checkpoint(state, info, batch, timer, writer):
+        log_lib.log(f"{timer.format()} Loss={float(info['loss']):.5f}",
+                    log_path)
+
+    _train_loop(cfg, t, state, sml_training.make_train_step(cfg), loader,
+                checkpoint_dir, "SML", log_path, resume, max_steps,
+                on_checkpoint)
+
+
+def train_rcnet(cfg: RidersConfig, checkpoint_dir: str,
+                resume: bool = False, log_path: Optional[str] = None,
+                max_steps: Optional[int] = None, device=None) -> None:
+    """Stage-2 training on the training scenes (RCNetTrainDataset), f32,
+    checkpoints under `checkpoint_dir`.  At each checkpoint step it also
+    writes `summaries/step<n>.png` (one row per displayed point: patch |
+    response | output label | GT label | label error | validity | GT
+    depth), the histograms of those panels and the label counts."""
+    device = resolve_device(device)
+    t = cfg.rcnet_train
+    records = build_manifest(cfg.dataset, cfg.dataset.train_scenes)
+    loader = _train_loader(RCNetTrainDataset(cfg, records), t.batch_size,
+                           "rcnet_train", device)
+    model = init_training_(RCNet(cfg.rcnet, device, torch.float32))
+    state = rcnet_training.init_rcnet_train_state(cfg, model, len(loader))
+    summary_fn = rcnet_training.make_rcnet_summary_fn(cfg)
+
+    def on_checkpoint(state, info, batch, timer, writer):
+        log_lib.log(f"{timer.format()} Loss={float(info['loss']):.5f} "
+                    f"P={float(info['precision']):.3f} "
+                    f"R={float(info['recall']):.3f}", log_path)
+        panels = {k: _numpy(v) for k, v in summary_fn(state, batch).items()}
+        grid = [[panels[k][i] for k in (
+            "image_patch", "response", "output_label", "label",
+            "label_error", "validity", "gt_depth")]
+            for i in range(panels["response"].shape[0])]
+        log_lib.save_image_mosaic(os.path.join(
+            checkpoint_dir, "summaries", f"step{state.step}.png"), grid,
+            max_depth=1.0)
+        writer.write_histograms(state.step, {
+            k: panels[k] for k in ("response", "output_label", "label",
+                                   "gt_depth")})
+        writer.write(state.step, {
+            **info, **{k: panels[k] for k in (
+                "n_ground_truth_label_per_point",
+                "n_predicted_label_per_point")}})
+
+    _train_loop(cfg, t, state, rcnet_training.make_rcnet_train_step(cfg),
+                loader, checkpoint_dir, "RC-Net", log_path, resume,
+                max_steps, on_checkpoint)
 
 
 def run_rcnet(cfg: RidersConfig, checkpoint_dir: str, output_root: str,

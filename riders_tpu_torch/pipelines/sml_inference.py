@@ -18,7 +18,7 @@ from riders_tpu_torch.core.config import RidersConfig
 from riders_tpu_torch.core.device import (check_model_device,
                                           resolve_device, to_device)
 from riders_tpu_torch.models.sml import ScaleMapLearner
-from riders_tpu_torch.ops import alignment, scale_map
+from riders_tpu_torch.ops import alignment, interp, scale_map
 from riders_tpu_torch.ops.resize import resize2d, resize_nchw
 
 
@@ -31,11 +31,13 @@ def prepare_sml_inputs(cfg: RidersConfig, image: torch.Tensor,
     image: (B, H, W, 3) in [0, 1]; mono_pred: (B, H, W) relative inverse
     depth prior; radar: (B, H, W) sparse radar depth in metres (0 = no
     return); rcnet: (B, H, W) quasi-dense stage-2 depth in metres, or
-    None to synthesize the scale map from the raw radar knots alone
-    (sml_train.rcnet_interp 'none'; the 'interp' densifiers are not
-    ported).  Returns x (B, net_h, net_w, 3) = normalized (int_depth,
-    int_scales, gray) and d (B, net_h, net_w, 1), the aligned inverse
-    depth.
+    None for the sources that read no stage-2 map, by
+    sml_train.rcnet_interp: 'interp' densifies the radar knots' scales
+    by IDW on the device (`interp.idw_scale_map`), 'interp-exact' by
+    scipy griddata on the host (`interp.exact_scale_map`), any other
+    ('none') takes the raw radar knots alone.  Returns x (B, net_h,
+    net_w, 3) = normalized (int_depth, int_scales, gray) and d (B, net_h,
+    net_w, 1), the aligned inverse depth.
     """
     a = cfg.alignment
     net_shape = cfg.sml.net_shape
@@ -52,9 +54,15 @@ def prepare_sml_inputs(cfg: RidersConfig, image: torch.Tensor,
             rcnet, a.min_depth, a.max_depth)
         scales = scale_map.synthesize_scale_map(
             int_depth, radar_inv, radar_valid, rcnet_inv, rcnet_valid)
-    elif cfg.sml_train.rcnet_interp.startswith("interp"):
-        raise NotImplementedError(
-            f"scale-map source {cfg.sml_train.rcnet_interp!r} is not ported")
+    elif cfg.sml_train.rcnet_interp in ("interp", "interp-exact"):
+        densify = (interp.exact_scale_map
+                   if cfg.sml_train.rcnet_interp == "interp-exact"
+                   else interp.idw_scale_map)
+        dense = densify(int_depth, radar_inv, radar_valid)
+        # the raw radar knots keep their own ratios
+        scales = torch.where(radar_valid.bool(), radar_inv / int_depth,
+                             dense)
+        scales = scale_map.normalize_unit_range(scales)
     else:
         scales = scale_map.synthesize_scale_map(int_depth, radar_inv,
                                                 radar_valid)

@@ -555,3 +555,82 @@ def test_metrics_and_loader_on_card(dev):
     assert [b["x"].device.type for b in batches] == ["cuda"] * 3
     assert batches[-1]["x"].shape == (1, 4, 5)
     assert int(batches[2]["c"].view(torch.int16)[0, 0]) == 4
+
+
+def test_idw_scale_map_on_card_matches_cpu(dev):
+    """At the NTU frame, with 0, 40 and 900 knots: the card keeps the
+    CPU's knots (the first 128 valid pixels in row-major order) and its
+    map within rtol 1e-5."""
+    from riders_tpu_torch.ops import interp
+    g = torch.Generator().manual_seed(23)
+    B, H, W = 3, 512, 640
+    prior = 0.05 + torch.rand((B, H, W), generator=g)
+    valid = torch.zeros((B, H * W))
+    for b, n in enumerate((0, 40, 900)):
+        valid[b, torch.randperm(H * W, generator=g)[:n]] = 1.0
+    valid = valid.reshape(B, H, W)
+    sparse = valid * (0.02 + 0.3 * torch.rand((B, H, W), generator=g))
+    cpu = interp.idw_scale_map(prior, sparse, valid)
+    card = interp.idw_scale_map(prior.to(dev), sparse.to(dev),
+                                valid.to(dev))
+    assert torch.equal(interp.knot_indices(valid.to(dev)).cpu(),
+                       interp.knot_indices(valid))
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5, atol=0)
+    assert bool((card[0] == 1).all())
+
+
+def _write_frames(root, scene, n, frame, seed):
+    """A scene of the on-disk layout: thermal PNGs, the mono prior, radar
+    returns, sparse and interpolated lidar depth (x256 PNG16)."""
+    import numpy as np
+    from PIL import Image
+    from riders_tpu_torch.io import depthio
+    rng = np.random.default_rng(seed)
+    H, W = frame
+    dirs = {d: depthio.ensure_dir(f"{root}/{scene}/{d}") for d in (
+        "thermal_undistort", "any", "radar_png", "lidar_png",
+        "lidar_png_int")}
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for f in range(n):
+        name = f"{f:06d}.png"
+        depth = 5 + 30 * yy / H + 10 * xx / W + rng.random((H, W))
+        Image.fromarray(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+                        ).save(f"{dirs['thermal_undistort']}/{name}")
+        depthio.save_depth((1 / depth) / 0.05 * (0.9 + 0.2 * rng.random(
+            (H, W))), f"{dirs['any']}/{name}")
+        for d, k in (("radar_png", 30), ("lidar_png", 400)):
+            sparse = np.zeros((H, W), np.float32)
+            idx = rng.choice(H * W, k, replace=False)
+            sparse.reshape(-1)[idx] = depth.reshape(-1)[idx]
+            depthio.save_depth(sparse, f"{dirs[d]}/{name}")
+        depthio.save_depth(depth, f"{dirs['lidar_png_int']}/{name}")
+
+
+@pytest.mark.parametrize("trainer", ["rcnet", "sml"])
+def test_training_driver_step_on_card(dev, tmp_path, trainer):
+    """One step of each training driver on the card: finite loss, a
+    checkpoint, and (RC-Net) the RoI forward and backward kernels."""
+    import dataclasses
+    import json
+    from riders_tpu_torch.core import checkpoint
+    from riders_tpu_torch.pipelines import drivers
+    cfg = _narrow_cfg(frame=(96, 128), K=16)
+    cfg = cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, root=str(tmp_path),
+                                    train_scenes=("s",)),
+        rcnet_train=dataclasses.replace(cfg.rcnet_train, batch_size=2,
+                                        points_per_frame=6,
+                                        n_step_per_summary=1),
+        sml_train=dataclasses.replace(cfg.sml_train, batch_size=2,
+                                      rcnet_interp="interp",
+                                      n_step_per_summary=1))
+    _write_frames(str(tmp_path), "s", 2, (96, 128), 24)
+    ckpt = str(tmp_path / "ckpt")
+    LAUNCHES.clear()
+    getattr(drivers, f"train_{trainer}")(cfg, ckpt, max_steps=1)
+    if trainer == "rcnet":
+        assert LAUNCHES["roi_pool_f32"] == LAUNCHES["roi_pool_bwd"] == 5
+    assert checkpoint.all_steps(ckpt) == [1]
+    with open(f"{ckpt}/scalars-train.jsonl") as f:
+        loss = json.loads(f.readline())["loss"]
+    assert loss == loss and abs(loss) < float("inf")

@@ -39,8 +39,10 @@ def test_port_imports_no_jax_or_reference_package():
 
 
 def test_package_imports_without_cuda_nvcc_or_triton(tmp_path):
-    """Every module imports in a fresh interpreter whose PATH has no
-    nvcc and whose CUDA is hidden; nothing is built or loaded."""
+    """Every module (the CLI, the densifiers, the native loader, PFM,
+    preprocessing and the normalization tables among them) imports in a
+    fresh interpreter whose PATH has no nvcc, g++ or triton and whose
+    CUDA is hidden; nothing is built or loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import riders_tpu_torch\n"
@@ -49,6 +51,12 @@ def test_package_imports_without_cuda_nvcc_or_triton(tmp_path):
         "    importlib.import_module(m.name)\n"
         "from riders_tpu_torch.ops.kernels import build\n"
         "assert not build._LIBS, build._LIBS\n"
+        "from riders_tpu_torch.io import native\n"
+        "assert native._lib is None\n"
+        "need = ['cli', 'ops.interp', 'io.native', 'io.pfm',\n"
+        "        'io.preprocess.project', 'io.preprocess.projection',\n"
+        "        'core.normalization', 'pipelines.drivers']\n"
+        "assert all('riders_tpu_torch.' + m in sys.modules for m in need)\n"
         "bad = [m for m in ('jax', 'flax', 'triton', 'riders_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -112,12 +120,15 @@ def _entry_points(tmp_path):
         "validate_sml": lambda: drivers.validate_sml(cfg, str(tmp_path)),
         "evaluate_results_dir": lambda: drivers.evaluate_results_dir(
             cfg, str(tmp_path)),
+        "train_sml": lambda: drivers.train_sml(cfg, str(tmp_path)),
+        "train_rcnet": lambda: drivers.train_rcnet(cfg, str(tmp_path)),
     }
 
 
 @pytest.mark.parametrize("name", [
     "make_rcnet_infer_fn", "make_infer_fn", "FusedServer", "BatchLoader",
-    "run_rcnet", "validate_rcnet", "validate_sml", "evaluate_results_dir"])
+    "run_rcnet", "validate_rcnet", "validate_sml", "evaluate_results_dir",
+    "train_sml", "train_rcnet"])
 def test_staged_and_driver_entry_points_refuse_the_cpu(monkeypatch,
                                                        tmp_path, name):
     """Without a card, each new entry point raises before it reads a

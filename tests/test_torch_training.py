@@ -285,11 +285,12 @@ def test_sml_step_matches_jax(sml_setup):
         _check_params_after_adam(port, two, grads, 5e-5 + 2e-5)
 
 
-@pytest.mark.parametrize("source", ["rcnet_0.4", "none"])
+@pytest.mark.parametrize("source",
+                         ["rcnet_0.4", "none", "interp", "interp-exact"])
 def test_stage1_inputs_match_jax(sml_setup, source):
-    """The SML step's stage 1 for both scale-map sources the port has:
-    the quasi-dense RC-Net depth, and the raw radar knots alone ('none').
-    The 'interp' sources are not ported and raise."""
+    """The SML step's stage 1 for every scale-map source: the
+    quasi-dense RC-Net depth, the raw radar knots alone ('none'), and
+    the knots densified by IDW ('interp') or griddata ('interp-exact')."""
     jcfg, tcfg, _, _, batch = sml_setup
     jcfg, tcfg = (c.replace(sml_train=dataclasses.replace(
         c.sml_train, rcnet_interp=source)) for c in (jcfg, tcfg))
@@ -302,12 +303,6 @@ def test_stage1_inputs_match_jax(sml_setup, source):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-6)
-    if source == "none":
-        interp = tcfg.replace(sml_train=dataclasses.replace(
-            tcfg.sml_train, rcnet_interp="interp"))
-        with pytest.raises(NotImplementedError):
-            prepare_sml_inputs(interp, *[torch.from_numpy(batch[k])
-                                         for k in keys])
 
 
 @pytest.mark.parametrize("kind", ["rcnet", "sml"])
