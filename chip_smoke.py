@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's fused inference path, its RC-Net and
-SML training steps, its staged inference, serving and drivers, and its
-command line (training, inference and preprocessing) on one GPU.
+SML training steps, its staged inference, serving and drivers, its
+command line (training, inference and preprocessing) and its DPT Scale
+Map Learner on one GPU.
 
     python3 chip_smoke.py                 # all phases, report lines
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
@@ -11,6 +12,8 @@ command line (training, inference and preprocessing) on one GPU.
                                           # and B8 (copied into another
                                           # tree's root, it times that
                                           # tree's)
+    python3 chip_smoke.py --dpt           # phase 1, then phase 10 alone
+                                          # on a dataset of its own
 
 Kernel times: `ms` is the median of synchronised calls (host dispatch
 counts in); `graph_ms` replays 20 calls captured in one CUDA graph
@@ -93,9 +96,23 @@ Phases, each fatal on failure:
      that has an exactly cocircular neighbour (a tie); (f) idw_scale_map
      at 512x640 on the card against the CPU, 300, 40 and 0 knots: equal
      knot indices and rtol 1e-5.
+  10. the DPT SML at full width (none of the hand-written kernels lies on
+     its path; the counters, reset just before, stay empty), after the
+     earlier phases' memory is freed: (a) `make_infer_fn` at the NTU
+     preset (640x512 frames, SML net 288x352, B=16, bf16) with
+     DPT-BEiT-L/16-512 on seeded flax-default weights: finite depth and
+     metrics, ms per call over 10 calls with their spread, peak memory,
+     parameters and the call's operations over the bf16 peak; one short
+     timing each of dpt-large (ViT-L/16) and dpt-hybrid; (b)
+     `make_train_step` with BEiT-L, B=12, f32: three steps (every
+     parameter moved), ms per step and peak memory, and one B=2 step at
+     net 64x96 on the card against the host CPU by phase 7's rule; (c)
+     `train_sml` with BEiT-L, 3 steps, on phase 9's mini-dataset (the
+     'interp' source), then `validate_sml` of its checkpoint in bf16 on
+     the card and in f32 on the host CPU: the seven metrics within 1%.
 Report lines: the card's name and power limit, one {"kernels": [...]}
 line, one fused line, one lane_decoder line, one training line, one
-staged line, one training_cli line; the last line is
+staged line, one training_cli line, one dpt line; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -103,6 +120,7 @@ import copy
 import inspect
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1044,11 +1062,12 @@ def _params(model):
     return {k: p.detach().clone() for k, p in model.named_parameters()}
 
 
-def _train_phase(name, state, step, batches, need, B):
+def _train_phase(name, state, step, batches, need, B, check_grads=True):
     """Three steps with the launch counters reset just before: finite
     loss and aux, every kernel in `need` launched, every parameter
-    moved; then the median CUDA-event time of a step and its peak
-    memory."""
+    moved and (with `check_grads`) at most a tenth of them without a
+    gradient in the last step; then the median CUDA-event time of a step
+    and its peak memory."""
     import torch
     from riders_tpu_torch.ops.kernels import LAUNCHES
     step(state, batches[0])                     # first call: cuDNN set-up
@@ -1074,7 +1093,7 @@ def _train_phase(name, state, step, batches, need, B):
     no_grad = [k for k, g in grads.items() if g is None or not bool(g.any())]
     still = [k for k in before if k not in no_grad
              and torch.equal(before[k], after[k])]
-    if still or len(no_grad) * 10 > len(before):
+    if still or (check_grads and len(no_grad) * 10 > len(before)):
         raise AssertionError(f"{name}: {len(still)} of {len(before)} "
                              f"parameters did not move: {still[:8]}; "
                              f"{len(no_grad)} have no gradient: "
@@ -1720,24 +1739,21 @@ def loader_ms(cfg, kind, n_batches=3):
     return times
 
 
-def training_cli_phase(n_train=24, n_val=4, steps=3, seed=0):
+def training_cli_phase(root, n_train=24, n_val=4, steps=3, seed=0):
     """Phase 9: the training drivers and the CLI at the NTU preset's full
     widths, through `riders_tpu_torch.cli.main` on the card, on an NTU
     dataset of 24 training and 4 validation frames (512x640) written
-    under build/.  The preset's summary and checkpoint cadence is cut to
-    every step and every 3 steps, so that a 3-step run writes its
-    summaries.  Then preprocessing of a raw scene (9e), and IDW on the
-    card against the CPU (9f)."""
+    under `root` (left there for phase 10).  The preset's summary and
+    checkpoint cadence is cut to every step and every 3 steps, so that a
+    3-step run writes its summaries.  Then preprocessing of a raw scene
+    (9e), and IDW on the card against the CPU (9f)."""
     import contextlib
     import dataclasses
-    import shutil
     import torch
     from unittest import mock
     from riders_tpu_torch.core import config
     from riders_tpu_torch.pipelines import rcnet_training, sml_training
 
-    root = HERE / "build" / "phase9_data"
-    shutil.rmtree(root, ignore_errors=True)
     preset = config.ntu_config
 
     def cadence(root="", **kw):
@@ -1749,78 +1765,75 @@ def training_cli_phase(n_train=24, n_val=4, steps=3, seed=0):
 
     out = {}
     ckpt = {k: root / f"ckpt_{k}" for k in ("rcnet", "sml_interp", "sml")}
-    try:
-        write_ntu_scene(root, "train", n_train, seed)
-        write_ntu_scene(root, "val", n_val, seed + 1)
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.object(config, "ntu_config",
-                                                  cadence))
-            # 9a: train-rcnet at B=24, K=40
-            with _StepClock(rcnet_training, "make_rcnet_train_step") as clk:
-                s, launches = _cli(["train-rcnet", "--ckpt",
-                                    str(ckpt["rcnet"]), "--max-steps",
-                                    str(steps)], root)
-            losses = _trained(ckpt["rcnet"], steps)
-            pngs = sorted(p.name for p in (ckpt["rcnet"] / "summaries"
-                                           ).glob("step*.png"))
-            # five pyramid launches and five backward launches a step;
-            # the summary's eval-mode forward pools once more
-            if (launches.get("roi_pool_bwd") != 5 * steps
-                    or launches.get("roi_pool_f32") != 5 * steps + 1
-                    or pngs != [f"step{steps}.png"]):
-                raise AssertionError(f"train-rcnet: launches {launches}, "
-                                     f"summaries {pngs}")
-            cfg = config.ntu_config(str(root))
-            cfg = cfg.replace(dataset=dataclasses.replace(
-                cfg.dataset, train_scenes=("train",), val_scenes=("val",)))
-            out["train_rcnet"] = dict(
-                seconds=s, launches=launches, losses=losses, batch=24,
-                points=40, step_intervals_ms=clk.intervals_ms(),
-                summaries=pngs, loader_ms_per_batch=loader_ms(cfg, "rcnet"))
-            # 9b: the stage-2 maps of the SML sources (rcnet_0.4 trains,
-            # rcnet_0.5 validates); the second run is the one reported
-            n = n_train + n_val
-            for thr in ("0.5", "0.4"):
-                s, launches = _cli(["run-rcnet", "--ckpt",
-                                    str(ckpt["rcnet"]), "--output",
-                                    str(root / "output"), "--threshold",
-                                    thr], root)
-            if (launches.get("roi_pool") != n
-                    or launches.get("stem", 0) < n
-                    or launches.get("compose", 0) < n):
-                raise AssertionError(f"run-rcnet: launches {launches} for "
-                                     f"{n} frames")
-            out["run_rcnet"] = dict(seconds=s, frames=n, launches=launches)
-            # 9c: train-sml at B=12, with the IDW scale map and with the
-            # preset's rcnet_0.4 knots
-            for name, extra in (("sml_interp", ["--rcnet-interp",
-                                                "interp"]), ("sml", [])):
-                torch.cuda.reset_peak_memory_stats()
-                with _StepClock(sml_training, "make_train_step") as clk:
-                    s, _ = _cli(["train-sml", "--ckpt", str(ckpt[name]),
-                                 "--max-steps", str(steps), *extra], root)
-                out[f"train_{name}"] = dict(
-                    seconds=s, losses=_trained(ckpt[name], steps),
-                    batch=12, step_intervals_ms=clk.intervals_ms(),
-                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-            out["train_sml"]["loader_ms_per_batch"] = loader_ms(cfg, "sml")
-            # 9d: the inference subcommands on those checkpoints
-            s, launches = _cli(["val-rcnet", "--ckpt", str(ckpt["rcnet"])],
-                               root)
-            if launches.get("roi_pool") != n_val:
-                raise AssertionError(f"val-rcnet: launches {launches}")
-            out["val_rcnet"] = dict(seconds=s, launches=launches)
-            s, launches = _cli(["val-sml", "--ckpt", str(ckpt["sml"]),
-                                "--depth-predictor", "midas_small"], root)
-            out["val_sml"] = dict(seconds=s, launches=launches)
-            s, _ = _cli(["eval-dir", "--results",
-                         str(root / "output" / "rcnet_0.4"), "--subdir",
-                         "depth_predicted"], root)
-            out["eval_dir"] = dict(seconds=s)
-        out["preprocess"] = preprocess_phase(root, seed)
-        out["idw"] = idw_on_card(seed)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    write_ntu_scene(root, "train", n_train, seed)
+    write_ntu_scene(root, "val", n_val, seed + 1)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(config, "ntu_config",
+                                              cadence))
+        # 9a: train-rcnet at B=24, K=40
+        with _StepClock(rcnet_training, "make_rcnet_train_step") as clk:
+            s, launches = _cli(["train-rcnet", "--ckpt",
+                                str(ckpt["rcnet"]), "--max-steps",
+                                str(steps)], root)
+        losses = _trained(ckpt["rcnet"], steps)
+        pngs = sorted(p.name for p in (ckpt["rcnet"] / "summaries"
+                                       ).glob("step*.png"))
+        # five pyramid launches and five backward launches a step;
+        # the summary's eval-mode forward pools once more
+        if (launches.get("roi_pool_bwd") != 5 * steps
+                or launches.get("roi_pool_f32") != 5 * steps + 1
+                or pngs != [f"step{steps}.png"]):
+            raise AssertionError(f"train-rcnet: launches {launches}, "
+                                 f"summaries {pngs}")
+        cfg = config.ntu_config(str(root))
+        cfg = cfg.replace(dataset=dataclasses.replace(
+            cfg.dataset, train_scenes=("train",), val_scenes=("val",)))
+        out["train_rcnet"] = dict(
+            seconds=s, launches=launches, losses=losses, batch=24,
+            points=40, step_intervals_ms=clk.intervals_ms(),
+            summaries=pngs, loader_ms_per_batch=loader_ms(cfg, "rcnet"))
+        # 9b: the stage-2 maps of the SML sources (rcnet_0.4 trains,
+        # rcnet_0.5 validates); the second run is the one reported
+        n = n_train + n_val
+        for thr in ("0.5", "0.4"):
+            s, launches = _cli(["run-rcnet", "--ckpt",
+                                str(ckpt["rcnet"]), "--output",
+                                str(root / "output"), "--threshold",
+                                thr], root)
+        if (launches.get("roi_pool") != n
+                or launches.get("stem", 0) < n
+                or launches.get("compose", 0) < n):
+            raise AssertionError(f"run-rcnet: launches {launches} for "
+                                 f"{n} frames")
+        out["run_rcnet"] = dict(seconds=s, frames=n, launches=launches)
+        # 9c: train-sml at B=12, with the IDW scale map and with the
+        # preset's rcnet_0.4 knots
+        for name, extra in (("sml_interp", ["--rcnet-interp",
+                                            "interp"]), ("sml", [])):
+            torch.cuda.reset_peak_memory_stats()
+            with _StepClock(sml_training, "make_train_step") as clk:
+                s, _ = _cli(["train-sml", "--ckpt", str(ckpt[name]),
+                             "--max-steps", str(steps), *extra], root)
+            out[f"train_{name}"] = dict(
+                seconds=s, losses=_trained(ckpt[name], steps),
+                batch=12, step_intervals_ms=clk.intervals_ms(),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out["train_sml"]["loader_ms_per_batch"] = loader_ms(cfg, "sml")
+        # 9d: the inference subcommands on those checkpoints
+        s, launches = _cli(["val-rcnet", "--ckpt", str(ckpt["rcnet"])],
+                           root)
+        if launches.get("roi_pool") != n_val:
+            raise AssertionError(f"val-rcnet: launches {launches}")
+        out["val_rcnet"] = dict(seconds=s, launches=launches)
+        s, launches = _cli(["val-sml", "--ckpt", str(ckpt["sml"]),
+                            "--depth-predictor", "midas_small"], root)
+        out["val_sml"] = dict(seconds=s, launches=launches)
+        s, _ = _cli(["eval-dir", "--results",
+                     str(root / "output" / "rcnet_0.4"), "--subdir",
+                     "depth_predicted"], root)
+        out["eval_dir"] = dict(seconds=s)
+    out["preprocess"] = preprocess_phase(root, seed)
+    out["idw"] = idw_on_card(seed)
     return out
 
 
@@ -1942,18 +1955,414 @@ def idw_on_card(seed, knots=(300, 40, 0)):
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+DPT_MAIN = "dpt-beit-large"                 # BEiT-L/16-512
+DPT_OTHERS = ("dpt-large", "dpt-hybrid")    # ViT-L/16, ResNet50 + ViT-B
+FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+
+
+def dpt_config(model_type, **sml):
+    """The NTU preset (512x640 frames, SML net 288x352) with a DPT SML."""
+    import dataclasses
+    cfg = train_config("ntu")
+    return cfg.replace(sml=dataclasses.replace(cfg.sml,
+                                               model_type=model_type, **sml))
+
+
+def dpt_weights(cfg, seed):
+    """Seeded f32 weights of cfg's DPT on the host, with flax's default
+    initialisers (`init_training_`), then its head's last conv set so
+    that on the network inputs of one seeded NTU frame (stage 1 of a
+    `make_sml_train_batch` frame) its output has mean 0.1 and standard
+    deviation 0.02: the scales vary by some 2% around 1.1, as a trained
+    SML's small corrections do, and the final relu passes the pixels
+    within 5 deviations.  At flax's own initial weights the head's
+    pre-activation is negative almost everywhere (87% of a 64x96 frame's
+    pixels on the host; every pixel of phase 10b's NTU frames, where no
+    parameter then got a gradient), and its scale is not known before a
+    forward; calibrated on an N(0, 1) frame instead, it was again
+    negative on every pixel of phase 10b's frames."""
+    import torch
+    from riders_tpu_torch.models.factory import build_sml_model
+    from riders_tpu_torch.models.layers import init_training_
+    from riders_tpu_torch.pipelines.sml_inference import prepare_sml_inputs
+    model = init_training_(build_sml_model(cfg, "cpu", torch.float32), seed)
+    head = model.head_conv3
+    b = make_sml_train_batch(cfg, seed + 60, "cpu", B=1)
+    seen = []
+    hook = head.register_forward_hook(lambda m, i, o: seen.append(o))
+    with torch.no_grad():
+        x, d = prepare_sml_inputs(cfg, b["image"], b["mono_pred"],
+                                  b["radar"], b["rcnet"])
+        head.bias.zero_()
+        model(x, d)
+        hook.remove()
+        mean, std = float(seen[0].mean()), float(seen[0].std())
+        head.weight.mul_(0.02 / std)
+        head.bias.fill_(0.1 - 0.02 * mean / std)
+    return model.state_dict()
+
+
+def build_dpt(cfg, weights, device, dtype):
+    from riders_tpu_torch.models.factory import build_sml_model
+    model = build_sml_model(cfg, device, dtype)
+    model.load_state_dict(weights)
+    return model
+
+
+def flop_count(fn):
+    """The matmul, convolution and attention operations of one call of
+    `fn` (torch's FlopCounterMode: 2 per multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def times_ms(fn, n, warmup=2):
+    """CUDA-event times of n synchronised calls of `fn` after warm-up."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def dpt_inference(model_type, weights, B=16, seed=0, n=10,
+                  profile_dir=None):
+    """Phase 10a: make_infer_fn with a DPT SML at the NTU preset, bf16,
+    B frames: finite depth of the frame's shape and finite metrics, ms
+    per call (CUDA events, after warm-up) with its spread, peak memory,
+    parameters, and the call's operations over the bf16 peak (its
+    bound)."""
+    import torch
+    from riders_tpu_torch.pipelines.sml_inference import make_infer_fn
+    cfg = dpt_config(model_type)
+    model = build_dpt(cfg, weights, None, torch.bfloat16)
+    batch = make_sml_train_batch(cfg, seed + 40, "cuda", B=B)
+    fn = make_infer_fn(cfg, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(batch)
+    d = out["depth"]
+    if (tuple(d.shape) != (B,) + tuple(cfg.dataset.image_shape)
+            or not bool(torch.isfinite(d).all())
+            or not all(bool(torch.isfinite(v).all())
+                       for v in out["metrics"].values())):
+        raise AssertionError(f"{model_type}: depth {tuple(d.shape)} or "
+                             f"non-finite outputs")
+    ms = times_ms(lambda: fn(batch), n)
+    flops = flop_count(lambda: fn(batch))
+    if profile_dir is not None:
+        log(profile(fn, batch, profile_dir / "profile_dpt_infer.txt"))
+    return dict(model_type=model_type, batch=B,
+                net=list(cfg.sml.net_shape), dtype="bfloat16",
+                params=sum(p.numel() for p in model.parameters()),
+                ms_per_call=statistics.median(ms), ms_min=min(ms),
+                ms_max=max(ms), n_calls=n,
+                frames_per_s=B / (statistics.median(ms) / 1e3),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                flops_per_call=flops,
+                bound_ms=flops / BF16_FLOP_PER_S * 1e3)
+
+
+def dpt_training(weights, seed=0, profile_dir=None):
+    """Phase 10b: make_train_step with BEiT-L at the NTU SML preset (B=12,
+    f32, TF32 off): a gradient in every parameter in the first step from
+    `weights`; then three steps with every parameter moved and finite
+    losses (`_train_phase`), ms per step, peak memory, and a step's
+    operations over the f32 peak; then ms per step with cuDNN's TF32
+    convolutions (PyTorch's default, which this script turns off; the
+    matmuls stay f32).  The first Adam update at the preset's
+    rate (5e-5 on each of 0.34 B random parameters) drives the head's
+    pre-activation below 0 at every pixel, so the later steps' gradients
+    are 0 (the step's work is the same)."""
+    import torch
+    from riders_tpu_torch.pipelines import sml_training
+    cfg = dpt_config(DPT_MAIN)
+    model = build_dpt(cfg, weights, None, torch.float32)
+    state = sml_training.init_train_state(cfg, model, 1000)
+    batches = [make_sml_train_batch(cfg, seed + 50 + i, "cuda")
+               for i in range(3)]
+    step = sml_training.make_train_step(cfg)
+    _, aux = step(state, batches[0])
+    dead = [k for k, p in model.named_parameters()
+            if p.grad is None or not bool(p.grad.any())]
+    if dead or not math.isfinite(float(aux["loss"])):
+        raise AssertionError(f"dpt: first step loss {float(aux['loss'])}, "
+                             f"{len(dead)} parameters without a gradient: "
+                             f"{dead[:8]}")
+    first_loss = float(aux["loss"])
+    rec = _train_phase("dpt", state, step, batches, (),
+                       cfg.sml_train.batch_size, check_grads=False)
+    rec["first_step_loss"] = first_loss
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rec["ms_per_step_cudnn_tf32"] = time_ms(
+            lambda: step(state, batches[1]), n=3, warmup=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    flops = flop_count(lambda: step(state, batches[0]))
+    if profile_dir is not None:
+        log(profile(lambda b: step(state, b), batches[1],
+                    profile_dir / "profile_dpt_train.txt"))
+    rec.update(net_shape=list(cfg.sml.net_shape), flops_per_step=flops,
+               bound_ms=flops / FP32_FLOP_PER_S * 1e3)
+    return rec
+
+
+def dpt_step_agreement(weights, seed=5):
+    """Phase 10b: one BEiT-L SML training step (f32, B=2, net 64x96, 96x128
+    frames) on the card against the same step on the host CPU, by phase
+    7's rule: the loss to rtol 1e-4; each gradient's max abs error,
+    relative to its max abs, within 1e-3 or within 3x the CPU's own
+    spread under a one-ulp nudge of the inputs (two draws).  The nudge
+    moves a random half of the pixels of the image and of the mono prior:
+    the image reaches the network only as its gray channel, and a nudge
+    of it alone moved no gradient of the CPU's beyond 6.4e-6 (an NVIDIA
+    H100's host), while the prior becomes the network's first channel
+    and the aligned depth."""
+    import dataclasses
+    import torch
+    from riders_tpu_torch.pipelines import sml_training
+    cfg = dpt_config(DPT_MAIN, net_shape=(64, 96))
+    cfg = cfg.replace(dataset=dataclasses.replace(cfg.dataset,
+                                                  image_shape=(96, 128)))
+    batch = make_sml_train_batch(cfg, seed, "cpu", B=2)
+    step = sml_training.make_train_step(cfg)
+
+    def run(device, b):
+        model = build_dpt(cfg, weights, device, torch.float32)
+        state = sml_training.init_train_state(cfg, model, 1000)
+        _, aux = step(state, b)
+        return float(aux["loss"]), {
+            k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+
+    def nudged(s):
+        g = torch.Generator().manual_seed(s)
+        out = dict(batch)
+        for k in ("image", "mono_pred"):
+            x = batch[k]
+            out[k] = torch.where(torch.rand(x.shape, generator=g) < 0.5,
+                                 torch.nextafter(x, torch.full_like(
+                                     x, float("inf"))), x)
+        return out
+
+    def rel_errs(g, ref):
+        return {k: float((g[k] - r).abs().max())
+                / max(float(r.abs().max()), 1e-30) for k, r in ref.items()}
+
+    loss_cpu, g_cpu = run("cpu", batch)
+    loss_card, g_card = run(None, batch)
+    card = rel_errs(g_card, g_cpu)
+    spread = {k: 0.0 for k in g_cpu}
+    losses = []
+    for s in (1, 2):
+        loss, g = run("cpu", nudged(s))
+        losses.append(loss)
+        for k, e in rel_errs(g, g_cpu).items():
+            spread[k] = max(spread[k], e)
+    bad = [k for k in card if card[k] > max(1e-3, 3 * spread[k])]
+    worst = max(card, key=card.get)
+    zero = [k for k, g in g_cpu.items() if not bool(g.any())]
+    res = dict(loss_cpu=loss_cpu, loss_card=loss_card,
+               loss_rel_err=abs(loss_card - loss_cpu) / abs(loss_cpu),
+               cpu_loss_spread=max(abs(v - loss_cpu) for v in losses)
+               / abs(loss_cpu),
+               worst_grad_rel_err=card[worst], worst_grad=worst,
+               cpu_spread_there=spread[worst],
+               worst_cpu_spread=max(spread.values()),
+               grads_over_1e3=sum(e > 1e-3 for e in card.values()),
+               median_grad_rel_err=sorted(card.values())[len(card) // 2],
+               n_grads=len(g_cpu), zero_grads=zero, failing=bad)
+    if res["loss_rel_err"] > 1e-4 or bad or len(zero) * 10 > len(g_cpu):
+        raise AssertionError(f"DPT card vs CPU training step: {res}")
+    return res
+
+
+def dpt_drivers(root, weights, steps=3):
+    """Phase 10c: train_sml with BEiT-L for `steps` steps (B=12, the
+    'interp' scale-map source, a checkpoint at the last step) on the NTU
+    mini-dataset under `root`, resumed from a step-0 checkpoint of
+    `weights` (flax's initial weights leave the head's relu dead), then
+    validate_sml over both checkpoints in bf16 on the card and in f32 on
+    the host CPU: each step's seven metrics within 1% (PARITY.md's
+    protocol), the same best step."""
+    import dataclasses
+    import torch
+    from unittest import mock
+    from riders_tpu_torch.core import checkpoint, metrics
+    from riders_tpu_torch.io.manifest import build_manifest
+    from riders_tpu_torch.pipelines import drivers, sml_training
+    cfg = dpt_config(DPT_MAIN)
+    cfg = cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, root=str(root),
+                                    train_scenes=("train",),
+                                    val_scenes=("val",)),
+        sml_train=dataclasses.replace(
+            cfg.sml_train, rcnet_interp="interp", rcnet_interp_val=None,
+            n_step_per_summary=1, n_step_per_checkpoint=steps))
+    ckpt = root / "ckpt_dpt"
+    n_train = len(build_manifest(cfg.dataset, cfg.dataset.train_scenes))
+    checkpoint.save_train_state(ckpt, sml_training.init_train_state(
+        cfg, build_dpt(cfg, weights, "cpu", torch.float32),
+        n_train // cfg.sml_train.batch_size))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _StepClock(sml_training, "make_train_step") as clk:
+        drivers.train_sml(cfg, str(ckpt), resume=True, max_steps=steps)
+    torch.cuda.synchronize()
+    with open(ckpt / "scalars-train.jsonl") as f:
+        losses = {r["step"]: r["loss"] for r in map(json.loads, f)
+                  if "loss" in r}
+    if (sorted(losses) != list(range(1, steps + 1))
+            or not all(math.isfinite(v) for v in losses.values())
+            or checkpoint.all_steps(ckpt) != [0, steps]):
+        raise AssertionError(f"train_sml: losses {losses}, checkpoints "
+                             f"{checkpoint.all_steps(ckpt)}")
+    out = dict(train_sml_s=time.perf_counter() - t0,
+               step_intervals_ms=clk.intervals_ms(), losses=losses,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.empty_cache()
+    best, bundles = {}, {}
+    for name, dtype, device in (("card_bf16", "bfloat16", None),
+                                ("cpu_f32", "float32", "cpu")):
+        seen = bundles[name] = []
+
+        def vote(results, best_so_far, _vote=metrics.improves_best):
+            seen.append(dict(results))
+            return _vote(results, best_so_far)
+
+        t0 = time.perf_counter()
+        with mock.patch.object(metrics, "improves_best", vote):
+            best[name] = drivers.validate_sml(
+                cfg.replace(compute_dtype=dtype), str(ckpt), device=device)
+        out[f"validate_sml_{name}_s"] = time.perf_counter() - t0
+    # the steps newest first: `steps`, then 0
+    dev = {f"step{s}": {k: abs(a[k] - b[k]) / abs(b[k])
+                        for k in metrics.METRIC_KEYS}
+           for s, a, b in zip((steps, 0), bundles["card_bf16"],
+                              bundles["cpu_f32"])}
+    out.update(metrics=bundles, best_step={k: v["step"]
+                                           for k, v in best.items()},
+               metric_rel_dev=dev)
+    worst = max(v for d in dev.values() for v in d.values())
+    if (len(dev) != 2 or best["card_bf16"]["step"] != best["cpu_f32"]["step"]
+            or not all(math.isfinite(b[k]) for b in bundles["cpu_f32"]
+                       for k in metrics.METRIC_KEYS) or worst > 0.01):
+        raise AssertionError(f"validate_sml bf16 card vs f32 CPU: {out}")
+    return out
+
+
+def dpt_phase(root, seed=0, profile_dir=None):
+    """Phase 10: the DPT SML at full width on the card (10a inference,
+    10b training and its agreement with the CPU, 10c the drivers on the
+    NTU mini-dataset under `root`), the launch counters reset just
+    before; the DPT path reaches none of the hand-written kernels.  With
+    `profile_dir`, torch.profiler tables of a BEiT-L inference call and
+    training step."""
+    import gc
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    gc.collect()
+    torch.cuda.empty_cache()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    weights = {DPT_MAIN: dpt_weights(dpt_config(DPT_MAIN), seed)}
+    out = {"inference": {DPT_MAIN: dpt_inference(
+        DPT_MAIN, weights[DPT_MAIN], profile_dir=profile_dir)}}
+    for model_type in DPT_OTHERS:
+        w = dpt_weights(dpt_config(model_type), seed)
+        out["inference"][model_type] = dpt_inference(model_type, w, n=3)
+        del w
+        torch.cuda.empty_cache()
+    out["training"] = dpt_training(weights[DPT_MAIN], seed, profile_dir)
+    torch.cuda.empty_cache()
+    out["step_agreement"] = dpt_step_agreement(weights[DPT_MAIN])
+    torch.cuda.empty_cache()
+    out["drivers"] = dpt_drivers(root, weights[DPT_MAIN])
+    out["launches"] = dict(LAUNCHES)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dpt_line(smi, dpt):
+    """The one-line summary of phase 10."""
+    inf, tr = dpt["inference"], dpt["training"]
+    main = inf[DPT_MAIN]
+    drv, agree = dpt["drivers"], dpt["step_agreement"]
+    return {"dpt": dict(
+        card=smi, model=DPT_MAIN, params=main["params"],
+        infer_ntu_b16_bf16_ms=main["ms_per_call"],
+        infer_ms_min_max=[main["ms_min"], main["ms_max"]],
+        infer_bound_ms=main["bound_ms"],
+        infer_peak_mem_gb=main["peak_mem_gb"],
+        **{f"infer_{k.replace('-', '_')}_ms": inf[k]["ms_per_call"]
+           for k in DPT_OTHERS},
+        train_ntu_b12_f32_ms_per_step=tr["ms_per_step"],
+        train_ms_per_step_cudnn_tf32=tr["ms_per_step_cudnn_tf32"],
+        train_bound_ms=tr["bound_ms"], train_peak_mem_gb=tr["peak_mem_gb"],
+        step_loss_rel_err=agree["loss_rel_err"],
+        step_worst_grad_rel_err=agree["worst_grad_rel_err"],
+        step_cpu_spread_there=agree["cpu_spread_there"],
+        train_sml_s=drv["train_sml_s"],
+        train_sml_step_intervals_ms=drv["step_intervals_ms"],
+        validate_sml_card_bf16_s=drv["validate_sml_card_bf16_s"],
+        validate_sml_cpu_f32_s=drv["validate_sml_cpu_f32_s"],
+        metric_rel_dev=drv["metric_rel_dev"],
+        launches=dpt["launches"], seconds=dpt["seconds"])}
+
+
+def log_dpt(dpt):
+    for name, rec in dpt["inference"].items():
+        log(f"dpt inference {name}: {json.dumps(rec)}")
+    for name in ("training", "step_agreement", "drivers"):
+        log(f"dpt {name}: {json.dumps(dpt[name])}")
+
+
+def dpt_only(smi, profile_dir):
+    """`--dpt`: phase 1, then phase 10 alone on an NTU mini-dataset of
+    its own (24 training and 4 validation frames under build/)."""
+    root = HERE / "build" / "phase10_data"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        write_ntu_scene(root, "train", 24, 0)
+        write_ntu_scene(root, "val", 4, 1)
+        dpt = dpt_phase(root, profile_dir=profile_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log_dpt(dpt)
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_dpt.json").write_text(json.dumps(dpt, indent=1))
+    log(json.dumps(dpt_line(smi, dpt)))
+    return 0
+
+
 def profile(fn, batch, path):
-    """Device time by kernel for one call of `fn` (torch.profiler)."""
+    """Device time by kernel for one call of `fn` (torch.profiler), and
+    the same by operator and input shapes (written to `path` only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     path.parent.mkdir(exist_ok=True)
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  record_shapes=True) as prof:
         fn(batch)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
-    path.write_text(table)
+    shapes = prof.key_averages(group_by_input_shape=True).table(
+        sort_by="cuda_time_total", row_limit=30, max_shapes_column_width=140)
+    path.write_text(table + "\n" + shapes)
     return table
 
 
@@ -2026,6 +2435,9 @@ def main(argv):
                 log(f"  {name}: {line.strip()}")
     if "--kernel-times" in argv:
         return kernel_times(smi)
+    profile_dir = HERE / "chiprun_out" if "--profile" in argv else None
+    if "--dpt" in argv:
+        return dpt_only(smi, profile_dir)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():
@@ -2087,11 +2499,22 @@ def main(argv):
     staged = staged_phase(ntu_fn)
     for name, rec in staged.items():
         log(f"staged {name}: {json.dumps(rec)}")
-    del ntu_fn
+    if "--profile" in argv:
+        out_dir = HERE / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        log(profile(ntu_fn, ntu_batch, out_dir / "profile_ntu.txt"))
+    del ntu_fn, ntu_batch, ntu_rcnet
     torch.cuda.empty_cache()
-    cli_runs = training_cli_phase()
-    for name, rec in cli_runs.items():
-        log(f"cli {name}: {json.dumps(rec)}")
+    root = HERE / "build" / "phase9_data"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        cli_runs = training_cli_phase(root)
+        for name, rec in cli_runs.items():
+            log(f"cli {name}: {json.dumps(rec)}")
+        dpt = dpt_phase(root, profile_dir=profile_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log_dpt(dpt)
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -2134,11 +2557,6 @@ def main(argv):
                          ("ms", "graph_ms", "device_ms", "plain_ms",
                           "library_ms",
                           "bound_ms"))))
-    if "--profile" in argv:
-        out_dir = HERE / "chiprun_out"
-        out_dir.mkdir(exist_ok=True)
-        log(profile(ntu_fn, ntu_batch, out_dir / "profile_ntu.txt"))
-
     details = dict(card=smi, torch=torch.__version__,
                    cuda=torch.version.cuda,
                    build_seconds=build_s, kernels=kernels,
@@ -2146,7 +2564,7 @@ def main(argv):
                    lane_kernels=lane_kernels, lane_decoder=lane,
                    training_kernels=train_kernels, training=training,
                    training_agreement=train_agree, staged=staged,
-                   cli=cli_runs)
+                   cli=cli_runs, dpt=dpt)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -2207,6 +2625,7 @@ def main(argv):
             "native_vs_scipy_differing_share"],
         idw_max_rel_err=cli_runs["idw"]["max_rel_err"],
         idw_same_knots=cli_runs["idw"]["same_knots"])}))
+    log(json.dumps(dpt_line(smi, dpt)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,7 +64,10 @@ class AlignmentConfig:
 class SMLConfig:
     """Scale Map Learner (MiDaS-small topology, efficientnet-lite3)."""
 
-    # 'midas-small' | 'midas-small-depth'; the DPT families are not ported
+    # 'midas-small' | 'midas-small-depth' | the DPT rows 'dpt-large',
+    # 'dpt-vit-base', 'dpt-beit-large', 'dpt-beit-large-384',
+    # 'dpt-beit-base', 'dpt-hybrid' (models/factory.py); the swin2, levit
+    # and next_vit rows are not ported yet
     model_type: str = "midas-small"
     features: int = 64
     expand: bool = True

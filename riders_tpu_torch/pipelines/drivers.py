@@ -38,6 +38,7 @@ from riders_tpu_torch.io.input_pipeline import (BatchLoader,
                                                 RCNetTrainDataset,
                                                 SMLFrameDataset)
 from riders_tpu_torch.io.manifest import build_manifest
+from riders_tpu_torch.models.factory import build_sml_model
 from riders_tpu_torch.models.layers import init_training_
 from riders_tpu_torch.models.rcnet import RCNet
 from riders_tpu_torch.models.sml import ScaleMapLearner
@@ -56,20 +57,6 @@ def _rcnet_dir(rcnet_interp: Optional[str]) -> Optional[str]:
     'interp' sources read no stage-2 maps."""
     return (rcnet_interp
             if rcnet_interp and "rcnet" in rcnet_interp else None)
-
-
-def build_sml_model(cfg: RidersConfig, device=None,
-                    dtype: torch.dtype = torch.float32) -> ScaleMapLearner:
-    """The configured Scale Map Learner: 'midas-small' (scale
-    regression) or 'midas-small-depth' (direct depth regression)."""
-    sml = cfg.sml
-    if sml.model_type not in ("midas-small", "midas-small-depth"):
-        raise NotImplementedError(
-            f"SML model_type {sml.model_type!r} is not ported; the port "
-            "builds 'midas-small' and 'midas-small-depth' only")
-    if sml.model_type == "midas-small-depth":
-        sml = dataclasses.replace(sml, regress_mode="depth")
-    return ScaleMapLearner(sml, device, dtype)
 
 
 def _numpy(x) -> np.ndarray:

@@ -265,6 +265,6 @@ def test_validate_sml_refuses_unported_families(setup):
     root, dirs, _ = setup
     _, tcfg = mini_configs(root)
     cfg = tcfg.replace(sml=dataclasses.replace(tcfg.sml,
-                                               model_type="dpt-large"))
-    with pytest.raises(NotImplementedError, match="dpt-large"):
+                                               model_type="dpt-swin2-large"))
+    with pytest.raises(NotImplementedError, match="dpt-swin2-large"):
         tdrivers.validate_sml(cfg, dirs["torch_sml"], device="cpu")

@@ -4,6 +4,7 @@ no CUDA, no nvcc and no triton; and without a card its entry points
 raise instead of running on the CPU."""
 
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -55,7 +56,8 @@ def test_package_imports_without_cuda_nvcc_or_triton(tmp_path):
         "assert native._lib is None\n"
         "need = ['cli', 'ops.interp', 'io.native', 'io.pfm',\n"
         "        'io.preprocess.project', 'io.preprocess.projection',\n"
-        "        'core.normalization', 'pipelines.drivers']\n"
+        "        'core.normalization', 'pipelines.drivers', 'models.dpt',\n"
+        "        'models.factory', 'models.convert']\n"
         "assert all('riders_tpu_torch.' + m in sys.modules for m in need)\n"
         "bad = [m for m in ('jax', 'flax', 'triton', 'riders_tpu')\n"
         "       if m in sys.modules]\n"
@@ -100,6 +102,7 @@ def _entry_points(tmp_path):
     device (so on the card by default)."""
     from riders_tpu_torch.core.config import zju_config
     from riders_tpu_torch.io.input_pipeline import BatchLoader
+    from riders_tpu_torch.models.factory import build_sml_model
     from riders_tpu_torch.pipelines import drivers
     from riders_tpu_torch.pipelines.rcnet_inference import \
         make_rcnet_infer_fn
@@ -122,13 +125,15 @@ def _entry_points(tmp_path):
             cfg, str(tmp_path)),
         "train_sml": lambda: drivers.train_sml(cfg, str(tmp_path)),
         "train_rcnet": lambda: drivers.train_rcnet(cfg, str(tmp_path)),
+        "build_sml_model": lambda: build_sml_model(cfg.replace(
+            sml=dataclasses.replace(cfg.sml, model_type="dpt-beit-large"))),
     }
 
 
 @pytest.mark.parametrize("name", [
     "make_rcnet_infer_fn", "make_infer_fn", "FusedServer", "BatchLoader",
     "run_rcnet", "validate_rcnet", "validate_sml", "evaluate_results_dir",
-    "train_sml", "train_rcnet"])
+    "train_sml", "train_rcnet", "build_sml_model"])
 def test_staged_and_driver_entry_points_refuse_the_cpu(monkeypatch,
                                                        tmp_path, name):
     """Without a card, each new entry point raises before it reads a
