@@ -12,8 +12,9 @@ Map Learner on one GPU.
                                           # and B8 (copied into another
                                           # tree's root, it times that
                                           # tree's)
-    python3 chip_smoke.py --dpt           # phase 1, then phase 10 alone
-                                          # on a dataset of its own
+    python3 chip_smoke.py --dpt           # phase 1, then phases 10 and
+                                          # 11 alone on a dataset of
+                                          # their own
 
 Kernel times: `ms` is the median of synchronised calls (host dispatch
 counts in); `graph_ms` replays 20 calls captured in one CUDA graph
@@ -110,10 +111,28 @@ Phases, each fatal on failure:
      `train_sml` with BEiT-L, 3 steps, on phase 9's mini-dataset (the
      'interp' source), then `validate_sml` of its checkpoint in bf16 on
      the card and in f32 on the host CPU: the seven metrics within 1%.
+  11. the Swin2 / Swin-V1, LeViT and Next-ViT DPT SMLs at full width, on
+     phase 9's dataset, weights drawn on the host with flax's default
+     initialisers and their head calibrated by a forward on the card, the
+     counters reset just before (no hand-written kernel lies on these
+     paths; a launch fails the phase): (a) `make_infer_fn` with
+     DPT-Swin2-L (swinv2_large_window12to24_192to384) at its 384x384 net,
+     NTU 640x512 frames, B=16, bf16, 10 calls: ms, spread, peak memory,
+     parameters and operations over the bf16 peak; (b) its f32
+     `make_train_step`, TF32 off, at B=12 (or the largest of 8, 6, 4 that
+     fits): a gradient in every parameter in the first step, then ms per
+     step and peak memory; (c) dpt-swin2-base and dpt-swin-large at
+     384x384, dpt-swin2-tiny at 256x256, dpt-levit-224 at 224x224 and
+     dpt-next-vit-large at 384x384, 3 calls each: finite depth of the
+     frame's shape; (d) one B=2 step on the card against the host CPU
+     by phase 7's rule, Swin2-T at 128x128, LeViT at 64x64, Next-ViT at
+     64x96; (e) `validate_sml` of a step-0 checkpoint of Swin2-L, bf16 on
+     the card against f32 on the host CPU: the seven metrics within 1%.
 Report lines: the card's name and power limit, one {"kernels": [...]}
 line, one fused line, one lane_decoder line, one training line, one
-staged line, one training_cli line, one dpt line; the last line is
-{"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
+staged line, one training_cli line, one dpt line, one dpt_families line;
+the last line is {"ok": true, "device": {...}}.  Details go to
+chiprun_out/chip_smoke.json.
 """
 
 import copy
@@ -1957,6 +1976,19 @@ def idw_on_card(seed, knots=(300, 40, 0)):
 
 DPT_MAIN = "dpt-beit-large"                 # BEiT-L/16-512
 DPT_OTHERS = ("dpt-large", "dpt-hybrid")    # ViT-L/16, ResNet50 + ViT-B
+# phase 11: the hierarchical families at the reference's nets (its swin
+# tables fix 384x384 / 256x256, LeViT's bias tables 224x224), and the
+# nets of their card-vs-CPU steps
+FAMILY_MAIN = "dpt-swin2-large"     # swinv2_large_window12to24_192to384
+FAMILY_NETS = {"dpt-swin2-large": (384, 384), "dpt-swin2-base": (384, 384),
+               "dpt-swin-large": (384, 384), "dpt-swin2-tiny": (256, 256),
+               "dpt-levit-224": (224, 224),
+               "dpt-next-vit-large": (384, 384)}
+FAMILY_STEP_NETS = {"dpt-swin2-tiny": (128, 128), "dpt-levit-224": (64, 64),
+                    "dpt-next-vit-large": (64, 96)}
+# parameters no output reaches: levit_384's blocks after its last hook (21)
+UNREACHED = {"dpt-levit-224": tuple(f"pretrained.blocks_{i}."
+                                    for i in range(22, 28))}
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 
 
@@ -1968,9 +2000,10 @@ def dpt_config(model_type, **sml):
                                                model_type=model_type, **sml))
 
 
-def dpt_weights(cfg, seed):
-    """Seeded f32 weights of cfg's DPT on the host, with flax's default
-    initialisers (`init_training_`), then its head's last conv set so
+def dpt_weights(cfg, seed, device="cpu"):
+    """Seeded f32 weights of cfg's DPT, with flax's default initialisers
+    (`init_training_`, drawn on the host whatever `device` the model and
+    the calibrating forward run on), then its head's last conv set so
     that on the network inputs of one seeded NTU frame (stage 1 of a
     `make_sml_train_batch` frame) its output has mean 0.1 and standard
     deviation 0.02: the scales vary by some 2% around 1.1, as a trained
@@ -1985,9 +2018,10 @@ def dpt_weights(cfg, seed):
     from riders_tpu_torch.models.factory import build_sml_model
     from riders_tpu_torch.models.layers import init_training_
     from riders_tpu_torch.pipelines.sml_inference import prepare_sml_inputs
-    model = init_training_(build_sml_model(cfg, "cpu", torch.float32), seed)
+    model = init_training_(build_sml_model(cfg, device, torch.float32),
+                           seed)
     head = model.head_conv3
-    b = make_sml_train_batch(cfg, seed + 60, "cpu", B=1)
+    b = make_sml_train_batch(cfg, seed + 60, device, B=1)
     seen = []
     hook = head.register_forward_hook(lambda m, i, o: seen.append(o))
     with torch.no_grad():
@@ -2037,15 +2071,16 @@ def times_ms(fn, n, warmup=2):
 
 
 def dpt_inference(model_type, weights, B=16, seed=0, n=10,
-                  profile_dir=None):
-    """Phase 10a: make_infer_fn with a DPT SML at the NTU preset, bf16,
-    B frames: finite depth of the frame's shape and finite metrics, ms
-    per call (CUDA events, after warm-up) with its spread, peak memory,
-    parameters, and the call's operations over the bf16 peak (its
-    bound)."""
+                  profile_dir=None, net=None,
+                  profile_file="profile_dpt_infer.txt"):
+    """Phase 10a: make_infer_fn with a DPT SML at the NTU preset (its SML
+    net, or `net`), bf16, B frames: finite depth of the frame's shape and
+    finite metrics, ms per call (CUDA events, after warm-up) with its
+    spread, peak memory, parameters, and the call's operations over the
+    bf16 peak (its bound)."""
     import torch
     from riders_tpu_torch.pipelines.sml_inference import make_infer_fn
-    cfg = dpt_config(model_type)
+    cfg = dpt_config(model_type, **({"net_shape": net} if net else {}))
     model = build_dpt(cfg, weights, None, torch.bfloat16)
     batch = make_sml_train_batch(cfg, seed + 40, "cuda", B=B)
     fn = make_infer_fn(cfg, model)
@@ -2062,7 +2097,7 @@ def dpt_inference(model_type, weights, B=16, seed=0, n=10,
     ms = times_ms(lambda: fn(batch), n)
     flops = flop_count(lambda: fn(batch))
     if profile_dir is not None:
-        log(profile(fn, batch, profile_dir / "profile_dpt_infer.txt"))
+        log(profile(fn, batch, profile_dir / profile_file))
     return dict(model_type=model_type, batch=B,
                 net=list(cfg.sml.net_shape), dtype="bfloat16",
                 params=sum(p.numel() for p in model.parameters()),
@@ -2074,7 +2109,8 @@ def dpt_inference(model_type, weights, B=16, seed=0, n=10,
                 bound_ms=flops / BF16_FLOP_PER_S * 1e3)
 
 
-def dpt_training(weights, seed=0, profile_dir=None):
+def dpt_training(weights, seed=0, profile_dir=None, model_type=DPT_MAIN,
+                 net=None, B=None, profile_file="profile_dpt_train.txt"):
     """Phase 10b: make_train_step with BEiT-L at the NTU SML preset (B=12,
     f32, TF32 off): a gradient in every parameter in the first step from
     `weights`; then three steps with every parameter moved and finite
@@ -2084,25 +2120,28 @@ def dpt_training(weights, seed=0, profile_dir=None):
     matmuls stay f32).  The first Adam update at the preset's
     rate (5e-5 on each of 0.34 B random parameters) drives the head's
     pre-activation below 0 at every pixel, so the later steps' gradients
-    are 0 (the step's work is the same)."""
+    are 0 (the step's work is the same).  `model_type`, `net` and `B`
+    select another DPT, SML net and batch (phase 11b)."""
     import torch
     from riders_tpu_torch.pipelines import sml_training
-    cfg = dpt_config(DPT_MAIN)
+    cfg = dpt_config(model_type, **({"net_shape": net} if net else {}))
     model = build_dpt(cfg, weights, None, torch.float32)
     state = sml_training.init_train_state(cfg, model, 1000)
-    batches = [make_sml_train_batch(cfg, seed + 50 + i, "cuda")
+    B = B or cfg.sml_train.batch_size
+    batches = [make_sml_train_batch(cfg, seed + 50 + i, "cuda", B=B)
                for i in range(3)]
     step = sml_training.make_train_step(cfg)
     _, aux = step(state, batches[0])
     dead = [k for k, p in model.named_parameters()
             if p.grad is None or not bool(p.grad.any())]
     if dead or not math.isfinite(float(aux["loss"])):
-        raise AssertionError(f"dpt: first step loss {float(aux['loss'])}, "
+        raise AssertionError(f"{model_type}: first step loss "
+                             f"{float(aux['loss'])}, "
                              f"{len(dead)} parameters without a gradient: "
                              f"{dead[:8]}")
     first_loss = float(aux["loss"])
-    rec = _train_phase("dpt", state, step, batches, (),
-                       cfg.sml_train.batch_size, check_grads=False)
+    rec = _train_phase(model_type, state, step, batches, (), B,
+                       check_grads=False)
     rec["first_step_loss"] = first_loss
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -2113,15 +2152,16 @@ def dpt_training(weights, seed=0, profile_dir=None):
     flops = flop_count(lambda: step(state, batches[0]))
     if profile_dir is not None:
         log(profile(lambda b: step(state, b), batches[1],
-                    profile_dir / "profile_dpt_train.txt"))
+                    profile_dir / profile_file))
     rec.update(net_shape=list(cfg.sml.net_shape), flops_per_step=flops,
                bound_ms=flops / FP32_FLOP_PER_S * 1e3)
     return rec
 
 
-def dpt_step_agreement(weights, seed=5):
+def dpt_step_agreement(weights, seed=5, model_type=DPT_MAIN, net=(64, 96)):
     """Phase 10b: one BEiT-L SML training step (f32, B=2, net 64x96, 96x128
-    frames) on the card against the same step on the host CPU, by phase
+    frames; phase 11d: `model_type` at `net`) on the card against the
+    same step on the host CPU, by phase
     7's rule: the loss to rtol 1e-4; each gradient's max abs error,
     relative to its max abs, within 1e-3 or within 3x the CPU's own
     spread under a one-ulp nudge of the inputs (two draws).  The nudge
@@ -2133,7 +2173,7 @@ def dpt_step_agreement(weights, seed=5):
     import dataclasses
     import torch
     from riders_tpu_torch.pipelines import sml_training
-    cfg = dpt_config(DPT_MAIN, net_shape=(64, 96))
+    cfg = dpt_config(model_type, net_shape=net)
     cfg = cfg.replace(dataset=dataclasses.replace(cfg.dataset,
                                                   image_shape=(96, 128)))
     batch = make_sml_train_batch(cfg, seed, "cpu", B=2)
@@ -2143,8 +2183,12 @@ def dpt_step_agreement(weights, seed=5):
         model = build_dpt(cfg, weights, device, torch.float32)
         state = sml_training.init_train_state(cfg, model, 1000)
         _, aux = step(state, b)
+        # a parameter the forward does not reach (LeViT's blocks after
+        # its last hook) has no gradient: 0, as JAX gives it
         return float(aux["loss"]), {
-            k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+            k: (p.grad.detach().cpu() if p.grad is not None
+                else torch.zeros_like(p, device="cpu"))
+            for k, p in model.named_parameters()}
 
     def nudged(s):
         g = torch.Generator().manual_seed(s)
@@ -2162,6 +2206,8 @@ def dpt_step_agreement(weights, seed=5):
 
     loss_cpu, g_cpu = run("cpu", batch)
     loss_card, g_card = run(None, batch)
+    unreached = [k for k in g_cpu
+                 if k.startswith(UNREACHED.get(model_type, ()))]
     card = rel_errs(g_card, g_cpu)
     spread = {k: 0.0 for k in g_cpu}
     losses = []
@@ -2172,7 +2218,8 @@ def dpt_step_agreement(weights, seed=5):
             spread[k] = max(spread[k], e)
     bad = [k for k in card if card[k] > max(1e-3, 3 * spread[k])]
     worst = max(card, key=card.get)
-    zero = [k for k, g in g_cpu.items() if not bool(g.any())]
+    zero = [k for k, g in g_cpu.items()
+            if k not in unreached and not bool(g.any())]
     res = dict(loss_cpu=loss_cpu, loss_card=loss_card,
                loss_rel_err=abs(loss_card - loss_cpu) / abs(loss_cpu),
                cpu_loss_spread=max(abs(v - loss_cpu) for v in losses)
@@ -2182,9 +2229,12 @@ def dpt_step_agreement(weights, seed=5):
                worst_cpu_spread=max(spread.values()),
                grads_over_1e3=sum(e > 1e-3 for e in card.values()),
                median_grad_rel_err=sorted(card.values())[len(card) // 2],
-               n_grads=len(g_cpu), zero_grads=zero, failing=bad)
-    if res["loss_rel_err"] > 1e-4 or bad or len(zero) * 10 > len(g_cpu):
-        raise AssertionError(f"DPT card vs CPU training step: {res}")
+               n_grads=len(g_cpu), zero_grads=zero, failing=bad,
+               unreached=len(unreached))
+    if (res["loss_rel_err"] > 1e-4 or bad or len(zero) * 10 > len(g_cpu)
+            or any(bool(g_cpu[k].any()) for k in unreached)):
+        raise AssertionError(f"{model_type} card vs CPU training step: "
+                             f"{res}")
     return res
 
 
@@ -2295,6 +2345,179 @@ def dpt_phase(root, seed=0, profile_dir=None):
     return out
 
 
+def family_training(seed=0, profile_dir=None, batches=(12, 8, 6, 4)):
+    """Phase 11b: Swin2-L's f32 make_train_step (TF32 off) at the largest
+    of `batches` that fits on the card, from weights calibrated as
+    `dpt_weights` says: a gradient in every parameter in the first step,
+    then `_train_phase`'s steps, ms per step and peak memory
+    (`dpt_training`).  The batches that did not fit are listed."""
+    import gc
+    import torch
+    net = FAMILY_NETS[FAMILY_MAIN]
+    weights = dpt_weights(dpt_config(FAMILY_MAIN, net_shape=net), seed,
+                          "cuda")
+    too_big = []
+    for B in batches:
+        try:
+            rec = dpt_training(weights, seed, profile_dir, FAMILY_MAIN, net,
+                               B, "profile_swin2_train.txt")
+        except torch.cuda.OutOfMemoryError:
+            too_big.append(B)
+        else:
+            # after the first Adam update the head's relu is dead again
+            # (phase 10's finding), so the later steps reach no parameter
+            rec.update(batches_out_of_memory=too_big,
+                       no_gradient=len(rec["no_gradient"]))
+            return rec
+        gc.collect()                # the failed attempt's tensors
+        torch.cuda.empty_cache()
+    raise AssertionError(f"{FAMILY_MAIN}: no batch of {batches} fits")
+
+
+def family_validate(root, seed=0):
+    """Phase 11e: validate_sml of a step-0 checkpoint of Swin2-L's
+    calibrated weights on the NTU mini-dataset under `root`, bf16 on the
+    card and f32 on the host CPU: the seven metrics within 1%
+    (PARITY.md's protocol)."""
+    import dataclasses
+    import torch
+    from unittest import mock
+    from riders_tpu_torch.core import checkpoint, metrics
+    from riders_tpu_torch.pipelines import drivers, sml_training
+    cfg = dpt_config(FAMILY_MAIN, net_shape=FAMILY_NETS[FAMILY_MAIN])
+    cfg = cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, root=str(root),
+                                    train_scenes=("train",),
+                                    val_scenes=("val",)),
+        sml_train=dataclasses.replace(cfg.sml_train, rcnet_interp="interp",
+                                      rcnet_interp_val=None))
+    ckpt = root / "ckpt_swin2"
+    weights = dpt_weights(cfg, seed, "cuda")
+    checkpoint.save_train_state(ckpt, sml_training.init_train_state(
+        cfg, build_dpt(cfg, weights, "cpu", torch.float32), 1))
+    del weights
+    out, bundles = {}, {}
+    for name, dtype, device in (("card_bf16", "bfloat16", None),
+                                ("cpu_f32", "float32", "cpu")):
+        seen = bundles[name] = []
+
+        def vote(results, best_so_far, _vote=metrics.improves_best):
+            seen.append(dict(results))
+            return _vote(results, best_so_far)
+
+        t0 = time.perf_counter()
+        with mock.patch.object(metrics, "improves_best", vote):
+            drivers.validate_sml(cfg.replace(compute_dtype=dtype),
+                                 str(ckpt), device=device)
+        out[f"validate_sml_{name}_s"] = time.perf_counter() - t0
+    card, cpu = bundles["card_bf16"], bundles["cpu_f32"]
+    dev = {k: abs(card[0][k] - cpu[0][k]) / abs(cpu[0][k])
+           for k in metrics.METRIC_KEYS} if len(card) == len(cpu) == 1 \
+        else {}
+    out.update(metrics=bundles, metric_rel_dev=dev)
+    if (len(dev) != len(metrics.METRIC_KEYS)
+            or not all(math.isfinite(cpu[0][k]) for k in dev)
+            or max(dev.values()) > 0.01):
+        raise AssertionError(f"{FAMILY_MAIN} validate_sml bf16 card vs f32 "
+                             f"CPU: {out}")
+    return out
+
+
+def family_phase(root, seed=0, profile_dir=None):
+    """Phase 11: the Swin2 / Swin-V1, LeViT and Next-ViT DPT SMLs at full
+    width on the card, each on weights calibrated by `dpt_weights` (drawn
+    on the host, the calibrating forward on the card), the launch
+    counters reset just before: (a) Swin2-L through make_infer_fn at its
+    384x384 net, NTU B=16, bf16, 10 calls; (b) its f32 step; (c) the
+    other five rows, 3 calls each at their nets; (d) one B=2 step per
+    family on the card against the host CPU (Swin2-T at 128x128, LeViT at
+    64x64, Next-ViT at 64x96); (e) validate_sml at step 0 on the NTU
+    mini-dataset under `root`, bf16 card vs f32 host CPU.  None of the
+    hand-written kernels lies on these paths: a launch fails the phase.
+    With `profile_dir`, torch.profiler tables of Swin2-L's call and
+    step."""
+    import gc
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    gc.collect()
+    torch.cuda.empty_cache()
+    LAUNCHES.clear()
+    t0, out = time.perf_counter(), {"inference": {}, "seconds": {}}
+    progress = HERE / "chiprun_out" / "phase11_progress.json"
+    progress.parent.mkdir(exist_ok=True)
+
+    def done(what, rec):
+        log(f"dpt family {what}: {json.dumps(rec)}")
+        progress.write_text(json.dumps(out, indent=1))
+    for model_type, net in FAMILY_NETS.items():
+        t = time.perf_counter()
+        w = dpt_weights(dpt_config(model_type, net_shape=net), seed, "cuda")
+        main = model_type == FAMILY_MAIN
+        out["inference"][model_type] = rec = dpt_inference(
+            model_type, w, n=10 if main else 3, net=net,
+            profile_dir=profile_dir if main else None,
+            profile_file="profile_swin2_infer.txt")
+        done(f"inference {model_type}", rec)
+        del w
+        torch.cuda.empty_cache()
+        out["seconds"][model_type] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["training"] = family_training(seed, profile_dir)
+    done("training", out["training"])
+    torch.cuda.empty_cache()
+    out["seconds"]["training"] = time.perf_counter() - t
+    out["step_agreement"] = {}
+    for model_type, net in FAMILY_STEP_NETS.items():
+        t = time.perf_counter()
+        w = dpt_weights(dpt_config(model_type, net_shape=net), seed, "cuda")
+        out["step_agreement"][model_type] = rec = dpt_step_agreement(
+            w, model_type=model_type, net=net)
+        done(f"step agreement {model_type}", rec)
+        del w
+        torch.cuda.empty_cache()
+        out["seconds"][f"step {model_type}"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["validate"] = family_validate(root, seed)
+    done("validate", out["validate"])
+    out["seconds"]["validate"] = time.perf_counter() - t
+    out["launches"] = dict(LAUNCHES)
+    out["seconds"]["total"] = time.perf_counter() - t0
+    if any(out["launches"].values()):
+        raise AssertionError(f"phase 11 launched hand-written kernels: "
+                             f"{out['launches']}")
+    return out
+
+
+def families_line(smi, fam):
+    """The one-line summary of phase 11."""
+    inf, main = fam["inference"], fam["inference"][FAMILY_MAIN]
+    tr = fam["training"]
+    return {"dpt_families": dict(
+        card=smi, model=FAMILY_MAIN, net=main["net"], params=main["params"],
+        infer_ntu_b16_bf16_ms=main["ms_per_call"],
+        infer_ms_min_max=[main["ms_min"], main["ms_max"]],
+        infer_bound_ms=main["bound_ms"],
+        infer_peak_mem_gb=main["peak_mem_gb"],
+        train_f32_batch=tr["batch"],
+        train_batches_out_of_memory=tr["batches_out_of_memory"],
+        train_f32_ms_per_step=tr["ms_per_step"],
+        train_ms_per_step_cudnn_tf32=tr["ms_per_step_cudnn_tf32"],
+        train_bound_ms=tr["bound_ms"], train_peak_mem_gb=tr["peak_mem_gb"],
+        others={k: dict(net=r["net"], params=r["params"],
+                        ms_per_call=r["ms_per_call"],
+                        ms_min_max=[r["ms_min"], r["ms_max"]],
+                        bound_ms=r["bound_ms"],
+                        peak_mem_gb=r["peak_mem_gb"])
+                for k, r in inf.items() if k != FAMILY_MAIN},
+        step_agreement={k: dict(net=list(FAMILY_STEP_NETS[k]),
+                                loss_rel_err=r["loss_rel_err"],
+                                worst_grad_rel_err=r["worst_grad_rel_err"],
+                                cpu_spread_there=r["cpu_spread_there"])
+                        for k, r in fam["step_agreement"].items()},
+        validate_metric_rel_dev=fam["validate"]["metric_rel_dev"],
+        launches=fam["launches"], seconds=fam["seconds"])}
+
+
 def dpt_line(smi, dpt):
     """The one-line summary of phase 10."""
     inf, tr = dpt["inference"], dpt["training"]
@@ -2330,21 +2553,26 @@ def log_dpt(dpt):
 
 
 def dpt_only(smi, profile_dir):
-    """`--dpt`: phase 1, then phase 10 alone on an NTU mini-dataset of
-    its own (24 training and 4 validation frames under build/)."""
+    """`--dpt`: phase 1, then phases 10 and 11 alone on an NTU
+    mini-dataset of their own (24 training and 4 validation frames under
+    build/)."""
     root = HERE / "build" / "phase10_data"
     shutil.rmtree(root, ignore_errors=True)
     try:
         write_ntu_scene(root, "train", 24, 0)
         write_ntu_scene(root, "val", 4, 1)
         dpt = dpt_phase(root, profile_dir=profile_dir)
+        log_dpt(dpt)
+        families = family_phase(root, profile_dir=profile_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log_dpt(dpt)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_dpt.json").write_text(json.dumps(dpt, indent=1))
+    (out_dir / "chip_smoke_dpt.json").write_text(json.dumps(
+        dict(dpt=dpt, dpt_families=families), indent=1))
     log(json.dumps(dpt_line(smi, dpt)))
+    log(json.dumps(families_line(smi, families)))
+    log(smi)
     return 0
 
 
@@ -2512,9 +2740,10 @@ def main(argv):
         for name, rec in cli_runs.items():
             log(f"cli {name}: {json.dumps(rec)}")
         dpt = dpt_phase(root, profile_dir=profile_dir)
+        log_dpt(dpt)
+        families = family_phase(root, profile_dir=profile_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log_dpt(dpt)
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -2564,7 +2793,7 @@ def main(argv):
                    lane_kernels=lane_kernels, lane_decoder=lane,
                    training_kernels=train_kernels, training=training,
                    training_agreement=train_agree, staged=staged,
-                   cli=cli_runs, dpt=dpt)
+                   cli=cli_runs, dpt=dpt, dpt_families=families)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -2626,6 +2855,7 @@ def main(argv):
         idw_max_rel_err=cli_runs["idw"]["max_rel_err"],
         idw_same_knots=cli_runs["idw"]["same_knots"])}))
     log(json.dumps(dpt_line(smi, dpt)))
+    log(json.dumps(families_line(smi, families)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,15 +15,21 @@ Supported checkpoints:
 * RC-Net `.pth` - the `radarnet_encoder_state_dict` /
   `radarnet_decoder_state_dict` pair: `convert_rcnet_state_dict`;
 * DPT SML `.pth` - DPTDepthModel with a ViT (`vitl16_384`,
-  `vitb16_384`), BEiT (`beitl16_512`, `beitl16_384`, `beitb16_384`) or
-  hybrid (`vitb_rn50_384`) backbone: `convert_dpt_state_dict`.  The
-  Swin2, LeViT and Next-ViT rows raise NotImplementedError.
+  `vitb16_384`), BEiT (`beitl16_512`, `beitl16_384`, `beitb16_384`),
+  hybrid (`vitb_rn50_384`), Swin V2 (`swin2l24_384`, `swin2b24_384`,
+  `swin2t16_256`) or Swin V1 (`swinl12_384`) backbone:
+  `convert_dpt_state_dict`; LeViT-384 (`levit_384`):
+  `convert_levit_state_dict`; Next-ViT-L (`next_vit_large_6m`):
+  `convert_next_vit_state_dict` (`convert_dpt_state_dict` passes these
+  two on).
 
 The port keeps torch layouts, so conv, linear and transposed-conv
 weights pass through unchanged.  What changes is the naming (the port's
 modules mirror the JAX package's flax tree), the split of timm's fused
-ViT qkv projection into query / key / value, and the order of BEiT's
-three cls rows of the relative-position table.
+ViT qkv projection into query / key / value, the order of BEiT's three
+cls rows of the relative-position table, and, for LeViT and Next-ViT,
+every BatchNorm folded into the conv or linear before it (or into an
+`Affine` where it stands alone), as timm's own `fuse()` does.
 """
 
 from __future__ import annotations
@@ -33,8 +39,13 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch.nn as nn
 
-from riders_tpu_torch.models.dpt import UNPORTED, DPTConfig
+from riders_tpu_torch.models.dpt import DPTConfig
 from riders_tpu_torch.models.efficientnet import LITE3_STAGES
+from riders_tpu_torch.models.levit import (LeViTConfig, _bias_idxs,
+                                           _grid_points, stem_grid,
+                                           sub_grid)
+from riders_tpu_torch.models.next_vit import (NextViTConfig, mhsa_channels,
+                                              stage_plan)
 
 State = Dict[str, np.ndarray]
 
@@ -255,18 +266,73 @@ def _hybrid_backbone(out: State, sd: Mapping, p: str) -> None:
         si += 1
 
 
+def _dpt_scratch(out: State, sd: Mapping, levels: int = 4) -> None:
+    """scratch.*: the layer_rn convs, the refinenets (the deepest takes
+    no skip) and the output head, shared by every DPT family."""
+    for n in range(1, levels + 1):
+        _copy(out, f"layer{n}_rn", sd, f"scratch.layer{n}_rn")
+        _fusion(out, f"refinenet{n}", sd, f"scratch.refinenet{n}",
+                n != levels)
+    for j, idx in ((1, 0), (2, 2), (3, 4)):
+        _copy(out, f"head_conv{j}", sd, f"scratch.output_conv.{idx}")
+
+
+def _swin2_backbone(out: State, sd: Mapping, p: str) -> None:
+    """timm 0.6.12 swin_transformer(_v2) keys under `p`: V2 blocks (q / v
+    biases, logit scales, cpb MLPs) and V1 blocks (full qkv bias, learned
+    relative-position tables), told apart per block by
+    `attn.logit_scale`."""
+    key = "pretrained."
+    _copy(out, key + "patch_embed", sd, p + "patch_embed.proj")
+    _copy(out, key + "patch_norm", sd, p + "patch_embed.norm")
+    si = 0
+    while p + f"layers.{si}.blocks.0.norm1.weight" in sd:
+        bi = 0
+        while p + f"layers.{si}.blocks.{bi}.norm1.weight" in sd:
+            ref = p + f"layers.{si}.blocks.{bi}."
+            blk = key + f"stage{si}_block{bi}."
+            for name, src in (("norm1", "norm1"), ("norm2", "norm2"),
+                              ("mlp_fc1", "mlp.fc1"),
+                              ("mlp_fc2", "mlp.fc2"),
+                              ("attn.proj", "attn.proj")):
+                _copy(out, blk + name, sd, ref + src)
+            if ref + "attn.logit_scale" in sd:               # V2
+                out[blk + "attn.qkv_kernel"] = sd[ref + "attn.qkv.weight"]
+                for leaf in ("q_bias", "v_bias", "logit_scale"):
+                    out[blk + "attn." + leaf] = sd[ref + "attn." + leaf]
+                _copy(out, blk + "attn.cpb_fc1", sd, ref + "attn.cpb_mlp.0")
+                _copy(out, blk + "attn.cpb_fc2", sd, ref + "attn.cpb_mlp.2")
+            else:                                            # V1
+                _copy(out, blk + "attn.qkv", sd, ref + "attn.qkv")
+                out[blk + "attn.rel_pos_bias_table"] = sd[
+                    ref + "attn.relative_position_bias_table"]
+            bi += 1
+        ds = p + f"layers.{si}.downsample"
+        if ds + ".reduction.weight" in sd:
+            _copy(out, key + f"downsample{si}.reduction", sd,
+                  ds + ".reduction")
+            _copy(out, key + f"downsample{si}.norm", sd, ds + ".norm")
+        si += 1
+
+
 def convert_dpt_state_dict(sd: Mapping, cfg: DPTConfig) -> State:
     """DPTDepthModel state dict -> DPTScaleMapLearner state.
 
     `cfg` is the model's DPTConfig; its backbone, depth and pretrained
     grid must be the checkpoint's (beitl16_512 -> 'beit', grid 32;
-    vitl16_384 -> 'vit', grid 24; vitb_rn50_384 -> 'vit_hybrid')."""
-    if cfg.backbone in UNPORTED:
-        raise NotImplementedError(
-            f"the DPT {UNPORTED[cfg.backbone]} converter is not ported yet "
-            "(ROADMAP.md A6)")
+    vitl16_384 -> 'vit', grid 24; vitb_rn50_384 -> 'vit_hybrid';
+    swin2l24_384 -> 'swin2').  A 'levit' or 'next_vit' config goes to
+    its own converter."""
+    if cfg.backbone == "levit":
+        return convert_levit_state_dict(sd, cfg)
+    if cfg.backbone == "next_vit":
+        return convert_next_vit_state_dict(sd, cfg)
     p = "pretrained.model."
     out: State = {}
+    if cfg.backbone == "swin2":
+        _swin2_backbone(out, sd, p)
+        _dpt_scratch(out, sd)
+        return out
     hybrid = cfg.backbone == "vit_hybrid"
     if hybrid:
         _hybrid_backbone(out, sd, p)
@@ -280,11 +346,164 @@ def convert_dpt_state_dict(sd: Mapping, cfg: DPTConfig) -> State:
     # hybrid: taps 1-2 are the resnet maps; 3 is identity, 4 a /2 conv
     for n in ((3, 4) if hybrid else (1, 2, 3, 4)):
         _reassemble(out, n, sd, resize=n != 3)
-    for n in (1, 2, 3, 4):
-        _copy(out, f"layer{n}_rn", sd, f"scratch.layer{n}_rn")
-        _fusion(out, f"refinenet{n}", sd, f"scratch.refinenet{n}", n != 4)
-    for j, idx in ((1, 0), (2, 2), (3, 4)):
-        _copy(out, f"head_conv{j}", sd, f"scratch.output_conv.{idx}")
+    _dpt_scratch(out, sd)
+    return out
+
+
+def _fold_bn(w: np.ndarray, sd: Mapping, bn: str, out_axis: int = 0,
+             eps: float = 1e-5):
+    """Fold an eval-mode BatchNorm into the weight before it (timm's
+    `fuse()`): w * gamma / sqrt(var + eps) along the output channels,
+    and the bias beta - mean * gamma / sqrt(var + eps)."""
+    s = sd[bn + ".weight"] / np.sqrt(sd[bn + ".running_var"] + eps)
+    shape = [1] * w.ndim
+    shape[out_axis] = -1
+    return (w * s.reshape(shape),
+            sd[bn + ".bias"] - sd[bn + ".running_mean"] * s)
+
+
+def _folded(out: State, key: str, sd: Mapping, prefix: str,
+            conv: str = ".c", norm: str = ".bn", out_axis: int = 0) -> None:
+    """A conv / linear without bias and its BatchNorm -> `key` with the BN
+    folded in (out_axis 1 for a ConvTranspose2d's (in, out, kh, kw))."""
+    w, b = _fold_bn(sd[prefix + conv + ".weight"], sd, prefix + norm,
+                    out_axis)
+    out[key + ".weight"], out[key + ".bias"] = w, b
+
+
+def _bn_affine(out: State, key: str, sd: Mapping, prefix: str,
+               eps: float = 1e-5) -> None:
+    """A standalone eval-mode BatchNorm -> an Affine: weight gamma /
+    sqrt(var + eps), bias beta - mean * weight."""
+    s = sd[prefix + ".weight"] / np.sqrt(sd[prefix + ".running_var"] + eps)
+    out[key + ".weight"] = s
+    out[key + ".bias"] = sd[prefix + ".bias"] - sd[
+        prefix + ".running_mean"] * s
+
+
+def convert_levit_state_dict(sd: Mapping, cfg: DPTConfig) -> State:
+    """DPT levit_384 state dict -> DPTScaleMapLearner('levit') state.
+
+    Every LinearNorm / ConvNorm / ConvTransposeNorm BatchNorm is folded
+    into its weight; the block walk follows timm levit_384's flat
+    nn.Sequential numbering.  Each attention-bias table holds one entry
+    per offset of the token grid it was trained at (14x14 at 224x224),
+    and the model gathers it by the grid of `cfg.net_shape`, so a table
+    of another width raises ValueError."""
+    lcfg = cfg.levit or LeViTConfig()
+    grid = stem_grid(cfg.net_shape)
+
+    def checked_bias(key: str, n_off: int) -> np.ndarray:
+        table = sd[key]
+        if table.shape[-1] != n_off:
+            raise ValueError(
+                f"levit checkpoint table {key!r} holds {table.shape[-1]} "
+                f"attention-bias offsets, but net_shape="
+                f"{tuple(cfg.net_shape)} implies a {grid} token grid "
+                f"needing {n_off}: the checkpoint was trained at a "
+                "different input resolution (timm levit_384 ships "
+                "14x14 = 224x224 tables); pick the matching net_shape")
+        return table
+
+    p, key = "pretrained.model.", "pretrained."
+    out: State = {}
+    for j in (0, 2, 4, 6):          # the stem convs' Sequential slots
+        _folded(out, key + f"stem_conv{j}", sd, p + f"patch_embed.{j}")
+    i = 0
+    for si in range(3):
+        _, n_off = _bias_idxs(_grid_points(*grid), _grid_points(*grid))
+        for _ in range(lcfg.depths[si]):
+            ref, blk = p + f"blocks.{i}.m.", key + f"blocks_{i}."
+            _folded(out, blk + "qkv", sd, ref + "qkv")
+            _folded(out, blk + "proj", sd, ref + "proj.1")
+            out[blk + "attention_biases"] = checked_bias(
+                ref + "attention_biases", n_off)
+            i += 1
+            _folded(out, key + f"blocks_{i}.fc1", sd, p + f"blocks.{i}.m.0")
+            _folded(out, key + f"blocks_{i}.fc2", sd, p + f"blocks.{i}.m.2")
+            i += 1
+        if si < 2:
+            sub = sub_grid(grid)
+            _, n_off_sub = _bias_idxs(_grid_points(*sub),
+                                      _grid_points(*grid), stride=2)
+            ref, blk = p + f"blocks.{i}.", key + f"blocks_{i}."
+            _folded(out, blk + "kv", sd, ref + "kv")
+            _folded(out, blk + "q", sd, ref + "q.1")
+            _folded(out, blk + "proj", sd, ref + "proj.1")
+            out[blk + "attention_biases"] = checked_bias(
+                ref + "attention_biases", n_off_sub)
+            grid = sub
+            i += 1
+            _folded(out, key + f"blocks_{i}.fc1", sd, p + f"blocks.{i}.m.0")
+            _folded(out, key + f"blocks_{i}.fc2", sd, p + f"blocks.{i}.m.2")
+            i += 1
+    _dpt_scratch(out, sd, levels=3)
+    for j, slot in enumerate((0, 2)):   # hard-swish at slots 1 and 3
+        _folded(out, f"stem_transpose_conv{j}", sd,
+                f"scratch.stem_transpose.{slot}", out_axis=1)
+    return out
+
+
+def _nv_mhca(out: State, key: str, sd: Mapping, prefix: str) -> None:
+    """Next-ViT MHCA: the grouped 3x3 conv and its BN, folded; the
+    biasless 1x1 projection."""
+    _folded(out, key + ".group_conv", sd, prefix, ".group_conv3x3",
+            ".norm")
+    out[key + ".projection.weight"] = sd[prefix + ".projection.weight"]
+
+
+def _nv_mlp(out: State, key: str, sd: Mapping, prefix: str) -> None:
+    """Next-ViT Mlp: two 1x1 convs with bias -> (out, in) weights."""
+    for c in ("conv1", "conv2"):
+        out[f"{key}.{c}.weight"] = sd[f"{prefix}.{c}.weight"][:, :, 0, 0]
+        out[f"{key}.{c}.bias"] = sd[f"{prefix}.{c}.bias"]
+
+
+def convert_next_vit_state_dict(sd: Mapping, cfg: DPTConfig) -> State:
+    """DPT next_vit_large_6m state dict (timm nextvit_large keys: stem.N,
+    features.N) -> DPTScaleMapLearner('next_vit') state.
+
+    Every BatchNorm is folded: the biasless conv + BN pairs (stem,
+    patch embeddings, MHCA's grouped conv) into the conv, the standalone
+    norms (NCB's `norm`, NTB's `norm1` / `norm2`, E-MHSA's BatchNorm1d)
+    into Affines.  An NTB's E-MHSA width is the model's,
+    `next_vit.mhsa_channels` (the JAX converter floors the product one
+    step later; ROADMAP.md C)."""
+    nvcfg = cfg.next_vit or NextViTConfig()
+    types, chans = stage_plan(nvcfg)
+    p, key = "pretrained.model.", "pretrained."
+    out: State = {}
+    for j in range(4):
+        _folded(out, key + f"stem_conv{j}", sd, p + f"stem.{j}", ".conv",
+                ".norm")
+    i, in_ch = 0, nvcfg.stem_chs[-1]
+    for si in range(4):
+        for bi, (bt, c) in enumerate(zip(types[si], chans[si])):
+            stride = nvcfg.strides[si] if bi == 0 else 1
+            ref, blk = p + f"features.{i}", key + f"blocks_{i}"
+            embed_ch = (c if bt == "ncb"
+                        else mhsa_channels(c, nvcfg.mix_block_ratio))
+            if stride == 2 or in_ch != embed_ch:
+                _folded(out, blk + ".patch_embed.conv", sd,
+                        ref + ".patch_embed", ".conv", ".norm")
+            _nv_mhca(out, blk + ".mhca", sd, ref + ".mhca")
+            _nv_mlp(out, blk + ".mlp", sd, ref + ".mlp")
+            if bt == "ncb":
+                _bn_affine(out, blk + ".norm", sd, ref + ".norm")
+            else:
+                _bn_affine(out, blk + ".norm1", sd, ref + ".norm1")
+                _bn_affine(out, blk + ".norm2", sd, ref + ".norm2")
+                for k in ("q", "k", "v", "proj"):
+                    _copy(out, f"{blk}.e_mhsa.{k}", sd, f"{ref}.e_mhsa.{k}")
+                if nvcfg.sr_ratios[si] > 1:
+                    _bn_affine(out, blk + ".e_mhsa.norm", sd,
+                               ref + ".e_mhsa.norm")
+                if 2 * embed_ch != c:       # else an identity
+                    _folded(out, blk + ".projection.conv", sd,
+                            ref + ".projection", ".conv", ".norm")
+            in_ch = c
+            i += 1
+    _dpt_scratch(out, sd)
     return out
 
 

@@ -1,15 +1,16 @@
 """DPT Scale Map Learner: the big-backbone SML variants.
 
-A transformer encoder tapped at four depths, DPT reassembly (readout
-projection, spatial restore, per-tap resize), RefineNet fusion at
-`features` channels and the multiplicative scale-map head:
+An encoder tapped at three or four depths, DPT reassembly where the
+encoder is a plain transformer (readout projection, spatial restore,
+per-tap resize), RefineNet fusion at `features` channels and the
+multiplicative scale-map head:
 
     scales = relu(1 + out);  pred = d * scales          (inverse depth)
 
 then clamps pred <= 1/min_pred and pred >= 1/max_pred.
 
-Backbone families built here (`models/factory.py:DPT_FAMILIES` maps the
-model_type strings to them):
+Backbone families (`models/factory.py:DPT_FAMILIES` maps the model_type
+strings to them):
 * 'vit'        - plain ViT with an absolute position embedding, its grid
   part resized bilinearly (align_corners=False) to the runtime grid;
 * 'beit'       - BEiT: q/v-only qkv bias, layer-scale gammas and a
@@ -17,8 +18,18 @@ model_type strings to them):
   f32 before an f32 softmax;
 * 'vit_hybrid' - ResNetV2-50 stages (weight-standardised TF-SAME convs,
   GroupNorm(32)) feeding a 1x1 patch embed into ViT-B; taps 1-2 are the
-  first two stage maps.
-The 'swin2', 'levit' and 'next_vit' families raise NotImplementedError.
+  first two stage maps;
+* 'swin2'      - Swin V2 L / B / T and Swin V1 L (`models/swin2.py`):
+  four hierarchical maps at strides 4-32 go straight into the scratch
+  convs (no reassembly); nets must be square multiples of the window
+  stride;
+* 'next_vit'   - Next-ViT-L (`models/next_vit.py`): four conv maps at
+  strides 4-32 straight into the scratch convs, hooked at
+  `NextViTConfig.hooks` (the factory sets `DPTConfig.hooks` to the same);
+* 'levit'      - LeViT-384 (`models/levit.py`): three maps at strides
+  16-64, a 3-level decode that refinenet3 opens, two hard-swish
+  ConvTranspose 3x3 / 2 layers after refinenet1, a narrow head, and the
+  scale map resized to the prior (the transposed convs land at 2i - 1).
 
 Module and attribute names mirror the JAX package's flax parameter tree,
 so `models.from_jax` loads its variables by path; `models.convert` loads
@@ -38,18 +49,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from riders_tpu_torch.core.device import resolve_device
-from riders_tpu_torch.models.layers import place
+from riders_tpu_torch.models.layers import KeepF32, PatchEmbed, place
+from riders_tpu_torch.models.levit import LeViTBackbone, LeViTConfig
+from riders_tpu_torch.models.next_vit import NextViTBackbone, NextViTConfig
 from riders_tpu_torch.models.sml import ResidualConvUnit
+from riders_tpu_torch.models.swin2 import Swin2Config, SwinV2Backbone
 from riders_tpu_torch.ops.resize import resize_nchw
 
-UNPORTED = {"swin2": "Swin2 / Swin-V1", "levit": "LeViT",
-            "next_vit": "Next-ViT"}
+BACKBONES = ("vit", "beit", "vit_hybrid", "swin2", "levit", "next_vit")
 
 
 @dataclasses.dataclass(frozen=True)
 class DPTConfig:
     net_shape: Tuple[int, int] = (512, 672)   # minimal 512-resize of 480x640
-    backbone: str = "vit"                     # 'vit' | 'beit' | 'vit_hybrid'
+    backbone: str = "vit"                     # one of BACKBONES
     patch_size: int = 16
     embed_dim: int = 1024
     depth: int = 24
@@ -64,12 +77,15 @@ class DPTConfig:
     # pretrained grid (vit_large_patch16_384: 24x24 + cls;
     # beitl16_512: 32x32 + cls)
     pretrained_grid: int = 24
-
-
-def _unported(backbone: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the DPT {UNPORTED[backbone]} backbone is not ported yet "
-        f"(ROADMAP.md A6)")
+    # the swin2 plan (backbone 'swin2'); None selects
+    # swinv2_large_window12to24_192to384
+    swin2: Optional[Swin2Config] = None
+    # the levit plan (backbone 'levit'); None selects timm levit_384
+    levit: Optional[LeViTConfig] = None
+    # the next_vit plan (backbone 'next_vit'); None selects nextvit_large
+    next_vit: Optional[NextViTConfig] = None
+    head_features_1: Optional[int] = None     # None -> features
+    head_features_2: int = 32
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -297,28 +313,6 @@ class _Tokens(nn.Module):
         return taps, (gh, gw)
 
 
-class PatchEmbed(nn.Conv2d):
-    """The p x p, stride-p patch embedding (VALID: a remainder of rows or
-    columns is dropped), computed as one matmul over the unfolded patches
-    with the conv's own weights.  In bf16 on the card the library's conv
-    for it moved `validate_sml`'s seven metrics 2-270x further from the
-    f32 host's than this matmul does (sq_rel 1.08% against 0.06%,
-    `chip_smoke.py` phase 10c)."""
-
-    def __init__(self, in_ch: int, out_ch: int, patch: int):
-        super().__init__(in_ch, out_ch, patch, patch)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C, H, W = x.shape
-        p = self.kernel_size[0]
-        gh, gw = H // p, W // p
-        x = x[:, :, :gh * p, :gw * p].reshape(B, C, gh, p, gw, p)
-        x = x.permute(0, 2, 4, 1, 3, 5).reshape(B, gh * gw, C * p * p)
-        h = F.linear(x, self.weight.reshape(self.out_channels, -1),
-                     self.bias)
-        return h.transpose(1, 2).reshape(B, self.out_channels, gh, gw)
-
-
 class ViTBackbone(_Tokens):
     """ViT / BEiT with a cls token; returns the token sequences at the
     config's hooks and the grid."""
@@ -512,69 +506,116 @@ class FusionBlockL(nn.Module):
         return self.out_conv(resize_nchw(out, size, "bilinear", True))
 
 
-class DPTScaleMapLearner(nn.Module):
+class DPTScaleMapLearner(KeepF32):
     """The DPT SML.
 
     forward(x, d): x (N, H, W, in_channels) network input, d (N, H, W, 1)
     unnormalised aligned inverse depth, both NHWC.  Returns (pred,
-    scales), both (N, H, W, 1) float32."""
+    scales), both (N, H, W, 1) float32.  The swin2 and levit backbones
+    are built for `config.net_shape` and raise on another input size.
+
+    The head's last conv (head_features_2 -> 1) runs in float32 with
+    float32 parameters whatever the model's dtype: its output is the
+    scale correction, small against its bias and its inputs' projected
+    mean, and rounding that bias to bf16 shifts every pixel alike.  With
+    it in bf16 a Swin2-L DPT's metrics lay up to 1.03% (sq_rel) from the
+    f32 host's, 0.52% with it in float32 (`chip_smoke.py` phase 11e)."""
+
+    F32_PARAMS = ("head_conv3.weight", "head_conv3.bias")
 
     def __init__(self, config: DPTConfig = DPTConfig(), device=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
         device = resolve_device(device)
-        if cfg.backbone in UNPORTED:
-            raise _unported(cfg.backbone)
-        if cfg.backbone not in ("vit", "beit", "vit_hybrid"):
+        if cfg.backbone not in BACKBONES:
             raise ValueError(f"unknown DPT backbone {cfg.backbone!r}")
-        C, rc = cfg.embed_dim, cfg.reassemble_channels
+        C, rc, f = cfg.embed_dim, cfg.reassemble_channels, cfg.features
         if cfg.backbone == "vit_hybrid":
             self.pretrained = HybridViTBackbone(cfg)
             self.reassemble3 = Reassemble(C, rc[2], 1)
             self.reassemble4 = Reassemble(C, rc[3], -2)
+        elif cfg.backbone == "swin2":
+            self.pretrained = SwinV2Backbone(cfg.swin2 or Swin2Config(),
+                                             cfg.net_shape, cfg.in_channels)
+        elif cfg.backbone == "next_vit":
+            self.pretrained = NextViTBackbone(
+                cfg.next_vit or NextViTConfig(), cfg.in_channels)
+        elif cfg.backbone == "levit":
+            self.pretrained = LeViTBackbone(cfg.levit or LeViTConfig(),
+                                            cfg.net_shape, cfg.in_channels)
         else:
             self.pretrained = ViTBackbone(cfg)
             for i, scale in enumerate((4, 2, 1, -2)):
                 self.add_module(f"reassemble{i + 1}",
                                 Reassemble(C, rc[i], scale))
-        f = cfg.features
-        for i, c in enumerate(rc):
+        # the hierarchical backbones' maps go straight into the scratch
+        # convs, at the widths of their taps
+        channels = getattr(self.pretrained, "out_channels", rc)
+        self.levels = len(channels)
+        for i, c in enumerate(channels):
             self.add_module(f"layer{i + 1}_rn",
                             nn.Conv2d(c, f, 3, 1, 1, bias=False))
-        self.refinenet4 = FusionBlockL(f, has_skip=False)
-        self.refinenet3 = FusionBlockL(f)
-        self.refinenet2 = FusionBlockL(f)
-        self.refinenet1 = FusionBlockL(f)
-        self.head_conv1 = nn.Conv2d(f, f // 2, 3, 1, 1)
-        self.head_conv2 = nn.Conv2d(f // 2, 32, 3, 1, 1)
-        self.head_conv3 = nn.Conv2d(32, 1, 1)
+        for i in range(self.levels, 0, -1):
+            self.add_module(f"refinenet{i}",
+                            FusionBlockL(f, has_skip=i != self.levels))
+        head_in = f
+        if cfg.backbone == "levit":
+            # two ConvTranspose 3x3 / 2 (torch output_padding 0: 2i - 1)
+            # with folded BN, each followed by hard-swish
+            for j, c in enumerate((f // 2, f // 4)):
+                self.add_module(f"stem_transpose_conv{j}",
+                                nn.ConvTranspose2d(head_in, c, 3, 2, 1))
+                head_in = c
+        hf1 = cfg.head_features_1 or f
+        self.head_conv1 = nn.Conv2d(head_in, hf1 // 2, 3, 1, 1)
+        self.head_conv2 = nn.Conv2d(hf1 // 2, cfg.head_features_2, 3, 1, 1)
+        self.head_conv3 = nn.Conv2d(cfg.head_features_2, 1, 1)
         place(self, device, dtype)
+
+    def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The NCHW maps that the scratch convs take."""
+        backbone = self.config.backbone
+        if backbone == "vit_hybrid":
+            (f4, f8), taps, grid = self.pretrained(x)
+            return [f4, f8, self.reassemble3(taps[0], grid),
+                    self.reassemble4(taps[1], grid)]
+        if backbone in ("swin2", "next_vit", "levit"):
+            return self.pretrained(x)
+        taps, grid = self.pretrained(x)
+        return [getattr(self, f"reassemble{i + 1}")(t, grid)
+                for i, t in enumerate(taps)]
 
     def forward(self, x: torch.Tensor, d: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
-        x = x.to(self.head_conv3.weight.dtype).permute(0, 3, 1, 2)
-        if cfg.backbone == "vit_hybrid":
-            (f4, f8), taps, grid = self.pretrained(x)
-            maps = [f4, f8, self.reassemble3(taps[0], grid),
-                    self.reassemble4(taps[1], grid)]
-        else:
-            taps, grid = self.pretrained(x)
-            maps = [getattr(self, f"reassemble{i + 1}")(t, grid)
-                    for i, t in enumerate(taps)]
-        l1, l2, l3, l4 = (getattr(self, f"layer{i + 1}_rn")(h)
-                          for i, h in enumerate(maps))
-        p4 = self.refinenet4(l4, size=l3.shape[-2:])
-        p3 = self.refinenet3(p4, l3, size=l2.shape[-2:])
-        p2 = self.refinenet2(p3, l2, size=l1.shape[-2:])
-        p1 = self.refinenet1(p2, l1)
+        x = x.to(self.head_conv1.weight.dtype).permute(0, 3, 1, 2)
+        feats = [getattr(self, f"layer{i + 1}_rn")(h)
+                 for i, h in enumerate(self.encode(x))]
+        # the deepest refinenet opens the path with no skip
+        n = self.levels
+        p = getattr(self, f"refinenet{n}")(feats[n - 1],
+                                           size=feats[n - 2].shape[-2:])
+        for i in range(n - 1, 1, -1):
+            p = getattr(self, f"refinenet{i}")(p, feats[i - 1],
+                                               size=feats[i - 2].shape[-2:])
+        p = self.refinenet1(p, feats[0])
+        if cfg.backbone == "levit":
+            for j in range(2):
+                p = F.hardswish(getattr(self, f"stem_transpose_conv{j}")(p))
 
-        h = self.head_conv1(p1)
+        h = self.head_conv1(p)
         h = resize_nchw(h, (2 * h.shape[-2], 2 * h.shape[-1]), "bilinear",
                         True)
         h = F.relu(self.head_conv2(h))
-        out = F.relu(self.head_conv3(h).float()).permute(0, 2, 3, 1)
+        out = F.relu(self.head_conv3(
+            h.to(torch.promote_types(h.dtype, torch.float32))).float())
+        if cfg.backbone == "levit" and out.shape[-2:] != d.shape[-3:-1]:
+            # levit: the transposed convs land the head at 2(2(2g-1)-1)
+            # pixels, short of the net; the scale map is aligned to the
+            # prior, bilinear with align_corners=True
+            out = resize_nchw(out, d.shape[-3:-1], "bilinear", True)
+        out = out.permute(0, 2, 3, 1)
 
         scales = F.relu(1.0 + out)
         pred = d.float() * scales

@@ -21,8 +21,12 @@ which its name alone cannot tell:
   C), -> (out, in) after flattening the head axes; its (heads, hd) bias
   is flattened;
 * any other leaf name is a raw parameter of the owner, copied as it is,
-  or transposed when the owner lists it in ``JAX_TRANSPOSED`` (BEiT's
-  ``qkv_kernel``, used as x @ W in flax and as a Linear weight here).
+  or transposed when the owner lists it in ``JAX_TRANSPOSED``: BEiT's
+  and Swin V2's ``qkv_kernel`` (used as x @ W in flax and as a Linear
+  weight here) are transposed; ``q_bias``, ``v_bias``, ``logit_scale``,
+  ``rel_pos_bias_table``, LeViT's ``attention_biases``, the cls token
+  and the position embedding are copied.  Next-ViT's ``Affine`` holds
+  its ``scale`` / ``bias`` as ``weight`` / ``bias``, as a norm does.
 
 Variables arrive as nested dicts of numpy arrays (``jax.device_get`` of
 the flax variables); a gradient tree shaped like `params` maps the same

@@ -332,3 +332,48 @@ def place(module: nn.Module, device: torch.device,
     if device.type == "cuda":
         module = module.to(memory_format=torch.channels_last)
     return module
+
+
+class PatchEmbed(nn.Conv2d):
+    """The p x p, stride-p patch embedding (VALID: a remainder of rows or
+    columns is dropped), computed as one matmul over the unfolded patches
+    with the conv's own weights.  In bf16 on the card the library's conv
+    for it moved `validate_sml`'s seven metrics 2-270x further from the
+    f32 host's than this matmul does (sq_rel 1.08% against 0.06%,
+    `chip_smoke.py` phase 10c).  The DPT ViT / BEiT and Swin backbones
+    use it."""
+
+    def __init__(self, in_ch: int, out_ch: int, patch: int):
+        super().__init__(in_ch, out_ch, patch, patch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        p = self.kernel_size[0]
+        gh, gw = H // p, W // p
+        x = x[:, :, :gh * p, :gw * p].reshape(B, C, gh, p, gw, p)
+        x = x.permute(0, 2, 4, 1, 3, 5).reshape(B, gh * gw, C * p * p)
+        h = F.linear(x, self.weight.reshape(self.out_channels, -1),
+                     self.bias)
+        return h.transpose(1, 2).reshape(B, self.out_channels, gh, gw)
+
+
+class KeepF32(nn.Module):
+    """A module whose parameters named in `F32_PARAMS` (dotted names under
+    it) never drop below float32: `.to(bfloat16)` and the like leave them
+    float32 with their values untouched, as flax keeps every parameter in
+    float32 whatever a module's compute dtype.  For the small parameters
+    that the JAX modules use only in float32 arithmetic (Swin V2's logit
+    scale and position-bias MLP, the relative-position and attention-bias
+    tables added to float32 logits)."""
+
+    F32_PARAMS: Tuple[str, ...] = ()
+
+    def _apply(self, fn, recurse=True):
+        kept = {name: p.detach().clone() for name, p in
+                self.named_parameters() if name in self.F32_PARAMS}
+        super()._apply(fn, recurse)
+        for name, p in self.named_parameters():
+            if (name in kept and p.is_floating_point()
+                    and p.element_size() < 4):
+                p.data = kept[name].to(p.device, torch.float32)
+        return self

@@ -94,21 +94,25 @@ def dpt_inputs(rng, net, B=2):
     return x, d
 
 
-def _forwards(cfg, variables, x, d, dtype):
-    """(JAX, port) (pred, scales) as numpy, both networks in `dtype`."""
+def dpt_forwards(jconfig, tconfig, variables, x, d, dtype):
+    """(JAX, port) (pred, scales) as numpy of the DPTs of `jconfig` and
+    `tconfig` on the same variables, both networks in `dtype`."""
     jtype, ttype = {"f32": (jnp.float32, torch.float32),
                     "f64": (jnp.float64, torch.float64)}[dtype]
     with jax.enable_x64(dtype == "f64"):
         v = jax.tree.map(lambda a: np.asarray(a, jtype), variables)
-        model = jdpt.DPTScaleMapLearner(config=jdpt.DPTConfig(**cfg),
-                                        dtype=jtype)
+        model = jdpt.DPTScaleMapLearner(config=jconfig, dtype=jtype)
         want = jax.jit(model.apply)(v, x, d)
         want = [np.asarray(w) for w in want]
-    port = dpt_from_jax(tdpt.DPTConfig(**cfg), variables, device="cpu",
-                        dtype=ttype)
+    port = dpt_from_jax(tconfig, variables, device="cpu", dtype=ttype)
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(d))
     return want, [g.numpy() for g in got]
+
+
+def _forwards(cfg, variables, x, d, dtype):
+    return dpt_forwards(jdpt.DPTConfig(**cfg), tdpt.DPTConfig(**cfg),
+                        variables, x, d, dtype)
 
 
 @pytest.mark.parametrize("backbone,net,dims", [
@@ -218,10 +222,21 @@ def test_beit_rel_pos_index_matches_jax(grid):
 
 
 def test_unported_backbones_raise():
-    for backbone in ("swin2", "levit", "next_vit"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            tdpt.DPTScaleMapLearner(tdpt.DPTConfig(backbone=backbone),
-                                    "cpu")
+    """Every backbone builds at its default (full-size) plan on the meta
+    device, swin2 and levit at the nets of their rows; a swin2 net that
+    its windows do not divide and an unknown backbone raise
+    ValueError."""
+    nets = {"swin2": (384, 384), "levit": (224, 224)}
+    for backbone in tdpt.BACKBONES:
+        with torch.device("meta"):
+            model = tdpt.DPTScaleMapLearner(tdpt.DPTConfig(
+                backbone=backbone,
+                net_shape=nets.get(backbone, (384, 384))), "meta")
+        assert model.levels == (3 if backbone == "levit" else 4)
+    for cfg in (tdpt.DPTConfig(backbone="swin2"),
+                tdpt.DPTConfig(backbone="resnet")):
+        with pytest.raises(ValueError), torch.device("meta"):
+            tdpt.DPTScaleMapLearner(cfg, "meta")
 
 
 # ---- one SML training step ----------------------------------------------
@@ -229,17 +244,18 @@ def test_unported_backbones_raise():
 STEP_NET = (64, 96)       # grid 4x6 against the pretrained 4x4
 
 
-def _step_configs():
-    return [c.replace(sml=dataclasses.replace(c.sml, net_shape=STEP_NET))
+def _step_configs(net=STEP_NET):
+    return [c.replace(sml=dataclasses.replace(c.sml, net_shape=net))
             for c in _configs()]
 
 
-def _step_variables(rng):
-    model = jdpt.DPTScaleMapLearner(config=jdpt.DPTConfig(
-        net_shape=STEP_NET, backbone="beit", **TINY))
-    variables = jax_variables(model, rng, *dpt_inputs(rng, STEP_NET, 1))
-    # a small head keeps scales = relu(1 + out) near 1 and the
-    # prediction inside its clamps (test_torch_training.py's reason)
+def step_variables(jconfig, rng):
+    """`seeded` variables of the DPT of `jconfig`, with a small head: it
+    keeps scales = relu(1 + out) near 1 and the prediction inside its
+    clamps (test_torch_training.py's reason)."""
+    model = jdpt.DPTScaleMapLearner(config=jconfig)
+    variables = jax_variables(model, rng,
+                              *dpt_inputs(rng, jconfig.net_shape, 1))
     head = variables["params"]["head_conv3"]
     head["kernel"] = (0.02 * head["kernel"]).astype(np.float32)
     head["bias"][:] = 0.1
@@ -247,29 +263,26 @@ def _step_variables(rng):
     return variables
 
 
-def test_dpt_sml_step_matches_jax():
-    """The loss and its terms in f32; every gradient with both networks
-    in f64 (stage 1 and the loss stay f32, and BEiT's softmax runs in
-    f32 in both packages), by key, at rtol 1e-4 with atol 1e-4 of the
-    tensor's max abs."""
-    rng = np.random.default_rng(12)
-    jcfg, tcfg = _step_configs()
-    variables = _step_variables(rng)
+def check_dpt_step(jconfig, tconfig, rng):
+    """One SML training step of each package's DPT from the same
+    variables: the loss and its terms in f32; every gradient with both
+    networks in f64 (stage 1 and the loss stay f32, and what the JAX
+    modules cast to f32 stays f32 in both), by key, at rtol 1e-4 with
+    atol 1e-4 of the tensor's max abs."""
+    jcfg, tcfg = _step_configs(tuple(tconfig.net_shape))
+    variables = step_variables(jconfig, rng)
     batch = _sml_batch(rng)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     step = tst.make_train_step(tcfg)
     stash = _grad_stash()
 
     def jax_step(dtype, v):
-        model = jdpt.DPTScaleMapLearner(config=jdpt.DPTConfig(
-            net_shape=STEP_NET, backbone="beit", **TINY), dtype=dtype)
+        model = jdpt.DPTScaleMapLearner(config=jconfig, dtype=dtype)
         return jax.jit(jst.make_train_step(jcfg, model, stash))(
             _jax_state(v, stash), jbatch)
 
     def port(dtype, v):
-        model = dpt_from_jax(tdpt.DPTConfig(
-            net_shape=STEP_NET, backbone="beit", **TINY), v, device="cpu",
-            dtype=dtype)
+        model = dpt_from_jax(tconfig, v, device="cpu", dtype=dtype)
         _, info = step(tst.init_train_state(tcfg, model, STEPS_PER_EPOCH),
                        batch)
         return model, info
@@ -295,36 +308,44 @@ def test_dpt_sml_step_matches_jax():
                                    err_msg=key)
 
 
+def test_dpt_sml_step_matches_jax():
+    """The tiny BEiT DPT at net 64x96 (BEiT's softmax runs in f32 in both
+    packages)."""
+    cfg = dict(net_shape=STEP_NET, backbone="beit", **TINY)
+    check_dpt_step(jdpt.DPTConfig(**cfg), tdpt.DPTConfig(**cfg),
+                   np.random.default_rng(12))
+
+
 # ---- validate_sml ---------------------------------------------------------
 
 STEPS = (1, 2)
 
 
-def test_validate_sml_with_a_dpt_matches_jax(tmp_path, monkeypatch):
-    """Both packages' validate_sml over two checkpoints of the same tiny
-    BEiT DPT weights, each in its own format, on the mini dataset: every
+def check_validate_sml(root, monkeypatch, jconfig, tconfig, model_type,
+                       seed):
+    """Both packages' validate_sml over two checkpoints of the same
+    weights of the DPTs of `jconfig` / `tconfig`, each in its own
+    format, on the mini dataset under `root` at the DPT's net: every
     step's seven metrics and the best bundle within rtol 1e-3 (the bar of
     test_torch_drivers.py), the same best step."""
-    root = str(tmp_path)
     make_mini_dataset(root, ["scene-a", "scene-b"])
-    jcfg, tcfg = mini_configs(root)
-    net = jcfg.sml.net_shape
     jcfg, tcfg = (c.replace(sml=dataclasses.replace(
-        c.sml, model_type="dpt-beit-base")) for c in (jcfg, tcfg))
-    dcfg = dict(TINY, net_shape=net, backbone="beit")
-    jmodel = jdpt.DPTScaleMapLearner(config=jdpt.DPTConfig(**dcfg))
+        c.sml, model_type=model_type, net_shape=tuple(tconfig.net_shape)))
+        for c in mini_configs(root))
+    jmodel = jdpt.DPTScaleMapLearner(config=jconfig)
     template = _zeros(_abstract_state(jst.init_train_state, jcfg, jmodel))
-    rng = np.random.default_rng(31)
+    rng = np.random.default_rng(seed)
     dirs = {k: os.path.join(root, "ckpt", k) for k in ("jax", "torch")}
     for step in STEPS:
-        variables = jax_variables(jmodel, rng, *dpt_inputs(rng, net, 1))
+        variables = jax_variables(jmodel, rng, *dpt_inputs(
+            rng, tconfig.net_shape, 1))
         head = variables["params"]["head_conv3"]
         head["kernel"] = (1e-3 * head["kernel"]).astype(np.float32)
         head["bias"][:] = 0.02 * step
         jckpt.save_train_state(dirs["jax"], template.replace(
             step=jnp.int32(step), params=variables["params"]))
         state = tst.init_train_state(tcfg, dpt_from_jax(
-            tdpt.DPTConfig(**dcfg), variables, device="cpu"), 1)
+            tconfig, variables, device="cpu"), 1)
         state.step = step
         tckpt.save_train_state(dirs["torch"], state)
 
@@ -332,11 +353,10 @@ def test_validate_sml_with_a_dpt_matches_jax(tmp_path, monkeypatch):
                         lambda *a, **k: (template, None))
     monkeypatch.setattr(jdrivers, "build_sml_model",
                         lambda cfg, dtype=jnp.float32:
-                        jdpt.DPTScaleMapLearner(
-                            config=jdpt.DPTConfig(**dcfg), dtype=dtype))
+                        jdpt.DPTScaleMapLearner(config=jconfig, dtype=dtype))
     monkeypatch.setattr(tdrivers, "build_sml_model",
                         lambda cfg, device, dtype: tdpt.DPTScaleMapLearner(
-                            tdpt.DPTConfig(**dcfg), device, dtype))
+                            tconfig, device, dtype))
     bundles = {"jax": [], "torch": []}
     for name, mod in (("jax", jdrivers.metrics_lib),
                       ("torch", tdrivers.metrics_lib)):
@@ -354,3 +374,10 @@ def test_validate_sml_with_a_dpt_matches_jax(tmp_path, monkeypatch):
         for k in tmetrics.METRIC_KEYS:
             assert np.isfinite(b[k]), k
             np.testing.assert_allclose(b[k], a[k], rtol=1e-3, err_msg=k)
+
+
+def test_validate_sml_with_a_dpt_matches_jax(tmp_path, monkeypatch):
+    """The tiny BEiT DPT at the mini configs' net (64x96)."""
+    cfg = dict(TINY, net_shape=(64, 96), backbone="beit")
+    check_validate_sml(str(tmp_path), monkeypatch, jdpt.DPTConfig(**cfg),
+                       tdpt.DPTConfig(**cfg), "dpt-beit-base", 31)

@@ -261,10 +261,12 @@ def test_validate_sml_matches_jax(setup, jax_templates, tiny_sml, tmp_path,
                                    rtol=2e-2, err_msg=k)
 
 
-def test_validate_sml_refuses_unported_families(setup):
-    root, dirs, _ = setup
-    _, tcfg = mini_configs(root)
-    cfg = tcfg.replace(sml=dataclasses.replace(tcfg.sml,
-                                               model_type="dpt-swin2-large"))
-    with pytest.raises(NotImplementedError, match="dpt-swin2-large"):
-        tdrivers.validate_sml(cfg, dirs["torch_sml"], device="cpu")
+def test_validate_sml_refuses_unported_families(tmp_path, monkeypatch):
+    """The Swin V2 row through validate_sml: a tiny Swin V2 DPT (net
+    64x64, window 4) in both packages over two checkpoints of the same
+    weights on the mini dataset, every step's metrics within rtol 1e-3
+    and the same best step (test_torch_dpt.py's check)."""
+    from test_torch_dpt import check_validate_sml
+    from test_torch_swin2 import dpt_configs
+    check_validate_sml(str(tmp_path), monkeypatch, *dpt_configs(),
+                       "dpt-swin2-tiny", 33)

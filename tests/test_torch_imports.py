@@ -57,7 +57,8 @@ def test_package_imports_without_cuda_nvcc_or_triton(tmp_path):
         "need = ['cli', 'ops.interp', 'io.native', 'io.pfm',\n"
         "        'io.preprocess.project', 'io.preprocess.projection',\n"
         "        'core.normalization', 'pipelines.drivers', 'models.dpt',\n"
-        "        'models.factory', 'models.convert']\n"
+        "        'models.factory', 'models.convert', 'models.swin2',\n"
+        "        'models.levit', 'models.next_vit']\n"
         "assert all('riders_tpu_torch.' + m in sys.modules for m in need)\n"
         "bad = [m for m in ('jax', 'flax', 'triton', 'riders_tpu')\n"
         "       if m in sys.modules]\n"
