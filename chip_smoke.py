@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's fused inference path, its RC-Net and
 SML training steps, its staged inference, serving and drivers, its
-command line (training, inference and preprocessing) and its DPT Scale
-Map Learner on one GPU.
+command line (training, inference and preprocessing), its DPT Scale
+Map Learner and RC-Net's other forms on one GPU.
 
     python3 chip_smoke.py                 # all phases, report lines
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
@@ -15,11 +15,13 @@ Map Learner on one GPU.
     python3 chip_smoke.py --dpt           # phase 1, then phases 10 and
                                           # 11 alone on a dataset of
                                           # their own
+    python3 chip_smoke.py --variants      # phase 1, then phase 12 alone
 
 Kernel times: `ms` is the median of synchronised calls (host dispatch
-counts in); `graph_ms` replays 20 calls captured in one CUDA graph
-between two events, over 20: the device's time alone (B1, B2, B4, B6,
-B8); `device_ms` times 20 calls queued back to back (B5, B7, B8).
+counts in); `graph_ms` replays 20 calls (10 in phase 12) captured in one
+CUDA graph between two events, over that count: the device's time alone
+(B1, B2, B4, B6, B8); `device_ms` times 20 calls queued back to back
+(B5, B7, B8).
 
 Phases, each fatal on failure:
   1. set-up: the card, the versions, the nvcc build of csrc/*.cu;
@@ -128,11 +130,31 @@ Phases, each fatal on failure:
      by phase 7's rule, Swin2-T at 128x128, LeViT at 64x64, Next-ViT at
      64x96; (e) `validate_sml` of a step-0 checkpoint of Swin2-L, bf16 on
      the card against f32 on the host CPU: the seven metrics within 1%.
+  12. RC-Net in its other forms and B1's general kernel: (a) the general
+     stem kernel (csrc/stem_general.cu) against its plain version on the
+     NTU bench frame (B=16, 662x690 bf16) at (Cin, Cout, k) = (3, 64,
+     7), (1, 32, 7), (3, 8, 7), (3, 16, 3), (3, 32, 11) and slopes 0.2,
+     0, 1 (one bf16 step; each call one `stem_general` launch, and (3,
+     32, 7) one `stem` launch), with synchronised and graph times of the
+     kernel, the plain version and cuDNN's conv + leaky + pool, and the
+     bound; (b) the variants at full width on seeded random weights, the
+     counters reset just before each, beside the preset's plain call:
+     V1 `use_batch_norm=False` (NTU B=16, `make_fused_fn`), V2
+     `n_resolution=3` (ZJU B=4: NTU's 150x50 patch pools to a pyramid
+     that does not double, where both packages fail) through
+     `make_fused_fn` and through `RCNet(return_all_scales=True)`, V3
+     stem width 64 (NTU B=16, `make_fused_fn`), V4 one input channel
+     (NTU B=16, RC-Net's forward on a one-channel frame): each call one
+     launch of its stem kernel, one RoI pool launch (and compose); (c)
+     each variant's bf16 card output against the port's f32 CPU output
+     by phase 4's rule (V4's masked logits); (d) one f32 training step
+     of the BN-free n_resolution 3 RC-Net (ZJU) on the card against the
+     CPU's by phase 7's rule.
 Report lines: the card's name and power limit, one {"kernels": [...]}
 line, one fused line, one lane_decoder line, one training line, one
-staged line, one training_cli line, one dpt line, one dpt_families line;
-the last line is {"ok": true, "device": {...}}.  Details go to
-chiprun_out/chip_smoke.json.
+staged line, one training_cli line, one dpt line, one dpt_families line,
+one rcnet_variants line; the last line is {"ok": true, "device":
+{...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
 import copy
@@ -284,6 +306,24 @@ def pyramid_inputs(geometry, B, g):
     return maps, boxes.contiguous(), points, batch["point_mask"]
 
 
+def stem_max_err(k_maps, p_maps, what):
+    """The stem kernel's max abs error against the plain version over
+    both outputs, raising on a shape mismatch or beyond one bf16 step."""
+    import torch
+    err = 0.0
+    for a, b in zip(k_maps, p_maps):
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: shape {a.shape} vs {b.shape}")
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        err = max(err, float(diff.max()))
+        limit = STEM_TOL[0] * torch.maximum(a.abs(), b.abs()) + STEM_TOL[1]
+        if not bool((diff <= limit).all()):
+            raise AssertionError(f"{what}: max err {err} beyond one bf16 "
+                                 f"step")
+    return err
+
+
 def check_kernels(geometry, B=16):
     """Each kernel against its plain version at the fused path's shapes;
     returns {kernel name: record}."""
@@ -314,19 +354,8 @@ def check_kernels(geometry, B=16):
         k_maps = stem.stem_conv_pool(x, w, scale, bias, **slope)
         p_maps = stem.stem_conv_pool_plain(x, w, scale, bias, **slope)
         torch.cuda.synchronize()
-        err = 0.0
-        for a, b in zip(k_maps, p_maps):
-            if a.shape != b.shape:
-                raise AssertionError(f"stem shape {a.shape} vs {b.shape}")
-            a, b = a.float(), b.float()
-            diff = (a - b).abs()
-            err = max(err, float(diff.max()))
-            limit = (STEM_TOL[0] * torch.maximum(a.abs(), b.abs())
-                     + STEM_TOL[1])
-            if not bool((diff <= limit).all()):
-                raise AssertionError(f"stem {geometry} {slope}: max err "
-                                     f"{err} beyond one bf16 step")
-        return err, k_maps
+        return stem_max_err(k_maps, p_maps, f"stem {geometry} {slope}"), \
+            k_maps
 
     err, (k_out, k_pool) = stem_err()
     # relu and linear, where the tree's stem takes a slope (a parent tree
@@ -546,26 +575,60 @@ def drive(preset, B, seed=0):
     return record, fn, batches[1], rcnet
 
 
-def reference_agreement(seed=3):
+def variant_config(preset, frame, K, **rcnet):
+    """The preset at `frame` with a K-point bucket and its RC-Net config
+    changed by `rcnet`."""
+    import dataclasses
+    cfg = train_config(preset)
+    return cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, image_shape=frame,
+                                    max_points=K),
+        rcnet=dataclasses.replace(cfg.rcnet, **rcnet))
+
+
+def rcnet_call(cfg, rcnet, batch, return_logits=False, **kw):
+    """RC-Net's forward on a make_batch batch as the fused path calls it
+    (edge-padded frame, shifted points and boxes), its frame cut to the
+    model's input channels; masked responses (or logits)."""
+    import torch
+    from riders_tpu_torch.ops.resize import edge_pad2d
+    from riders_tpu_torch.pipelines.rcnet_inference import (
+        shift_points_and_boxes)
+    ph, pw = cfg.rcnet.patch_size
+    dtype = next(rcnet.parameters()).dtype
+    dev = next(rcnet.parameters()).device
+    image = batch["image"][..., :cfg.rcnet.input_channels_image]
+    padded = edge_pad2d(image.to(dev, dtype), ph // 2, pw // 2)
+    points, boxes = shift_points_and_boxes(batch["radar_points"].to(dev),
+                                           (ph, pw))
+    with torch.inference_mode():
+        return rcnet(padded, points, boxes, batch["point_mask"].to(dev),
+                     return_logits=return_logits, **kw)
+
+
+def reference_agreement(seed=3, preset="ntu", rcnet=None, path="fused"):
     """The card's bf16 path against the port's f32 CPU path, same seeded
-    weights, a small frame at full NTU widths.  bf16 alone moves depth
-    by a few percent on these random weights (their SML activations grow
-    to ~100), so the bar is the CPU's own bf16-vs-f32 spread: the card's
-    median relative error must stay within 1.5x of it plus 0.5%."""
+    weights, a small frame at the preset's full widths (`rcnet` changes
+    its RC-Net config; `path` "rcnet" compares RC-Net's masked logits
+    alone, not fused depth: its random-weight responses saturate at 0
+    and 1).  bf16 alone moves depth by a few percent on these
+    random weights (their SML activations grow to ~100), so the bar is
+    the CPU's own bf16-vs-f32 spread: the card's median relative error
+    must stay within 1.5x of it plus 0.5%."""
     import dataclasses
     import torch
-    from riders_tpu_torch.core.config import ntu_config
     from riders_tpu_torch.pipelines.fused import make_fused_fn
 
     frame, B, K, n_real = (128, 160), 2, 8, 6
-    cfg = ntu_config()
-    cfg = cfg.replace(dataset=dataclasses.replace(
-        cfg.dataset, image_shape=frame, max_points=K),
-        sml=dataclasses.replace(cfg.sml, net_shape=(96, 128)))
+    cfg = variant_config(preset, frame, K, **(rcnet or {}))
+    cfg = cfg.replace(sml=dataclasses.replace(cfg.sml, net_shape=(96, 128)))
     batch = make_batch(seed, B, K, n_real, frame, "cpu")
 
     def run(device, dtype):
         models = build_models(cfg, seed, device, dtype)
+        if path == "rcnet":
+            return rcnet_call(cfg, models[0], batch,
+                              return_logits=True).float().cpu()
         return make_fused_fn(cfg, *models, device=device)(batch).cpu()
 
     ref = run("cpu", torch.float32)
@@ -1214,16 +1277,17 @@ def checkpoint_round_trip(state, template):
                 restore_s=restore_s, tensors=len(want) + len(o_want))
 
 
-def training_agreement(seed=5):
+def training_agreement(seed=5, preset="ntu", rcnet=None):
     """One RC-Net training step on the card in f32 against the port's f32
-    CPU step: the same seeded weights at full NTU widths, a small frame,
-    B=2 with 4 points.  The loss to rtol 1e-4.  Each gradient's max abs
-    error, relative to its max abs, within 1e-3, or within 3x the CPU's
-    own spread for that tensor: the largest change of the CPU's gradient
-    when a random half of the input pixels moves by one f32 ulp (two
-    draws).  At random initialisation the train-mode network is that
-    sensitive: such a nudge moves some of the CPU's own gradients by
-    several percent.  The padded frame is random everywhere, not edge-
+    CPU step: the same seeded weights at the preset's full widths (NTU
+    unless `preset` says otherwise; `rcnet` changes its RC-Net config), a
+    small frame, B=2 with 4 points.  The loss to rtol 1e-4.  Each
+    gradient's max abs error, relative to its max abs, within 1e-3, or
+    within 3x the CPU's own spread for that tensor: the largest change
+    of the CPU's gradient when a random half of the input pixels moves
+    by one f32 ulp (two draws).  At random initialisation the train-mode
+    network is that sensitive: such a nudge moves some of the CPU's own
+    gradients by several percent.  The padded frame is random everywhere, not edge-
     padded: edge padding makes exactly tied maxima in the border, where
     the RoI backward sends each tied element the full cotangent, so any
     rounding that breaks a tie moves a gradient by whole cotangents."""
@@ -1233,9 +1297,10 @@ def training_agreement(seed=5):
     from riders_tpu_torch.models.rcnet import RCNet
     from riders_tpu_torch.pipelines import rcnet_training
 
-    cfg = train_config("ntu")
+    cfg = train_config(preset)
     cfg = cfg.replace(
         dataset=dataclasses.replace(cfg.dataset, image_shape=(96, 128)),
+        rcnet=dataclasses.replace(cfg.rcnet, **(rcnet or {})),
         rcnet_train=dataclasses.replace(cfg.rcnet_train, points_per_frame=4))
     batch = make_rcnet_train_batch(cfg, seed, "cpu", B=2)
     image = torch.rand(batch["image"].shape,
@@ -2572,8 +2637,287 @@ def dpt_only(smi, profile_dir):
         dict(dpt=dpt, dpt_families=families), indent=1))
     log(json.dumps(dpt_line(smi, dpt)))
     log(json.dumps(families_line(smi, families)))
+    log(json.dumps({"rcnet_variants": variants_line(smi, variants)}))
     log(smi)
     return 0
+
+
+# phase 12: B1's general form and the RC-Net variants
+STEM_GENERAL_CASES = ((3, 64, 7), (1, 32, 7), (3, 8, 7), (3, 16, 3),
+                      (3, 32, 11))          # (Cin, Cout, k)
+VARIANTS = {
+    # name: (preset, batch, RC-Net config changes, path, stem kernel)
+    "v1_no_bn": ("ntu", 16, dict(use_batch_norm=False), "fused", "stem"),
+    "v2_res3": ("zju", 4, dict(n_resolution=3), "fused", "stem"),
+    "v2_res3_all_scales": ("zju", 4, dict(n_resolution=3), "all_scales",
+                           "stem"),
+    "v3_stem64": ("ntu", 16, dict(n_filters_encoder_image=(
+        64, 64, 128, 128, 128)), "fused", "stem_general"),
+    "v4_cin1": ("ntu", 16, dict(input_channels_image=1), "rcnet",
+                "stem_general"),
+}
+
+
+def check_stem_general(B=16):
+    """Phase 12a: B1's general kernel against `stem_conv_pool_plain` on
+    the NTU bench frame (B=16, 662x690 bf16) at each of
+    STEM_GENERAL_CASES and slopes 0.2, 0 and 1 (one bf16 step, each call
+    one `stem_general` launch and no `stem` launch; (3, 32, 7) one `stem`
+    launch and no `stem_general`), with the synchronised and graph times
+    of the kernel, the plain version and the cuDNN yardstick (conv with
+    the folded weights and bias + leaky relu + max pool) at slope 0.2,
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from riders_tpu_torch.ops.kernels import LAUNCHES, stem
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    ph, pw = GEOMETRIES["ntu"]["patch"]
+    H, W = FRAME[0] + 2 * (ph // 2), FRAME[1] + 2 * (pw // 2)
+    out = {}
+    for cin, cout, k in STEM_GENERAL_CASES + ((3, 32, 7),):
+        kind = "stem" if (cin, cout, k) == (3, 32, 7) else "stem_general"
+        x = torch.rand((B, H, W, cin), generator=g, device=dev).to(
+            torch.bfloat16)
+        w = torch.randn((cout, cin, k, k), generator=g, device=dev) * (
+            2.0 / (cin * k * k)) ** 0.5
+        scale = 0.5 + torch.rand(cout, generator=g, device=dev)
+        bias = 0.1 * torch.randn(cout, generator=g, device=dev)
+        errs = {}
+        for slope in (0.2, 0.0, 1.0):
+            before = dict(LAUNCHES)
+            k_maps = stem.stem_conv_pool(x, w, scale, bias, slope)
+            torch.cuda.synchronize()
+            launched = {n: LAUNCHES[n] - before.get(n, 0)
+                        for n in ("stem", "stem_general")}
+            if launched != {n: int(n == kind) for n in launched}:
+                raise AssertionError(f"stem {(cin, cout, k)}: launched "
+                                     f"{launched}, expected one {kind}")
+            p_maps = stem.stem_conv_pool_plain(x, w, scale, bias, slope)
+            errs[slope] = stem_max_err(k_maps, p_maps,
+                                       f"stem {(cin, cout, k)} {slope}")
+        k_out, k_pool = k_maps
+        del k_maps, p_maps
+        if kind == "stem":
+            out["routing_3_32_7"] = dict(kind=kind, max_abs_err=max(
+                errs.values()))
+            continue
+        wf = (w * scale[:, None, None, None]).to(torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        xc = x.permute(0, 3, 1, 2)
+        bb = bias.to(torch.bfloat16)
+
+        def library_stem():
+            y = F.leaky_relu(F.conv2d(xc, wf, bb, stride=2,
+                                      padding=k // 2), 0.2)
+            return y, F.max_pool2d(y, 3, 2, 1)
+
+        nbytes = (2 * (x.numel() + k_out.numel() + k_pool.numel())
+                  + 4 * (w.numel() + 2 * cout))
+        flops = 2.0 * k_out.numel() * k * k * cin
+        bnd, by = bound_ms(nbytes, flops)
+        run = lambda: stem.stem_conv_pool(x, w, scale, bias)
+        rec = dict(
+            cin=cin, cout=cout, k=k, plan=list(stem.general_plan(cin, cout,
+                                                                 k)),
+            max_abs_err=max(errs.values()),
+            slope_max_abs_errs={str(s): e for s, e in errs.items()},
+            tolerance="|k-p| <= 2^-7 max(|k|,|p|) + 1e-4",
+            ms=time_ms(run, n=10), graph_ms=graph_ms(run, n=10, replays=3),
+            plain_ms=time_ms(lambda: stem.stem_conv_pool_plain(
+                x, w, scale, bias), n=5, warmup=1),
+            library_ms=time_ms(library_stem, n=10),
+            library_graph_ms=graph_ms(library_stem, n=10, replays=3),
+            bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
+            shapes=dict(x=list(x.shape), out=list(k_out.shape),
+                        pooled=list(k_pool.shape)))
+        rec["bound_share_of_graph"] = bnd / rec["graph_ms"]
+        out[f"{cin}_{cout}_{k}"] = rec
+        del x, k_out, k_pool
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_variant(name, seed=0, n=3):
+    """Phase 12b: one RC-Net variant of VARIANTS at its preset's full
+    widths (640x512 frames, its bucket and real points, bf16, seeded
+    random weights), through `make_fused_fn`, RC-Net's forward with
+    `return_all_scales=True`, or RC-Net's forward alone: n calls with the
+    launch counters reset just before, each call one launch of the
+    variant's stem kernel (none of the other), one RoI pool launch and,
+    on the fused path, at least one compose launch; finite outputs of
+    the expected shapes; ms per call."""
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.pipelines.fused import make_fused_fn
+
+    preset, B, rc, path, kind = VARIANTS[name]
+    geo = GEOMETRIES[preset]
+    cfg = variant_config(preset, FRAME, geo["bucket"], **rc)
+    rcnet, sml = build_models(cfg, seed, None, torch.bfloat16)
+    batches = [make_batch(seed + 10 + i, B, geo["bucket"], geo["real"],
+                          FRAME, "cuda") for i in range(n)]
+    ph, pw = cfg.rcnet.patch_size
+    if path == "fused":
+        fn = make_fused_fn(cfg, rcnet, sml)
+    else:
+        fn = lambda b: rcnet_call(cfg, rcnet, b, return_all_scales=(
+            path == "all_scales"))
+    fn(batches[0])                              # first call: cuDNN set-up
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    outs = [fn(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    other = "stem_general" if kind == "stem" else "stem"
+    if (launches.get(kind, 0) != n or launches.get(other, 0)
+            or launches.get("roi_pool", 0) != n
+            or (path == "fused" and launches.get("compose", 0) < n)):
+        raise AssertionError(f"{name}: launches {launches} in {n} calls; "
+                             f"expected one {kind} and one roi_pool a call"
+                             + (" and compose" if path == "fused" else ""))
+    K = geo["bucket"]
+    if path == "fused":
+        shapes = [(B,) + FRAME]
+    elif path == "all_scales":
+        shapes = [(B, K, ph >> s, pw >> s, 1) for s in (2, 1, 0)]
+    else:
+        shapes = [(B, K, ph, pw, 1)]
+    for o in outs:
+        o = o if isinstance(o, list) else [o]
+        got = [tuple(t.shape) for t in o]
+        if got != shapes:
+            raise AssertionError(f"{name}: output shapes {got}, expected "
+                                 f"{shapes}")
+        if not all(bool(torch.isfinite(t).all()) for t in o):
+            raise AssertionError(f"{name}: non-finite output")
+    rec = dict(preset=preset, batch=B, bucket=K, real_points=geo["real"],
+               frame=list(FRAME), rcnet=rc, path=path, stem_kernel=kind,
+               launches=launches, ms_per_call=time_ms(
+                   lambda: fn(batches[1]), n=5, warmup=1))
+    if path == "fused":
+        rec["positive_share"] = float((outs[0] > 0).float().mean())
+        if rec["positive_share"] <= 0.95:
+            raise AssertionError(f"{name}: {rec}")
+    if path == "all_scales":
+        last = rcnet_call(cfg, rcnet, batches[0])
+        rec["last_scale_vs_default_max_abs"] = float(
+            (last.float() - outs[0][-1].float()).abs().max())
+        if rec["last_scale_vs_default_max_abs"] > 2 ** -7:
+            raise AssertionError(f"{name}: the last scale is not the "
+                                 f"default return: {rec}")
+    del fn, rcnet, sml, batches, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def variants_phase(baseline_ms=None):
+    """Phase 12: (a) B1's general kernel against its plain version, (b)
+    the RC-Net variants at full width with the counters reset just
+    before each, beside the preset's plain call (phase 3's when given,
+    else timed here), (c) each variant's bf16 card output against the
+    port's f32 CPU output by phase 4's rule, (d) one f32 training step
+    of the BN-free n_resolution 3 RC-Net on the card against the CPU's
+    by phase 7's rule (ZJU: NTU's 150x50 patch pools to a pyramid that
+    does not double from scale to scale, where n_resolution > 1 fails in
+    both packages)."""
+    t0 = time.perf_counter()
+    rec = dict(stem_general=check_stem_general())
+    rec["stem_general_s"] = time.perf_counter() - t0
+    baseline_ms = dict(baseline_ms or {})
+    for preset in ("ntu", "zju"):
+        if preset not in baseline_ms:
+            B = 16 if preset == "ntu" else 4
+            baseline_ms[preset] = drive(preset, B)[0]["ms_per_call"]
+    rec["baseline_ms_per_call"] = baseline_ms
+    rec["variants"] = {name: drive_variant(name) for name in VARIANTS}
+    for name, v in rec["variants"].items():
+        v["preset_ms_per_call"] = baseline_ms[v["preset"]]
+    rec["agreement"] = {
+        "v1_no_bn": reference_agreement(preset="ntu", rcnet=dict(
+            use_batch_norm=False)),
+        "v2_res3": reference_agreement(preset="zju", rcnet=dict(
+            n_resolution=3)),
+        "v3_stem64": reference_agreement(preset="ntu", rcnet=dict(
+            n_filters_encoder_image=(64, 64, 128, 128, 128))),
+        "v4_cin1": reference_agreement(preset="ntu", rcnet=dict(
+            input_channels_image=1), path="rcnet")}
+    rec["training_agreement"] = training_agreement(
+        preset="zju", rcnet=dict(use_batch_norm=False, n_resolution=3))
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def log_variants(var):
+    for name, r in var["stem_general"].items():
+        log(f"stem general {name}: {json.dumps(r)}")
+    for name, r in var["variants"].items():
+        log(f"variant {name}: {json.dumps(r)}")
+    for name, r in var["agreement"].items():
+        log(f"variant agreement {name}: {json.dumps(r)}")
+    log(f"variant training agreement: "
+        f"{json.dumps(var['training_agreement'])}")
+
+
+def stem_general_line(var, launches):
+    """The B1-general entry of the {"kernels": [...]} line: the numbers of
+    the (3, 64, 7) case (the 64-wide stem of phase 12b), every case
+    beside them, and the launches of phase 12b's runs."""
+    cases = {k: v for k, v in var["stem_general"].items() if "cin" in v}
+    r = cases["3_64_7"]
+    return dict(
+        name="stem_general", route="cuda",
+        source="riders_tpu_torch/csrc/stem_general.cu",
+        replaces="riders_tpu/ops/pallas/stem.py:95", launches=launches,
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        graph_ms=r["graph_ms"], library_graph_ms=r["library_graph_ms"],
+        cases={k: {f: c[f] for f in ("ms", "graph_ms", "plain_ms",
+                                     "library_ms", "library_graph_ms",
+                                     "bound_ms", "bound_by",
+                                     "max_abs_err")}
+               for k, c in cases.items()})
+
+
+def variants_only(smi):
+    """`--variants`: phase 1, then phase 12 alone (the presets' plain
+    fused calls timed in it); its kernels line holds B1-general."""
+    import torch
+    var = variants_phase()
+    log_variants(var)
+    launches = sum(v["launches"].get("stem_general", 0)
+                   for v in var["variants"].values())
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_variants.json").write_text(
+        json.dumps(dict(card=smi, variants=var), indent=1))
+    log(json.dumps({"kernels": [stem_general_line(var, launches)]}))
+    log(json.dumps({"rcnet_variants": variants_line(smi, var)}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def variants_line(smi, var):
+    """The one-line summary of phase 12."""
+    return dict(
+        card=smi, seconds=var["seconds"],
+        stem_general_graph_ms={k: v["graph_ms"] for k, v in
+                               var["stem_general"].items() if "cin" in v},
+        stem_general_library_graph_ms={
+            k: v["library_graph_ms"] for k, v in
+            var["stem_general"].items() if "cin" in v},
+        variant_ms_per_call={k: v["ms_per_call"] for k, v in
+                             var["variants"].items()},
+        preset_ms_per_call=var["baseline_ms_per_call"],
+        agreement={k: v["card_bf16_vs_cpu_f32"] for k, v in
+                   var["agreement"].items()},
+        training_grad_rel_err=var["training_agreement"][
+            "worst_grad_rel_err"])
 
 
 def profile(fn, batch, path):
@@ -2666,6 +3010,8 @@ def main(argv):
     profile_dir = HERE / "chiprun_out" if "--profile" in argv else None
     if "--dpt" in argv:
         return dpt_only(smi, profile_dir)
+    if "--variants" in argv:
+        return variants_only(smi)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():
@@ -2744,6 +3090,10 @@ def main(argv):
         families = family_phase(root, profile_dir=profile_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    variants = variants_phase({"ntu": ntu["ms_per_call"],
+                               "zju": zju["ms_per_call"]})
+    log_variants(variants)
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -2786,6 +3136,9 @@ def main(argv):
                          ("ms", "graph_ms", "device_ms", "plain_ms",
                           "library_ms",
                           "bound_ms"))))
+    lines.append(stem_general_line(variants, sum(
+        v["launches"].get("stem_general", 0)
+        for v in variants["variants"].values())))
     details = dict(card=smi, torch=torch.__version__,
                    cuda=torch.version.cuda,
                    build_seconds=build_s, kernels=kernels,
@@ -2793,7 +3146,8 @@ def main(argv):
                    lane_kernels=lane_kernels, lane_decoder=lane,
                    training_kernels=train_kernels, training=training,
                    training_agreement=train_agree, staged=staged,
-                   cli=cli_runs, dpt=dpt, dpt_families=families)
+                   cli=cli_runs, dpt=dpt, dpt_families=families,
+                   rcnet_variants=variants)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -2856,6 +3210,7 @@ def main(argv):
         idw_same_knots=cli_runs["idw"]["same_knots"])}))
     log(json.dumps(dpt_line(smi, dpt)))
     log(json.dumps(families_line(smi, families)))
+    log(json.dumps({"rcnet_variants": variants_line(smi, variants)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

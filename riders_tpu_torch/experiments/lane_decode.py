@@ -35,8 +35,8 @@ SLOPE = 0.2
 
 
 def _check_eligible(dec, n_batch: int, skip1: torch.Tensor) -> None:
-    """The JAX package's conditions; the port's decoder has a single
-    resolution and one output channel by construction."""
+    """The JAX package's conditions; `MultiScaleDecoder` refuses
+    lane_mode with several resolutions or output channels when built."""
     if not dec.use_batch_norm or "leaky_relu" not in dec.activation_name:
         raise ValueError("lane_mode requires the batch-norm leaky-relu "
                          "decoder")

@@ -96,37 +96,71 @@ class ConvBlock(nn.Module):
 
 
 class FusedStemConv(nn.Module):
-    """7x7 stride-2 conv -> BN -> activation, plus MaxPool2d(3, 2, 1) of
-    its output.
+    """k x k stride-2 conv -> [BN] -> activation, plus MaxPool2d(3, 2, 1)
+    of its output.
 
-    In eval on a bf16 image, for the activations of `STEM_SLOPES`, it runs
-    the fused stem kernel with the BN running statistics folded in (its
-    plain version on the CPU).  Otherwise (training, an f32 image, elu or
-    sigmoid) it runs the library conv, the BN (over the batch in
-    training), the activation and the max pool, as the JAX stem does off
-    its Pallas path.  Takes the NHWC image and returns (conv map, pooled
-    map) as NCHW tensors, channels_last on the kernel path."""
+    In eval on a bf16 image, for the activations of `STEM_SLOPES` and a
+    kernel size with k % 4 == 3 (JAX's condition for its Pallas stem), it
+    runs the fused stem kernel with the BN running statistics folded in,
+    or scale 1 and bias 0 without BN (its plain version on the CPU).
+    Otherwise (training, an f32 image, elu or sigmoid, another k) it
+    runs the library conv, the BN (over the batch in training), the
+    activation and the max pool, as the JAX stem does off its Pallas
+    path.  Takes the NHWC image and returns (conv map, pooled map) as
+    NCHW tensors, channels_last on the kernel path."""
 
     def __init__(self, in_ch: int = 3, features: int = 32,
-                 activation_name: str = "leaky_relu"):
+                 activation_name: str = "leaky_relu",
+                 use_batch_norm: bool = True,
+                 kernel_size: int = KERNEL_SIZE):
         super().__init__()
         self.activation = activation_fn(activation_name)
         self.slope = STEM_SLOPES.get(activation_name)
-        self.conv = nn.Conv2d(in_ch, features, KERNEL_SIZE, 2,
-                              KERNEL_SIZE // 2, bias=False)
-        self.bn = BatchNorm2d(features)
+        self.kernel_size = kernel_size
+        self.conv = nn.Conv2d(in_ch, features, kernel_size, 2,
+                              kernel_size // 2, bias=False)
+        self.bn = BatchNorm2d(features) if use_batch_norm else None
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         if (self.training or x.dtype != torch.bfloat16
-                or self.slope is None):
-            h = self.bn(self.conv(x.permute(0, 3, 1, 2)))
+                or self.slope is None or self.kernel_size % 4 != 3):
+            h = self.conv(x.permute(0, 3, 1, 2))
+            if self.bn is not None:
+                h = self.bn(h)
             if self.activation is not None:
                 h = self.activation(h)
             return h, F.max_pool2d(h, 3, 2, 1)
+        if self.bn is not None:
+            scale, bias = bn_fold(self.bn)
+        else:
+            n = self.conv.out_channels
+            scale = torch.ones(n, device=x.device)
+            bias = torch.zeros(n, device=x.device)
         out, pooled = stem_conv_pool(x.contiguous(), self.conv.weight,
-                                     *bn_fold(self.bn), self.slope)
+                                     scale, bias, self.slope)
         return out.permute(0, 3, 1, 2), pooled.permute(0, 3, 1, 2)
+
+
+class TransposeConvBlock(nn.Module):
+    """Stride-2 transposed conv with torch's output_padding=1 (the output
+    is exactly twice the input) -> [BN] -> [activation]; no bias."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
+                 activation: Optional[Callable] = None,
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.deconv = nn.ConvTranspose2d(in_ch, features, kernel_size, 2,
+                                         kernel_size // 2, output_padding=1,
+                                         bias=False)
+        self.bn = BatchNorm2d(features) if use_batch_norm else None
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.deconv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return self.activation(x) if self.activation is not None else x
 
 
 class UpConvBlock(nn.Module):
@@ -181,23 +215,80 @@ class ResNetBlock(nn.Module):
         return self.activation(out) if self.activation else out
 
 
-class DecoderBlock(nn.Module):
-    """Nearest upsample to the skip's shape (or `shape`) + conv, concat the
-    skip after it, fusion conv."""
+class ResNetBottleneckBlock(nn.Module):
+    """Bottleneck residual block, 1x1 -> 3x3 (stride) -> 1x1 (4x width),
+    with a 1x1 projection on shape mismatch."""
 
-    def __init__(self, in_ch: int, skip_ch: int, features: int,
+    def __init__(self, in_ch: int, features: int, stride: int = 1,
                  activation: Optional[Callable] = None,
                  use_batch_norm: bool = False):
         super().__init__()
-        self.deconv = UpConvBlock(in_ch, features, 3, activation,
-                                  use_batch_norm)
+        self.conv1 = ConvBlock(in_ch, features, 1, 1, activation,
+                               use_batch_norm)
+        self.conv2 = ConvBlock(features, features, 3, stride, activation,
+                               use_batch_norm)
+        self.conv3 = ConvBlock(features, 4 * features, 1, 1, activation,
+                               use_batch_norm)
+        self.projection = (ConvBlock(in_ch, 4 * features, 1, stride)
+                           if in_ch != 4 * features or stride != 1
+                           else None)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv3(self.conv2(self.conv1(x)))
+        if self.projection is not None:
+            x = self.projection(x)
+        out = out + x
+        return self.activation(out) if self.activation else out
+
+
+class VGGBlock(nn.Module):
+    """`n_conv` stacked 3x3 ConvBlocks, the stride on the last."""
+
+    def __init__(self, in_ch: int, features: int, n_conv: int = 2,
+                 stride: int = 2, activation: Optional[Callable] = None,
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.n_conv = n_conv
+        for i in range(n_conv):
+            self.add_module(f"conv{i}", ConvBlock(
+                in_ch if i == 0 else features, features, 3,
+                stride if i == n_conv - 1 else 1, activation,
+                use_batch_norm))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_conv):
+            x = getattr(self, f"conv{i}")(x)
+        return x
+
+
+class DecoderBlock(nn.Module):
+    """Upsample, concat the skip after it, fusion conv.  deconv_type
+    "up": nearest resize to the skip's shape (or `shape`, or 2x) + conv;
+    "transpose": a stride-2 TransposeConvBlock (exactly 2x)."""
+
+    def __init__(self, in_ch: int, skip_ch: int, features: int,
+                 activation: Optional[Callable] = None,
+                 use_batch_norm: bool = False, deconv_type: str = "up"):
+        super().__init__()
+        if deconv_type not in ("up", "transpose"):
+            raise ValueError(f"deconv_type: 'up' or 'transpose', got "
+                             f"{deconv_type!r}")
+        self.deconv_type = deconv_type
+        block = UpConvBlock if deconv_type == "up" else TransposeConvBlock
+        self.deconv = block(in_ch, features, 3, activation, use_batch_norm)
         self.conv = ConvBlock(features + skip_ch, features, 3, 1, activation,
                               use_batch_norm)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None,
                 shape: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        target = tuple(skip.shape[-2:]) if skip is not None else tuple(shape)
-        h = self.deconv(x, target)
+        if self.deconv_type == "transpose":
+            h = self.deconv(x)
+        else:
+            target = (tuple(skip.shape[-2:]) if skip is not None
+                      else tuple(shape) if shape is not None
+                      else (2 * x.shape[-2], 2 * x.shape[-1]))
+            h = self.deconv(x, target)
         if skip is not None:
             h = torch.cat([h, skip], dim=1)
         return self.conv(h)

@@ -4,8 +4,9 @@
   pool run as one fused kernel; skips at /2, /4, /8, /16, latent at /32;
 * ``PointEncoder``: MLP lifting each radar (u, v, z) to a token grid;
 * ``MultiScaleDecoder``: U-Net decoder from the fused latent back to a
-  per-pixel logit map over the patch (the literal full-resolution path,
-  or the opt-in lane-major paths of `experiments.lane_decode`);
+  per-pixel logit map over the patch, at one or several resolutions
+  (the literal path, or the opt-in lane-major paths of
+  `experiments.lane_decode`);
 * ``RCNet``: encode once per frame, RoI-pool every scale around each
   point (one kernel launch per scale), LoFTR self / cross attention
   between point and patch tokens, concat fusion, decode the B*K patches.
@@ -32,25 +33,27 @@ from riders_tpu_torch.models.layers import (ConvBlock, DecoderBlock,
                                             ResNetBlock, activation_fn,
                                             place)
 from riders_tpu_torch.ops.kernels.roi_pool import roi_pool_pyramid
+from riders_tpu_torch.ops.resize import resize_nchw
 
 
 class ResNetEncoder(nn.Module):
-    """ResNet-18-style encoder, two residual blocks per stage; forward
-    takes the NHWC image and returns (latent, [skips at /2, /4, ..]) as
-    NCHW tensors."""
+    """ResNet-18-style encoder, `n_blocks_per_stage` residual blocks per
+    stage; forward takes the NHWC image and returns (latent, [skips at
+    /2, /4, ..]) as NCHW tensors."""
 
     def __init__(self, n_filters: Sequence[int] = (32, 64, 128, 128, 128),
                  activation: str = "leaky_relu", use_batch_norm: bool = True,
-                 in_ch: int = 3):
+                 in_ch: int = 3, n_blocks_per_stage: int = 2):
         super().__init__()
         act = activation_fn(activation)
         self.n_stages = len(n_filters)
-        self.conv1 = FusedStemConv(in_ch, n_filters[0], activation)
+        self.conv1 = FusedStemConv(in_ch, n_filters[0], activation,
+                                   use_batch_norm)
         self.stage_blocks: List[List[str]] = []
         prev = n_filters[0]
         for si, feat in enumerate(n_filters[1:]):
             names = []
-            for bi in range(2):
+            for bi in range(n_blocks_per_stage):
                 stride = (1 if si == 0 else 2) if bi == 0 else 1
                 name = f"blocks{si + 2}_{bi}"
                 self.add_module(name, ResNetBlock(prev, feat, stride, act,
@@ -95,54 +98,85 @@ class PointEncoder(nn.Module):
 
 
 class MultiScaleDecoder(nn.Module):
-    """U-Net decoder, single output resolution.
+    """U-Net decoder, n_resolution 1 .. depth - 1.
 
     Walks the skips deep -> shallow; the last block upsamples to
     `output_shape` (with skips[0] when the pyramid is as deep as the
-    decoder), then a linear 3x3 conv emits one logit channel.
+    decoder), then a 3x3 conv emits `output_channels` logits.  With
+    ``n_resolution > 1`` an `output{d}` conv taps each of the last
+    `n_resolution - 1` scales (d = 3, 2, 1 at most); its bilinear
+    align_corners x2 upsample is concatenated after the next block's
+    encoder skip, deconv0 takes the upsampled 1/2-scale output as its
+    skip (after skips[0] when the pyramid is as deep as the decoder), and
+    the return value is the deep -> shallow list of outputs.  An
+    `output_func` containing "upsample" forces n_resolution >= 2 and
+    returns, as the last output, the bilinear x2 of output1 (no deconv0 /
+    output0).  Output convs are linear for "upsample" and any name with
+    "linear", else they take that activation.
 
     ``lane_mode`` ("full" / "tail") opts into the lane-major decode paths
     of `experiments.lane_decode` in eval mode, on the same parameters; in
     train mode the literal path runs, as in the JAX package.  The lane
-    path has no backward, so it raises with grad enabled."""
+    path has no backward, so it raises with grad enabled; it decodes the
+    single-resolution decoder with one output channel only."""
 
     def __init__(self, in_ch: int, skip_channels: Sequence[int],
                  n_filters: Sequence[int] = (256, 128, 64, 32, 16),
                  output_shape: Tuple[int, int] = (240, 100),
                  activation: str = "leaky_relu",
                  use_batch_norm: bool = True, n_resolution: int = 1,
-                 lane_mode: Optional[str] = None):
+                 lane_mode: Optional[str] = None,
+                 output_func: str = "linear", output_channels: int = 1):
         super().__init__()
-        if n_resolution != 1:
-            raise NotImplementedError(
-                "only the single-resolution decoder is ported")
+        depth = len(n_filters)
+        if depth >= 8:
+            raise ValueError("the decoder supports depths up to 7")
+        self.upsample_out = "upsample" in output_func
+        n_res = max(n_resolution, 2) if self.upsample_out else n_resolution
+        if not 1 <= n_res < depth:
+            raise ValueError(f"n_resolution {n_resolution}: 1 .. "
+                             f"{depth - 1} for a depth-{depth} decoder")
         if lane_mode not in (None, "full", "tail"):
             raise ValueError(f"lane_mode: None, 'full' or 'tail', got "
                              f"{lane_mode!r}")
+        if lane_mode is not None and (n_res != 1 or output_channels != 1):
+            raise ValueError("lane_mode decodes the single-resolution "
+                             "decoder with one output channel only")
         act = activation_fn(activation)
-        depth = len(n_filters)
+        out_act = (None if output_func == "upsample"
+                   or "linear" in output_func
+                   else activation_fn(output_func))
         self.depth = depth
+        self.n_resolution = n_res
         self.activation_name = activation
         self.use_batch_norm = use_batch_norm
         self.lane_mode = lane_mode
         self._lane_packed = {}      # packed lane-kernel weights, by stage
         self.output_shape = tuple(output_shape)
         self.n_skips = len(skip_channels)
-        prev = in_ch
+        prev, up_ch = in_ch, 0
         for i, feat in enumerate(n_filters[:-1]):
             d = depth - 1 - i
             si = self.n_skips - 1 - i
-            skip_ch = skip_channels[si] if si >= 0 else 0
+            skip_ch = (skip_channels[si] if si >= 0 else 0) + up_ch
             self.add_module(f"deconv{d}", DecoderBlock(
                 prev, skip_ch, feat, act, use_batch_norm))
             prev = feat
-        skip0 = skip_channels[0] if self.n_skips == depth else 0
-        self.deconv0 = DecoderBlock(prev, skip0, n_filters[-1], act,
-                                    use_batch_norm)
-        self.output0 = ConvBlock(n_filters[-1], 1, 3, 1)
+            up_ch = 0
+            if d in (3, 2, 1) and n_res > d:
+                self.add_module(f"output{d}", ConvBlock(
+                    feat, output_channels, 3, 1, out_act))
+                up_ch = output_channels
+        if not self.upsample_out:
+            skip0 = (skip_channels[0] if self.n_skips == depth else 0)
+            self.deconv0 = DecoderBlock(prev, skip0 + up_ch, n_filters[-1],
+                                        act, use_batch_norm)
+            self.output0 = ConvBlock(n_filters[-1], output_channels, 3, 1,
+                                     out_act)
 
-    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]):
+        """The logits (N, output_channels, *output_shape), or with
+        n_resolution > 1 the deep -> shallow list of outputs."""
         lane = self.lane_mode if not self.training else None
         if lane is not None and torch.is_grad_enabled():
             raise RuntimeError("the lane-major decode has no backward: run "
@@ -151,17 +185,38 @@ class MultiScaleDecoder(nn.Module):
         if lane == "full":
             return lane_decode.decode_full(self, x, skips)
         h = x
+        outputs: List[torch.Tensor] = []
+        up_prev = None
         for i in range(self.depth - 1):
-            if lane == "tail" and self.depth - 1 - i == 1:
+            d = self.depth - 1 - i
+            if lane == "tail" and d == 1:
                 return lane_decode.decode_tail(self, h, skips[0])
             si = len(skips) - 1 - i
             skip = skips[si] if si >= 0 else None
-            h = getattr(self, f"deconv{self.depth - 1 - i}")(h, skip=skip)
-        if len(skips) == self.depth:
+            if up_prev is not None:
+                # encoder skip first, then the upsampled coarser output
+                skip = (up_prev.to(h.dtype) if skip is None else
+                        torch.cat([skip, up_prev.to(skip.dtype)], 1))
+            h = getattr(self, f"deconv{d}")(h, skip=skip)
+            up_prev = None
+            if d in (3, 2, 1) and self.n_resolution > d:
+                out = getattr(self, f"output{d}")(h)
+                outputs.append(out)
+                up_prev = resize_nchw(out, (2 * out.shape[-2],
+                                            2 * out.shape[-1]),
+                                      "bilinear", align_corners=True)
+        if self.upsample_out:
+            return outputs + [up_prev]
+        if up_prev is not None:
+            skip0 = (up_prev if len(skips) != self.depth else
+                     torch.cat([skips[0], up_prev.to(skips[0].dtype)], 1))
+            h = self.deconv0(h, skip=skip0)
+        elif len(skips) == self.depth:
             h = self.deconv0(h, skip=skips[0])
         else:
             h = self.deconv0(h, shape=self.output_shape)
-        return self.output0(h)
+        out0 = self.output0(h)
+        return outputs + [out0] if self.n_resolution > 1 else out0
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -178,7 +233,9 @@ class RCNet(nn.Module):
       boxes: (B, K, 4) [x1, y1, x2, y2] patch boxes, float32;
       point_mask: (B, K) validity of the bucket.
     Returns logits (B, K, ph, pw, 1), or masked sigmoid responses with
-    ``return_logits=False``.
+    ``return_logits=False``; with ``return_all_scales=True`` the deep ->
+    shallow list of every output scale of a multi-resolution decoder
+    (the full-resolution map last).
     """
 
     def __init__(self, config: RCNetConfig = RCNetConfig(), device=None,
@@ -209,12 +266,12 @@ class RCNet(nn.Module):
     def forward(self, image: torch.Tensor, points: torch.Tensor,
                 boxes: torch.Tensor,
                 point_mask: Optional[torch.Tensor] = None,
-                return_logits: bool = True) -> torch.Tensor:
+                return_logits: bool = True,
+                return_all_scales: bool = False):
         cfg = self.config
         B, K = points.shape[:2]
         lh, lw = cfg.latent_shape
-        ph, pw = cfg.patch_size
-        dtype = self.decoder.output0.conv.weight.dtype
+        dtype = self.encoder_image.conv1.conv.weight.dtype
 
         latent, skips = self.encoder_image(image.to(dtype))
         pooled_latent, pooled_skips = roi_pool_pyramid(
@@ -237,15 +294,25 @@ class RCNet(nn.Module):
         # Concat fusion: image features first.
         fused = torch.cat([image_tokens.reshape(B * K, lh, lw, -1),
                            point_tokens.reshape(B * K, lh, lw, -1)], dim=-1)
-        logits = self.decoder(fused.permute(0, 3, 1, 2), pooled_skips)
-        logits = logits.permute(0, 2, 3, 1).reshape(B, K, ph, pw, -1)
-        if point_mask is None:
-            return logits if return_logits else torch.sigmoid(logits)
-        keep = point_mask[:, :, None, None, None] > 0
-        fill = -1e4 if return_logits else 0.0
-        logits = torch.where(keep, logits,
-                             torch.full_like(logits, fill))
-        if return_logits:
-            return logits
-        return torch.sigmoid(logits) * point_mask[:, :, None, None,
-                                                  None].to(logits.dtype)
+        outs = self.decoder(fused.permute(0, 3, 1, 2), pooled_skips)
+        if not isinstance(outs, list):
+            outs = [outs]
+
+        def finalize(logits: torch.Tensor) -> torch.Tensor:
+            logits = logits.permute(0, 2, 3, 1).reshape(
+                (B, K) + tuple(logits.shape[-2:]) + (logits.shape[1],))
+            if point_mask is None:
+                return logits if return_logits else torch.sigmoid(logits)
+            keep = point_mask[:, :, None, None, None] > 0
+            fill = -1e4 if return_logits else 0.0
+            logits = torch.where(keep, logits,
+                                 torch.full_like(logits, fill))
+            if return_logits:
+                return logits
+            return torch.sigmoid(logits) * point_mask[
+                :, :, None, None, None].to(logits.dtype)
+
+        if return_all_scales:
+            return [finalize(o) for o in outs]
+        # the full-resolution output, as the reference wrapper's `[-1]`
+        return finalize(outs[-1])

@@ -1,19 +1,25 @@
-"""Fused stem: 7x7/s2 conv + folded BN + max(y, slope * y), and
+"""Fused stem: k x k / s2 conv + folded BN + max(y, slope * y), and
 MaxPool2d(3, 2, 1).
 
-`stem_conv_pool` launches the CUDA kernel (csrc/stem.cu) for CUDA
-tensors and runs `stem_conv_pool_plain` for CPU tensors.  Both fold the
-BN scale into the weights in f32 and round them to the input dtype (as
-the TPU kernel does), accumulate in f32, add the bias, apply max(y,
-slope * y) (slope 0.2: RC-Net's leaky relu; 0: relu; 1: linear), round
-to the input dtype, then max-pool that rounded map.
+`stem_conv_pool` launches a CUDA kernel for CUDA tensors and runs
+`stem_conv_pool_plain` for CPU tensors.  Both fold the BN scale into the
+weights in f32 and round them to the input dtype (as the TPU kernel
+does), accumulate in f32, add the bias, apply max(y, slope * y) (slope
+0.2: RC-Net's leaky relu; 0: relu; 1: linear), round to the input
+dtype, then max-pool that rounded map.
 
-The kernel runs the 7x7x3 contraction as a GEMM on the tensor cores
-(mma.sync m16n8k16) with K = the 147 taps (ky, kx, ci), each kernel
-row's 21 padded to 24, then to 176, in the order `k_order` gives.
-`pack_weights` lays the folded weights out in the order its lanes read
-their B fragments; `k_offsets` gives each k's offset in the block's
-staged input tile, from which the lanes gather A.
+Two hand-written kernels serve the card, chosen by shape:
+* (k, Cin, Cout) = (7, 3, 32), RC-Net's stem, goes to the tuned kernel
+  of csrc/stem.cu (launch count "stem").  It runs the 7x7x3 contraction
+  as a GEMM on the tensor cores (mma.sync m16n8k16) with K = the 147
+  taps (ky, kx, ci), each kernel row's 21 padded to 24, then to 176, in
+  the order `k_order` gives.  `pack_weights` lays the folded weights out
+  in the order its lanes read their B fragments; `k_offsets` gives each
+  k's offset in the block's staged input tile, from which the lanes
+  gather A.
+* Every other odd k, Cin and Cout goes to the general kernel of
+  csrc/stem_general.cu (launch count "stem_general"), on the plan of
+  `general_plan` and the weights of `general_weights`.
 """
 
 from __future__ import annotations
@@ -107,32 +113,128 @@ def stem_conv_pool_plain(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 1), pooled.permute(0, 2, 3, 1)
 
 
+# ---- the general kernel (csrc/stem_general.cu)
+
+GENERAL_SMEM_LIMIT = 232448       # 227 KB of dynamic shared memory
+GENERAL_PIXELS_PER_THREAD = 4     # stem_general.cu PPT
+GENERAL_CHANNELS_PER_THREAD = 8   # stem_general.cu CG
+_GENERAL_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                     + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def general_smem_bytes(tp: int, co: int, cin: int, k: int) -> int:
+    """Shared memory of a general-kernel plan (stem_general.cu:layout):
+    the chunk's f32 weights, the staged f32 input tile in its column-
+    parity layout, the tap offsets and the bf16 conv tile."""
+    ti = 4 * tp + k
+    halfw = (ti + 1) // 2
+    taps = k * k * cin
+    tch = 2 * tp + 1
+    return (_align16(taps * co * 4) + _align16(ti * 2 * halfw * cin * 4)
+            + _align16(taps * 4) + _align16(tch * tch * co * 2))
+
+
+def general_plan(cin: int, cout: int, k: int) -> Tuple[int, int, int, int]:
+    """(tp, co, threads, smem_bytes) of the general kernel: a tp x tp
+    tile of pooled outputs per block, Cout in chunks of co channels, one
+    thread per four conv pixels and eight channels of a chunk.  The
+    largest tile (8, 4, 2, 1), then the largest chunk (Cout rounded up
+    to 8 and at most 32, then 16, 8), whose shared memory fits 227 KB;
+    raises for a shape that no plan fits."""
+    if k % 2 != 1 or min(cin, cout, k) < 1:
+        raise ValueError(f"stem kernel: an odd k and Cin, Cout >= 1, got "
+                         f"k={k}, Cin={cin}, Cout={cout}")
+    widest = min(32, -(-cout // 8) * 8)
+    for tp in (8, 4, 2, 1):
+        for co in sorted({widest, 16, 8}, reverse=True):
+            if co > widest:
+                continue
+            smem = general_smem_bytes(tp, co, cin, k)
+            if smem <= GENERAL_SMEM_LIMIT:
+                tch = 2 * tp + 1
+                slots = -(-tch * tch // GENERAL_PIXELS_PER_THREAD)
+                items = slots * (co // GENERAL_CHANNELS_PER_THREAD)
+                threads = min(1024, -(-items // 32) * 32)
+                return tp, co, threads, smem
+    raise ValueError(
+        f"stem kernel: a {k}x{k} stem over Cin={cin} needs more than "
+        f"{GENERAL_SMEM_LIMIT} bytes of shared memory at its smallest "
+        f"plan (a 1x1 pooled tile, 8 channels)")
+
+
+def general_weights(weight: torch.Tensor, scale: torch.Tensor, co: int
+                    ) -> torch.Tensor:
+    """The folded weights as the general kernel reads them: rounded to
+    bf16, held in f32, (chunks, k, k, Cin, co) with Cout zero-padded to
+    whole chunks of co channels."""
+    cout, cin, k, _ = weight.shape
+    w = _folded(weight, scale).to(torch.bfloat16).float()
+    chunks = -(-cout // co)
+    w = F.pad(w.permute(2, 3, 1, 0), (0, chunks * co - cout))
+    return w.reshape(k, k, cin, chunks, co).permute(3, 0, 1, 2, 4
+                                                    ).contiguous()
+
+
 def stem_conv_pool(x: torch.Tensor, weight: torch.Tensor,
                    scale: torch.Tensor, bias: torch.Tensor,
                    slope: float = NEGATIVE_SLOPE
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused stem; see `stem_conv_pool_plain` for the contract.  On
-    CUDA it takes a contiguous bf16 NHWC image with 3 channels and a
-    (32, 3, 7, 7) weight, and returns contiguous NHWC outputs."""
+    CUDA it takes a contiguous bf16 NHWC image, a (Cout, Cin, k, k)
+    weight with an odd k, and returns contiguous NHWC outputs: (7, 3, 32)
+    on the tuned kernel, every other shape on the general one."""
     if on_cpu(x, weight, scale, bias):
         return stem_conv_pool_plain(x, weight, scale, bias, slope)
-    require(x, "image", torch.bfloat16, (None, None, None, CIN))
-    if tuple(weight.shape) != (COUT, CIN, KERNEL_SIZE, KERNEL_SIZE):
-        raise ValueError(f"stem weight: expected {(COUT, CIN, 7, 7)}, got "
+    cout, cin, k, kw = weight.shape
+    require(x, "image", torch.bfloat16, (None, None, None, cin))
+    if kw != k:
+        raise ValueError(f"stem weight: a square kernel, got "
                          f"{tuple(weight.shape)}")
-    if scale.shape != (COUT,) or bias.shape != (COUT,):
-        raise ValueError("stem scale/bias: expected (32,)")
+    if scale.shape != (cout,) or bias.shape != (cout,):
+        raise ValueError(f"stem scale/bias: expected ({cout},)")
+    if (k, cin, cout) != (KERNEL_SIZE, CIN, COUT):
+        return _launch_general(x, weight, scale, bias, slope)
     if x.data_ptr() % 16:
         raise ValueError("image: the stem kernel reads 16-byte aligned rows")
     return _launch(x, pack_weights(weight, scale), bias.float().contiguous(),
                    slope)
 
 
+def _launch_general(x: torch.Tensor, weight: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor, slope: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The general kernel on a checked CUDA image."""
+    cout, cin, k, _ = weight.shape
+    tp, co, threads, smem = general_plan(cin, cout, k)
+    B, H, W, _ = x.shape
+    Ho, Wo = -(-H // 2), -(-W // 2)
+    Hp, Wp = -(-Ho // 2), -(-Wo // 2)
+    out = torch.empty((B, Ho, Wo, cout), dtype=torch.bfloat16,
+                      device=x.device)
+    pooled = torch.empty((B, Hp, Wp, cout), dtype=torch.bfloat16,
+                         device=x.device)
+    if pooled.numel() == 0:
+        return out, pooled
+    wk = general_weights(weight, scale, co)
+    bk = F.pad(bias.float(), (0, wk.shape[0] * co - cout)).contiguous()
+    fn = kernel_function("stem_general", "riders_stem_general",
+                         _GENERAL_ARGTYPES)
+    check(fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
+             pooled.data_ptr(), B, H, W, cin, cout, k, tp, co, threads,
+             smem, float(slope), stream_handle(x)), "stem_general")
+    LAUNCHES["stem_general"] += 1
+    return out, pooled
+
+
 def _launch(x: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor,
             slope: float = NEGATIVE_SLOPE
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on a checked CUDA image, `pack_weights`' output and the
-    f32 bias."""
+    """The tuned kernel on a checked CUDA image, `pack_weights`' output
+    and the f32 bias."""
     B, H, W, _ = x.shape
     Ho, Wo = -(-H // 2), -(-W // 2)
     Hp, Wp = -(-Ho // 2), -(-Wo // 2)

@@ -79,6 +79,87 @@ def test_stem_kernel_slopes_match_plain(dev, hw, slope):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("cin,cout,k", [
+    (3, 64, 7), (1, 32, 7), (3, 8, 7), (3, 16, 3), (3, 32, 11),
+    (2, 24, 11), (3, 5, 7), (64, 40, 3)])
+@pytest.mark.parametrize("hw", [(37, 53), (9, 70), (130, 2)])
+def test_stem_general_kernel_matches_plain(dev, hw, cin, cout, k):
+    """Every shape but (7, 3, 32) goes to the general kernel, within one
+    bf16 step of the plain version at each slope: ragged tiles, Cout not
+    a multiple of 8, a chunked Cout, a plan with a smaller tile
+    (Cin 64)."""
+    g = torch.Generator(device=dev).manual_seed(cin + cout + k)
+    x = torch.rand((2,) + hw + (cin,), generator=g, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((cout, cin, k, k), generator=g, device=dev) * (
+        2.0 / (cin * k * k)) ** 0.5
+    scale = 0.5 + torch.rand(cout, generator=g, device=dev)
+    bias = 0.1 * torch.randn(cout, generator=g, device=dev)
+    for slope in (0.2, 0.0, 1.0):
+        before = dict(LAUNCHES)
+        got = stem.stem_conv_pool(x, w, scale, bias, slope)
+        assert LAUNCHES["stem_general"] == before.get("stem_general",
+                                                      0) + 1
+        assert LAUNCHES["stem"] == before.get("stem", 0)
+        want = stem.stem_conv_pool_plain(x, w, scale, bias, slope)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.is_contiguous()
+            a, b = a.float(), b.float()
+            limit = 2 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-4
+            assert bool(((a - b).abs() <= limit).all())
+
+
+def test_stem_general_kernel_refuses_a_shape_no_plan_fits(dev):
+    x = torch.rand((1, 20, 20, 102), device=dev).to(torch.bfloat16)
+    w = torch.randn((8, 102, 7, 7), device=dev)
+    one, zero = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        stem.stem_conv_pool(x, w, one, zero)
+
+
+def test_fused_stem_routes_kernel_sizes_as_jax(dev):
+    """bf16 eval: k % 4 == 3 on a hand-written kernel, k = 5 on the
+    library conv (no launch), as JAX's Pallas condition routes."""
+    from riders_tpu_torch.models.layers import FusedStemConv, init_random_
+    x = torch.rand((2, 30, 44, 3), device=dev).to(torch.bfloat16)
+    for k, kind in ((3, "stem_general"), (5, None), (7, "stem"),
+                    (11, "stem_general")):
+        mod = init_random_(FusedStemConv(3, 32, kernel_size=k)).to(
+            dev, torch.bfloat16).eval()
+        before = dict(LAUNCHES)
+        with torch.no_grad():
+            h, p = mod(x)
+        launched = {n: LAUNCHES[n] - before.get(n, 0)
+                    for n in ("stem", "stem_general")}
+        assert launched == {n: int(n == kind) for n in launched}
+        assert h.shape == (2, 32, 15, 22) and p.shape == (2, 32, 8, 11)
+
+
+def test_stem_without_batch_norm_runs_the_kernels(dev):
+    """A BN-free bf16 eval FusedStemConv: the (7, 3, 32) stem on the
+    tuned kernel, a 16-wide or one-channel stem on the general one, each
+    equal to the plain version on scale 1 and bias 0."""
+    from riders_tpu_torch.models.layers import FusedStemConv, init_random_
+    g = torch.Generator(device=dev).manual_seed(9)
+    for cin, cout, kind in ((3, 32, "stem"), (3, 16, "stem_general"),
+                            (1, 32, "stem_general")):
+        mod = init_random_(FusedStemConv(cin, cout, use_batch_norm=False))
+        mod = mod.to(dev, torch.bfloat16).eval()
+        x = torch.rand((2, 40, 56, cin), generator=g, device=dev).to(
+            torch.bfloat16)
+        before = LAUNCHES[kind]
+        with torch.no_grad():
+            h, p = mod(x)
+        assert LAUNCHES[kind] == before + 1 and mod.bn is None
+        one = torch.ones(cout, device=dev)
+        want = stem.stem_conv_pool_plain(x, mod.conv.weight, one, 0 * one,
+                                         0.2)
+        for a, b in zip((h, p), want):
+            a, b = a.permute(0, 2, 3, 1).float(), b.float()
+            limit = 2 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-4
+            assert bool(((a - b).abs() <= limit).all())
+
+
 def _boxes(g, dev, B, K, H, W, scale, out_size):
     """Fractional boxes of the pool's patch size around and past the map:
     box 0 at the origin, box 1 entirely outside, box 2 on a half pixel."""

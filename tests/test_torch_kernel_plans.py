@@ -5,7 +5,8 @@ tiling and the halo each block stages, mirrored index for index from
 csrc/lane_decoder.cu; the backward's tiles and the boxes each tile
 lists, against brute force from `ops.patches`' bin bounds; the stem's
 packed B fragments, its K -> shared offset table and its tiles
-(csrc/stem.cu); the forward's work table and per-block bin table
+(csrc/stem.cu), and the general stem's plan and index math emulated in
+numpy (csrc/stem_general.cu); the forward's work table and per-block bin table
 (csrc/roi_pool.cu) against `ops.patches`; compose's per-tile point lists
 (csrc/compose.cu) against brute force."""
 
@@ -406,6 +407,128 @@ def test_stem_tiles_cover_the_maps_and_their_windows(H, W):
     base = 2 * (tch - 1) * pitch + 2 * (tcw - 1) * 3   # the last pixel
     assert base + stem.k_offsets().max() + 1 < tih * pitch
     assert 2 * (tcw - 1) * 3 + 6 * 3 + 2 < tiw * 3 <= pitch
+
+
+# ---- the stem's general form (B1, csrc/stem_general.cu): plan and tiles
+
+@pytest.mark.parametrize("cin,cout,k", [
+    (3, 64, 7), (1, 32, 7), (3, 8, 7), (3, 16, 3), (3, 32, 11),
+    (2, 24, 11), (1, 8, 7), (3, 5, 7), (64, 64, 7), (101, 8, 7)])
+def test_stem_general_plan_fits_and_covers_the_tile(cin, cout, k):
+    """The plan fits 227 KB, its chunk is a whole number of 8-channel
+    groups no wider than Cout needs, its block has a thread per four
+    conv pixels and eight channels of a chunk, and the stems of up to
+    three input channels take the largest tile and chunk."""
+    tp, co, threads, smem = stem.general_plan(cin, cout, k)
+    assert smem == stem.general_smem_bytes(tp, co, cin, k)
+    assert smem <= stem.GENERAL_SMEM_LIMIT and co % 8 == 0
+    assert co <= max(8, -(-cout // 8) * 8) and threads % 32 == 0
+    npix = (2 * tp + 1) ** 2
+    assert threads * 4 * 8 >= npix * co
+    if cin <= 3:
+        assert tp == 8 and co == min(32, -(-cout // 8) * 8)
+
+
+@pytest.mark.parametrize("cin,k", [(102, 7), (44, 11), (424, 3), (185, 5)])
+def test_stem_general_plan_refuses_what_no_plan_fits(cin, k):
+    """Past these Cin no plan fits 227 KB (ROADMAP's refusals)."""
+    with pytest.raises(ValueError, match="shared memory"):
+        stem.general_plan(cin, 8, k)
+    stem.general_plan(cin - 1, 8, k)
+
+
+def _emulate_stem_general(x, weight, scale, bias, slope, plan):
+    """csrc/stem_general.cu in numpy, block by block, with its index
+    math: the staged input in the column-parity layout, the tap offset
+    table, each conv pixel's base, Cout in chunks, the conv tile with the
+    pool's -inf outside the conv extent, the owned conv pixels and the
+    pooled maxima; products summed in f64 (the kernel sums them in f32).
+    Returns (out, pooled, writes of each out / pooled element)."""
+    tp, co, _, _ = plan
+    B, H, W, cin = x.shape
+    cout, _, k, _ = weight.shape
+    wk = stem.general_weights(weight, scale, co).double().numpy()
+    bk = np.zeros(wk.shape[0] * co)
+    bk[:cout] = bias.numpy()
+    xs = x.float().numpy()
+    Ho, Wo = -(-H // 2), -(-W // 2)
+    Hp, Wp = -(-Ho // 2), -(-Wo // 2)
+    tch, ti = 2 * tp + 1, 4 * tp + k
+    halfw, pad = (ti + 1) // 2, (k - 1) // 2
+    out = np.zeros((B, Ho, Wo, cout), np.float32)
+    pooled = np.zeros((B, Hp, Wp, cout), np.float32)
+    n_out, n_pool = np.zeros(out.shape, int), np.zeros(pooled.shape, int)
+    ky, kx, ci = np.unravel_index(np.arange(k * k * cin), (k, k, cin))
+    off = ((2 * ky + (kx & 1)) * halfw + (kx >> 1)) * cin + ci
+    lr, lc = np.divmod(np.arange(tch * tch), tch)
+    base = (4 * lr * halfw + lc) * cin
+    r, c, cc = np.unravel_index(np.arange(ti * ti * cin), (ti, ti, cin))
+    for b in range(B):
+        for pr0 in range(0, Hp, tp):
+            for pc0 in range(0, Wp, tp):
+                cr0, cc0 = 2 * pr0 - 1, 2 * pc0 - 1
+                gr, gc = 2 * cr0 - pad + r, 2 * cc0 - pad + c
+                ok = (gr >= 0) & (gr < H) & (gc >= 0) & (gc < W)
+                s_in = np.full(ti * 2 * halfw * cin, np.nan)
+                s_in[((r * 2 + (c & 1)) * halfw + (c >> 1)) * cin + cc] = \
+                    np.where(ok, xs[b, gr.clip(0, H - 1),
+                                    gc.clip(0, W - 1), cc], 0.0)
+                taps = s_in[base[:, None] + off[None, :]]
+                assert not np.isnan(taps).any()     # staged, not stale
+                inside = ((cr0 + lr >= 0) & (cr0 + lr < Ho)
+                          & (cc0 + lc >= 0) & (cc0 + lc < Wo))
+                for ch in range(wk.shape[0]):
+                    y = taps @ wk[ch].reshape(-1, co) + bk[ch * co:][:co]
+                    y = torch.from_numpy(np.maximum(y, slope * y)).float()
+                    y = y.to(torch.bfloat16).float().numpy()
+                    y[~inside] = -np.inf
+                    tile = y.reshape(tch, tch, co)
+                    cw = min(co, cout - ch * co)
+                    sl = slice(ch * co, ch * co + cw)
+                    for i in range(1, tch):
+                        for j in range(1, tch):
+                            if cr0 + i < Ho and cc0 + j < Wo:
+                                out[b, cr0 + i, cc0 + j, sl] = \
+                                    tile[i, j, :cw]
+                                n_out[b, cr0 + i, cc0 + j, sl] += 1
+                    for i in range(tp):
+                        for j in range(tp):
+                            if pr0 + i < Hp and pc0 + j < Wp:
+                                win = tile[2 * i:2 * i + 3, 2 * j:2 * j + 3]
+                                pooled[b, pr0 + i, pc0 + j, sl] = \
+                                    win.max((0, 1))[:cw]
+                                n_pool[b, pr0 + i, pc0 + j, sl] += 1
+    return out, pooled, n_out, n_pool
+
+
+@pytest.mark.parametrize("cin,cout,k,hw,plan", [
+    (3, 16, 3, (37, 53), None), (1, 8, 7, (22, 41), None),
+    (2, 20, 11, (19, 30), None), (3, 20, 7, (21, 27), (2, 8)),
+    (3, 40, 5, (13, 9), (1, 16))])
+def test_stem_general_emulated_matches_plain(cin, cout, k, hw, plan):
+    """The emulated kernel writes every conv and pooled element once and
+    agrees with `stem_conv_pool_plain` to one bf16 step (they differ only
+    in summation order), at ragged extents, Cout not a multiple of 8 or
+    of the chunk, and forced small tiles and chunks."""
+    g = torch.Generator().manual_seed(cin * 100 + cout + k)
+    x = torch.rand((2,) + hw + (cin,), generator=g).to(torch.bfloat16)
+    weight = torch.randn((cout, cin, k, k), generator=g) * (
+        2.0 / (cin * k * k)) ** 0.5
+    scale = 0.5 + torch.rand(cout, generator=g)
+    bias = 0.1 * torch.randn(cout, generator=g)
+    full = stem.general_plan(cin, cout, k)
+    if plan is not None:
+        tp, co = plan
+        full = (tp, co, 0, stem.general_smem_bytes(tp, co, cin, k))
+    for slope in (0.2, 0.0, 1.0):
+        out, pooled, n_out, n_pool = _emulate_stem_general(
+            x, weight, scale, bias, slope, full)
+        assert (n_out == 1).all() and (n_pool == 1).all()
+        want = stem.stem_conv_pool_plain(x, weight, scale, bias, slope)
+        for got, ref in zip((out, pooled), want):
+            ref = ref.float().numpy()
+            assert got.shape == ref.shape
+            np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=1e-4)
 
 
 # ---- the RoI forward (B2, B3, B6): work table and bin table

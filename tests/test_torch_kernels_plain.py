@@ -225,3 +225,35 @@ def test_stem_plain_slopes_match_pallas(rng, slope):
         assert float(p.float().min()) >= 0.0
     if slope == 1.0:
         assert float(h.float().min()) < 0.0
+
+
+@pytest.mark.parametrize("slope", [0.2, 0.0, 1.0],
+                         ids=["leaky_relu", "relu", "linear"])
+@pytest.mark.parametrize("cin,cout,k", [(1, 8, 7), (3, 16, 3), (3, 64, 7),
+                                        (2, 24, 11)])
+def test_stem_plain_general_shapes_match_pallas(rng, cin, cout, k, slope):
+    """The plain stem (the contract of B1's general kernel) at stem
+    widths, input channels and kernel sizes besides (7, 3, 32) against
+    stem_conv_pallas(pool=True) in interpret mode, as
+    tests/test_pallas_stem.py runs it: the same folded bf16 products
+    summed in f32 in other orders, so one bf16 rounding step (2^-8
+    relative; atol 1e-3 for values near 0)."""
+    image = rng.random((2, 30, 38, cin)).astype(np.float32)
+    kernel = (rng.standard_normal((k, k, cin, cout))
+              * (2.0 / (k * k * cin)) ** 0.5).astype(np.float32)
+    g = (0.5 + rng.random(cout)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(cout)).astype(np.float32)
+    ref_h, ref_p = stem_conv_pallas(
+        jnp.asarray(image), jnp.asarray(kernel), jnp.asarray(g),
+        jnp.asarray(b), k=k, negative_slope=slope, pool=True,
+        interpret=True)
+    Ho, Wo = -(-image.shape[1] // 2), -(-image.shape[2] // 2)
+    h, p = stem.stem_conv_pool_plain(
+        t(image).to(torch.bfloat16),
+        t(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))), t(g), t(b),
+        slope)
+    for got, ref in ((h, np.asarray(ref_h[:, :Ho, :Wo], np.float32)),
+                     (p, np.asarray(ref_p, np.float32))):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        np.testing.assert_allclose(got.float().numpy(), ref,
+                                   rtol=2 ** -8, atol=1e-3)
