@@ -2,7 +2,8 @@
 """Drive the PyTorch / CUDA port's fused inference path, its RC-Net and
 SML training steps, its staged inference, serving and drivers, its
 command line (training, inference and preprocessing), its DPT Scale
-Map Learner and RC-Net's other forms on one GPU.
+Map Learner, RC-Net's other forms, its parallel layer and its opt-in
+fast paths on one GPU.
 
     python3 chip_smoke.py                 # all phases, report lines
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
@@ -16,6 +17,12 @@ Map Learner and RC-Net's other forms on one GPU.
                                           # 11 alone on a dataset of
                                           # their own
     python3 chip_smoke.py --variants      # phase 1, then phase 12 alone
+    python3 chip_smoke.py --parallel      # phases 1 and 4, then phases
+                                          # 13 and 14 alone on a dataset
+                                          # of their own
+    python3 chip_smoke.py --multichip     # four cards: phase 13a and
+                                          # 13b across them, one NCCL
+                                          # rank a card
 
 Kernel times: `ms` is the median of synchronised calls (host dispatch
 counts in); `graph_ms` replays 20 calls (10 in phase 12) captured in one
@@ -150,11 +157,33 @@ Phases, each fatal on failure:
      by phase 4's rule (V4's masked logits); (d) one f32 training step
      of the BN-free n_resolution 3 RC-Net (ZJU) on the card against the
      CPU's by phase 7's rule.
+  13. the parallel layer on the card, in an NCCL world of one joined by
+     `initialize_multihost` on 127.0.0.1 (the machine has one card and
+     NCCL takes one rank per device; more ranks are held on the CPU by
+     tests/test_torch_sharding.py), mesh (1, 1): (a)
+     `make_sharded_fused_fn` at phase 3's NTU shapes (640x512, B=16,
+     K=48 with 40 real points, bf16, full width): one stem, one RoI pool
+     and one compose launch and one gather over each mesh axis per call
+     (counters reset just before), its output against `make_fused_fn`'s
+     on the same batches (bitwise expected), ms per call of both; (b) the
+     f32 RC-Net step (NTU, B=24) and SML step (288x352, B=12) through
+     `with_data_sharding`, so through the cross-rank BatchNorm and the
+     loss collectives, against the plain step by phase 7's rule, ms per
+     step of both; (c) three `train-sml` steps through `riders-torch
+     --multihost --num-processes 1 --process-id 0` on phase 9's dataset
+     (the IDW scale map), the process group gone after;
+  14. the opt-in fast paths at full width (NTU, B=16, bf16), each alone
+     and then all together, the counters reset just before each:
+     RIDERS_SML_FOLD=1 (set and unset inside the phase), the decoder's
+     `phase_tail=True`, every `UpConvBlock(fast_2x=True)` and the SML
+     head's `fast_upsample=True`: one stem, RoI pool and compose launch a
+     call, the output against the literal call's by phase 4's rule, ms
+     per call beside the literal call's, and fps.
 Report lines: the card's name and power limit, one {"kernels": [...]}
 line, one fused line, one lane_decoder line, one training line, one
 staged line, one training_cli line, one dpt line, one dpt_families line,
-one rcnet_variants line; the last line is {"ok": true, "device":
-{...}}.  Details go to chiprun_out/chip_smoke.json.
+one rcnet_variants line, one parallel line; the last line is {"ok":
+true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
 import copy
@@ -200,6 +229,28 @@ def time_ms(fn, n=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def paired_ms(fa, fb, n=20, warmup=3):
+    """Median CUDA-event times of `fa` and `fb` over n pairs of calls,
+    the order alternating from pair to pair, so that drift in the host's
+    load falls on both."""
+    import torch
+    for _ in range(warmup):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(n):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (fa, fb)[j]()
+            end.record()
+            end.synchronize()
+            times[j].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def device_ms(fn, n=20, warmup=3):
@@ -825,8 +876,14 @@ def drive_lane_decoder(preset, x, skips, literal):
 
     need = {"full": ("lane_conv3x3", "lane_upconv2x"),
             "tail": ("lane_conv3x3",)}
+    from riders_tpu_torch.models.layers import UpConvBlock
     rec = dict(preset=preset, patches=int(x.shape[0]))
     lanes = {mode: copy.deepcopy(literal) for mode in need}
+    literal = copy.deepcopy(literal)
+    literal.phase_tail = False          # the literal decoder
+    for m in literal.modules():
+        if isinstance(m, UpConvBlock):
+            m.fast_2x = False
     with torch.inference_mode():
         want = literal(x, skips).float()
         rec["literal_ms"] = time_ms(lambda: literal(x, skips), n=10,
@@ -1838,22 +1895,13 @@ def training_cli_phase(root, n_train=24, n_val=4, steps=3, seed=0):
     from riders_tpu_torch.core import config
     from riders_tpu_torch.pipelines import rcnet_training, sml_training
 
-    preset = config.ntu_config
-
-    def cadence(root="", **kw):
-        cfg = preset(root, **kw)
-        return cfg.replace(**{k: dataclasses.replace(
-            getattr(cfg, k), n_step_per_summary=1,
-            n_step_per_checkpoint=steps)
-            for k in ("rcnet_train", "sml_train")})
-
     out = {}
     ckpt = {k: root / f"ckpt_{k}" for k in ("rcnet", "sml_interp", "sml")}
     write_ntu_scene(root, "train", n_train, seed)
     write_ntu_scene(root, "val", n_val, seed + 1)
     with contextlib.ExitStack() as stack:
-        stack.enter_context(mock.patch.object(config, "ntu_config",
-                                              cadence))
+        stack.enter_context(mock.patch.object(
+            config, "ntu_config", _cadence(config.ntu_config, steps)))
         # 9a: train-rcnet at B=24, K=40
         with _StepClock(rcnet_training, "make_rcnet_train_step") as clk:
             s, launches = _cli(["train-rcnet", "--ckpt",
@@ -2638,6 +2686,7 @@ def dpt_only(smi, profile_dir):
     log(json.dumps(dpt_line(smi, dpt)))
     log(json.dumps(families_line(smi, families)))
     log(json.dumps({"rcnet_variants": variants_line(smi, variants)}))
+    log(json.dumps({"parallel": parallel_line(smi, par, fast)}))
     log(smi)
     return 0
 
@@ -2920,6 +2969,594 @@ def variants_line(smi, var):
             "worst_grad_rel_err"])
 
 
+# phase 13: the parallel layer on the card, in a world of one (the
+# machine has one card, and NCCL takes one rank per device; more ranks
+# are held on the CPU by tests/test_torch_sharding.py)
+def _free_address():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def ntu_bench_config():
+    """The NTU preset at the bench frame with phase 3's point bucket."""
+    import dataclasses
+    cfg = train_config("ntu")
+    return cfg.replace(dataset=dataclasses.replace(
+        cfg.dataset, image_shape=FRAME,
+        max_points=GEOMETRIES["ntu"]["bucket"]))
+
+
+def median_rel(x, ref):
+    return float(((x - ref).abs() / ref.abs().clamp(min=1e-3)).median())
+
+
+def sharded_fused(mesh, seed=0, B=16, n=3, spread=None):
+    """13a: `make_sharded_fused_fn` at phase 3's NTU shapes and weights,
+    n batches with the launch counters reset just before: one stem, one
+    RoI pool and one compose launch and one gather over each mesh axis
+    per call; its output against `make_fused_fn`'s on the same batches
+    (bitwise expected: on a (1, 1) mesh it runs the same operations;
+    with `spread`, a mesh of several cards, whose convolutions see other
+    batch sizes, is held by phase 4's rule instead, and this rank's frames
+    of it are set against `make_fused_fn` on those frames alone, bitwise
+    expected); ms per call of both, timed in alternating pairs."""
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.pipelines.fused import (make_fused_fn,
+                                                  make_sharded_fused_fn)
+    geo = GEOMETRIES["ntu"]
+    cfg = ntu_bench_config()
+    rcnet, sml = build_models(cfg, seed, None, torch.bfloat16)
+    plain = make_fused_fn(cfg, rcnet, sml)
+    sharded = make_sharded_fused_fn(cfg, rcnet, sml, mesh)
+    batches = [make_batch(seed + 10 + i, B, geo["bucket"], geo["real"],
+                          FRAME, "cuda") for i in range(n)]
+    sharded(batches[0])                         # first call: cuDNN set-up
+    torch.cuda.synchronize()
+    before = dict(mesh.calls)
+    LAUNCHES.clear()
+    outs = [sharded(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    calls = {k: v - before.get(k, 0) for k, v in mesh.calls.items()}
+    if any(launches.get(k) != n for k in ("stem", "roi_pool", "compose")):
+        raise AssertionError(f"13a: launches {launches} in {n} calls")
+    if calls != {"all_gather:points": n, "all_gather:data": n}:
+        raise AssertionError(f"13a: collectives {calls} in {n} calls")
+    refs = [plain(b) for b in batches]
+    max_rel = max(float(((o - r).abs() / r.abs().clamp(min=1e-3)).max())
+                  for o, r in zip(outs, refs))
+    bitwise = all(torch.equal(o, r) for o, r in zip(outs, refs))
+    med = max(median_rel(o, r) for o, r in zip(outs, refs))
+    if not bitwise and (max_rel > 1e-3 if spread is None
+                        else med > 1.5 * spread + 0.005):
+        raise AssertionError(f"13a: sharded vs plain max rel {max_rel}, "
+                             f"median {med}")
+    local_bitwise = None
+    if mesh.shape["data"] > 1:
+        m = B // mesh.shape["data"]
+        rows = slice(mesh.index("data") * m, (mesh.index("data") + 1) * m)
+        local_bitwise = all(
+            torch.equal(o[rows], plain({k: v[rows] for k, v in b.items()}))
+            for o, b in zip(outs, batches))
+    plain_ms, ms = paired_ms(lambda: plain(batches[1]),
+                             lambda: sharded(batches[1]))
+    return dict(batch=B, bucket=geo["bucket"], real_points=geo["real"],
+                launches=launches, collectives=calls, bitwise=bitwise,
+                local_bitwise=local_bitwise,
+                max_rel_err=max_rel, median_rel_err=med, ms_per_call=ms,
+                plain_ms_per_call=plain_ms, fps=B / (ms / 1e3))
+
+
+def _step_setup(kind, seed, device):
+    """fresh(dtype) -> (state, step) of `kind` at full width on `device`
+    (the seeded f32 weights, held in `dtype`), and its batch: RC-Net at
+    the NTU preset (B=24, 40 points, the frame random everywhere: phase 7
+    says why), SML at 288x352, B=12."""
+    import torch
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.models.sml import ScaleMapLearner
+    from riders_tpu_torch.pipelines import rcnet_training, sml_training
+    cfg = train_config("ntu")
+    if kind == "rcnet":
+        batch = make_rcnet_train_batch(cfg, seed, device)
+        batch["image"] = torch.rand(batch["image"].shape, generator=(
+            torch.Generator(device=device).manual_seed(seed)), device=device)
+
+        def fresh(dtype=torch.float32):
+            model = init_random_(RCNet(cfg.rcnet, device, torch.float32),
+                                 seed)
+            wide = RCNet(cfg.rcnet, device, dtype)
+            wide.load_state_dict(model.state_dict())
+            return (rcnet_training.init_rcnet_train_state(cfg, wide, 1000),
+                    rcnet_training.make_rcnet_train_step(cfg))
+    else:
+        batch = make_sml_train_batch(cfg, seed, device)
+
+        def fresh(dtype=torch.float32):
+            model = build_sml(cfg, seed, device, torch.float32)
+            wide = ScaleMapLearner(cfg.sml, device, dtype)
+            wide.load_state_dict(model.state_dict())
+            return (sml_training.init_train_state(cfg, wide, 1000),
+                    sml_training.make_train_step(cfg))
+    return fresh, batch
+
+
+def plain_roi_pool():
+    """A context in which RC-Net pools its RoIs by the plain version, its
+    forward and its backward (`ops.patches`), for an f64 step: the
+    kernels take bf16 and f32 only."""
+    import torch
+    from unittest import mock
+    from riders_tpu_torch.models import rcnet
+    from riders_tpu_torch.ops import patches
+
+    class Pool(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, feature, boxes, scale, out_size):
+            pooled = patches.roi_max_pool(feature, boxes, scale, out_size)
+            ctx.save_for_backward(feature, boxes, pooled)
+            ctx.scale = scale
+            return pooled
+
+        @staticmethod
+        def backward(ctx, grad):
+            feature, boxes, pooled = ctx.saved_tensors
+            return (patches.roi_max_pool_backward(
+                feature, boxes, pooled, grad, ctx.scale).to(feature.dtype),
+                None, None, None)
+
+    def pyramid(latent, skips, boxes, patch_size):
+        return patches.roi_pool_pyramid(
+            latent, skips, boxes, patch_size,
+            pool=lambda f, b, s, o: Pool.apply(f, b, s, tuple(o)))
+    return mock.patch.object(rcnet, "roi_pool_pyramid", pyramid)
+
+
+def sharded_step_agreement(kind, mesh, seed=5, profile_dir=None):
+    """13b: one step of `kind` ('rcnet': NTU B=24; 'sml': 288x352, B=12)
+    through `with_data_sharding` on `mesh`, so through the cross-rank
+    BatchNorm and the loss collectives, against the plain step on the
+    same weights and batch, with an f64 step of each as the witness:
+    * f64 (the RoI pool by its plain version): the sharded step computes
+      the plain step's function on the card - the loss to 1e-10, every
+      parameter's gradient to 1e-5 of its max abs (floored at 1e-6 of
+      the largest; the sharded fused path's bar in
+      tests/test_torch_sharding.py); the plain f64 step run again is
+      reported beside it (the card's run-to-run spread);
+    * f32: the loss to rtol 1e-4; the BN running statistics after the
+      step to rtol 1e-4 (atol 1e-4 of each tensor's max abs); every
+      gradient's error against the f64 plain step within max(1e-3, 3x)
+      the plain f32 step's own error there, the largest of three plain
+      draws: the batch as it is and two with a random half of the input
+      pixels one f32 ulp up (phase 7's rule, the plain step's distance
+      from the exact gradient taking the place of its nudge spread); and
+      the whole gradient's relative L2 error within 3x the plain
+      step's.
+    At random initialisation f32 rounding moves single tensors'
+    gradients by percents in either step (the SML's by a median 2%);
+    f64 shows both steps compute one function, and f32 that the sharded
+    step lies no further from it than the plain one.  Each result is
+    logged before it is judged.  Then ms per step of both f32 steps,
+    timed in alternating pairs, the host time of one all-reduce, and
+    with `profile_dir` a torch.profiler table of one step of each."""
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.parallel.sharding import with_data_sharding
+
+    fresh, batch = _step_setup(kind, seed, "cuda")
+
+    def run(dtype, sharded=False, b=batch):
+        state, step = fresh(dtype)
+        if sharded:
+            step = with_data_sharding(mesh, step)
+        _, aux = step(state, b)
+        grads = {k: p.grad.detach().double()
+                 for k, p in state.model.named_parameters()
+                 if p.grad is not None}
+        return float(aux["loss"]), grads, state, step
+
+    def errs(g, ref):
+        """Each gradient's max abs error over its max abs, floored at 1e-6
+        of the largest."""
+        top = max(float(r.abs().max()) for r in ref.values())
+        return {k: float((g[k] - r).abs().max())
+                / max(float(r.abs().max()), 1e-6 * top)
+                for k, r in ref.items()}
+
+    def whole(g, ref):
+        d = sum(float((g[k] - r).square().sum()) for k, r in ref.items())
+        return (d / sum(float(r.square().sum()) for r in ref.values())) ** 0.5
+
+    loss_p, g_p, state_p, step_p = run(torch.float32)
+    before = dict(mesh.calls)
+    LAUNCHES.clear()
+    loss_s, g_s, state_s, step_s = run(torch.float32, sharded=True)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    calls = {k: v - before.get(k, 0) for k, v in mesh.calls.items()}
+    need = ("roi_pool_f32", "roi_pool_bwd") if kind == "rcnet" else ()
+    if any(launches.get(k, 0) <= 0 for k in need) or not calls:
+        raise AssertionError(f"13b {kind}: launches {launches}, "
+                             f"collectives {calls}")
+    stats_p = state_p.model.state_dict()
+    stats_s = state_s.model.state_dict()
+    # the worst BN statistic's error over its bar
+    stats_err = max(float(((stats_s[k] - w).abs() / (
+        1e-4 * (w.abs() + w.abs().max()))).max())
+        for k, w in stats_p.items() if "running" in k)
+    wide = {k: v.double() if v.is_floating_point() else v
+            for k, v in batch.items()}
+    with plain_roi_pool():
+        loss_p64, g_p64 = run(torch.float64, b=wide)[:2]
+        torch.cuda.empty_cache()
+        loss_s64, g_s64 = run(torch.float64, sharded=True, b=wide)[:2]
+        torch.cuda.empty_cache()
+        repeat = errs(run(torch.float64, b=wide)[1], g_p64)
+    torch.cuda.empty_cache()
+    exact = errs(g_s64, g_p64)
+    err_s, err_p = errs(g_s, g_p64), errs(g_p, g_p64)
+    image = batch["image"]
+    for s in (1, 2):
+        pick = torch.rand(image.shape, device="cuda", generator=(
+            torch.Generator(device="cuda").manual_seed(s))) < 0.5
+        draw = errs(run(torch.float32, b=dict(batch, image=torch.where(
+            pick, torch.nextafter(image, torch.full_like(image, 2.0)),
+            image)))[1], g_p64)
+        err_p = {k: max(e, draw[k]) for k, e in err_p.items()}
+    over = {k: err_s[k] / max(1e-3, 3 * err_p[k]) for k in err_p}
+    worst = max(over, key=over.get)
+    res = dict(batch=int(batch["image"].shape[0]), loss=loss_p,
+               sharded_loss=loss_s,
+               loss_rel_err=abs(loss_s - loss_p) / abs(loss_p),
+               bn_stats_err_over_bar=stats_err,
+               f64_loss_rel_err=abs(loss_s64 - loss_p64) / abs(loss_p64),
+               f64_worst_grad_err=max(exact.values()),
+               f64_worst_grad=max(exact, key=exact.get),
+               grad_rel_l2_vs_f64=whole(g_s, g_p64),
+               plain_grad_rel_l2_vs_f64=whole(g_p, g_p64),
+               f64_median_grad_err=sorted(exact.values())[len(exact) // 2],
+               f64_plain_repeat_worst_grad_err=max(repeat.values()),
+               f64_plain_repeat_median_grad_err=sorted(repeat.values())[
+                   len(repeat) // 2],
+               worst_tensor=worst, worst_tensor_err=err_s[worst],
+               plain_err_there=err_p[worst], worst_over_bar=over[worst],
+               median_tensor_err=sorted(err_s.values())[len(err_s) // 2],
+               median_plain_err=sorted(err_p.values())[len(err_p) // 2],
+               n_grads=len(err_p), launches=launches, collectives=calls)
+    log(f"13b {kind}: {json.dumps(res)}")
+    if (res["loss_rel_err"] > 1e-4 or stats_err > 1.0
+            or res["f64_loss_rel_err"] > 1e-10
+            or res["f64_worst_grad_err"] > 1e-5
+            or set(g_s) != set(g_p) or set(g_s64) != set(g_p64)
+            or res["worst_over_bar"] > 1.0
+            or res["grad_rel_l2_vs_f64"]
+            > 3 * res["plain_grad_rel_l2_vs_f64"]):
+        raise AssertionError(f"13b {kind}: sharded vs plain step: {res}")
+    plain_ms, ms = paired_ms(lambda: step_p(state_p, batch),
+                             lambda: step_s(state_s, batch), n=5, warmup=1)
+    res.update(ms_per_step=ms, plain_ms_per_step=plain_ms)
+    axis = mesh.axis("mesh")
+    probe = torch.zeros(256, device="cuda")
+    for _ in range(10):
+        axis.reduce_(probe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        axis.reduce_(probe)
+    torch.cuda.synchronize()
+    res["all_reduce_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    if profile_dir is not None:
+        for name, st, sp in (("plain", state_p, step_p),
+                             ("sharded", state_s, step_s)):
+            log(profile(lambda b, st=st, sp=sp: sp(st, b), batch,
+                        profile_dir / f"profile_{kind}_{name}_step.txt"))
+    return res
+
+
+def _cadence(preset, steps):
+    """`preset` with a summary every step and a checkpoint every `steps`
+    steps, so that a `steps`-step run writes its scalars."""
+    import dataclasses
+
+    def cfg_of(root="", **kw):
+        cfg = preset(root, **kw)
+        return cfg.replace(**{k: dataclasses.replace(
+            getattr(cfg, k), n_step_per_summary=1,
+            n_step_per_checkpoint=steps)
+            for k in ("rcnet_train", "sml_train")})
+    return cfg_of
+
+
+def multihost_cli(root, steps=3):
+    """13c: `riders-torch train-sml --multihost --num-processes 1
+    --process-id 0` (NCCL on the card), B=12, `steps` steps on the NTU
+    dataset under `root` with the IDW scale map: finite losses at each
+    step, the checkpoint at the last, and the process group gone after."""
+    import torch.distributed as dist
+    from unittest import mock
+    from riders_tpu_torch.core import config
+    ckpt = root / "ckpt_sml_multihost"
+    with mock.patch.object(config, "ntu_config",
+                           _cadence(config.ntu_config, steps)):
+        s, launches = _cli(["train-sml", "--ckpt", str(ckpt), "--max-steps",
+                            str(steps), "--rcnet-interp", "interp",
+                            "--multihost", "--coordinator", _free_address(),
+                            "--num-processes", "1", "--process-id", "0"],
+                           root)
+    if dist.is_initialized():
+        raise AssertionError("13c: the CLI left its process group")
+    return dict(seconds=s, batch=12, losses=_trained(ckpt, steps))
+
+
+def parallel_phase(root, profile_dir=None):
+    """Phase 13: an NCCL world of one joined by `initialize_multihost`
+    on 127.0.0.1, its (1, 1) mesh, (a) the sharded fused path, (b) the
+    sharded RC-Net and SML steps; then (c) the CLI's --multihost."""
+    import torch.distributed as dist
+    from riders_tpu_torch.parallel import sharding as sh
+    t0 = time.perf_counter()
+    device = sh.initialize_multihost(_free_address(), 1, 0, timeout_s=300)
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl" or device.type != "cuda":
+            raise AssertionError(f"13: joined {backend} on {device}")
+        mesh = sh.make_mesh(1, 1)
+        out = dict(backend=backend, mesh=list(mesh.devices_shape),
+                   fused=sharded_fused(mesh),
+                   rcnet_step=sharded_step_agreement("rcnet", mesh,
+                                                     profile_dir=profile_dir),
+                   sml_step=sharded_step_agreement("sml", mesh,
+                                                   profile_dir=profile_dir))
+    finally:
+        dist.destroy_process_group()
+    out["cli"] = multihost_cli(root)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# phase 14: the opt-in fast paths at full width
+def fast_paths_phase(spread, seed=0, B=16, profile_dir=None):
+    """Phase 14: `make_fused_fn` at phase 3's NTU shapes (B=16, bf16) with
+    each opt-in fast form alone and then all together, the launch
+    counters reset just before each: one stem, one RoI pool and one
+    compose launch a call, the output against the literal call's by
+    phase 4's rule (median relative error within 1.5 x `spread`, the
+    CPU's own bf16-vs-f32 spread, plus 0.5%), and ms per call of the form
+    and of the literal call, timed in alternating pairs (`paired_ms`),
+    and fps; with `profile_dir` a torch.profiler table of one call of
+    each."""
+    import os
+    import torch
+    from riders_tpu_torch.models import sml_folded
+    from riders_tpu_torch.models.layers import UpConvBlock
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.pipelines.fused import make_fused_fn
+    geo = GEOMETRIES["ntu"]
+    cfg = ntu_bench_config()
+    rcnet, sml = build_models(cfg, seed, None, torch.bfloat16)
+    batch = make_batch(seed + 11, B, geo["bucket"], geo["real"], FRAME,
+                       "cuda")
+    upconvs = [m for m in rcnet.modules() if isinstance(m, UpConvBlock)]
+    saved = os.environ.get("RIDERS_SML_FOLD")
+    try:
+        os.environ["RIDERS_SML_FOLD"] = "1"
+        if not sml_folded.supports_folding(sml, cfg.sml.net_shape):
+            raise AssertionError("14: the SML does not fold")
+        folded = make_fused_fn(cfg, rcnet, sml)
+        os.environ["RIDERS_SML_FOLD"] = "0"
+        literal = make_fused_fn(cfg, rcnet, sml)
+    finally:
+        if saved is None:
+            os.environ.pop("RIDERS_SML_FOLD", None)
+        else:
+            os.environ["RIDERS_SML_FOLD"] = saved
+    forms = {"sml_fold": dict(fold=True), "phase_tail": dict(tail=True),
+             "fast_2x": dict(x2=True), "fast_upsample": dict(head=True),
+             "all": dict(fold=True, tail=True, x2=True, head=True)}
+
+    def call(fold=False, tail=False, x2=False, head=False):
+        rcnet.decoder.phase_tail = tail
+        for m in upconvs:
+            m.fast_2x = x2
+        sml.output_conv.fast_upsample = head
+        return (folded if fold else literal)(batch)
+
+    out, t0 = {}, time.perf_counter()
+    try:
+        ref = call()
+        for name, kw in forms.items():
+            call(**kw)                          # first call: cuDNN set-up
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            depth = call(**kw)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            if any(launches.get(k) != 1 for k in ("stem", "roi_pool",
+                                                  "compose")):
+                raise AssertionError(f"14 {name}: launches {launches}")
+            if not bool(torch.isfinite(depth).all()):
+                raise AssertionError(f"14 {name}: non-finite depth")
+            lit_ms, ms = paired_ms(lambda: call(), lambda k=kw: call(**k))
+            rec = dict(ms_per_call=ms, literal_ms_per_call=lit_ms,
+                       fps=B / (ms / 1e3),
+                launches=launches, median_rel_err=median_rel(depth, ref),
+                max_rel_err=float(((depth - ref).abs()
+                                   / ref.abs().clamp(min=1e-3)).max()))
+            if rec["median_rel_err"] > 1.5 * spread + 0.005:
+                raise AssertionError(f"14 {name} vs literal: {rec}")
+            out[name] = rec
+            if profile_dir is not None:
+                for tag, k in (("literal", {}), (name, kw)):
+                    log(profile(lambda b, k=k: call(**k), batch,
+                                profile_dir / f"profile_fast_{tag}.txt"))
+    finally:
+        call()
+    out["bar"] = 1.5 * spread + 0.005
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# --multichip: the parallel layer across the cards of one host
+MULTICHIP_FUSED = ((2, 2), (4, 1), (1, 4))
+MULTICHIP_STEPS = (("rcnet", (4, 1)), ("rcnet", (2, 2)), ("sml", (4, 1)))
+
+
+def _multichip_rank(rank, world, address, spread, out_dir):
+    """One rank of `--multichip`: joins the NCCL job on its card and runs
+    13a on each mesh of MULTICHIP_FUSED and 13b on each of
+    MULTICHIP_STEPS (the plain references on its own card, the sharded
+    forms across every card), then writes its results."""
+    import torch
+    import torch.distributed as dist
+    from riders_tpu_torch.parallel import sharding as sh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = sh.initialize_multihost(address, world, rank, timeout_s=600)
+    try:
+        out = dict(device=str(device), fused={}, steps={})
+        for shape in MULTICHIP_FUSED:
+            out["fused"][str(shape)] = sharded_fused(sh.make_mesh(*shape),
+                                                     spread=spread)
+            torch.cuda.empty_cache()
+        for kind, shape in MULTICHIP_STEPS:
+            out["steps"][f"{kind} {shape}"] = sharded_step_agreement(
+                kind, sh.make_mesh(*shape))
+            torch.cuda.empty_cache()
+        dist.barrier()      # no rank leaves while another still talks
+    finally:
+        dist.destroy_process_group()
+    (out_dir / f"multichip_rank{rank}.json").write_text(json.dumps(out))
+
+
+def multichip_only(smi):
+    """`--multichip` (every card of the host, one rank each, joined by
+    NCCL): phases 1 and 4 (the bf16 spread), then 13a on meshes (2, 2),
+    (4, 1) and (1, 4) at NTU B=16 and 13b for RC-Net (B=24) on (4, 1)
+    and (2, 2) and SML (B=12) on (4, 1), each rank holding the sharded
+    form against the plain one on its own card; one {"multichip": ..}
+    line from rank 0's results, with every rank's timings."""
+    import multiprocessing
+    import torch
+    world = torch.cuda.device_count()
+    if world < 4:
+        print(f"chip_smoke: --multichip needs 4 cards, found {world}",
+              file=sys.stderr)
+        return 1
+    world = 4
+    agree = reference_agreement()
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    address = _free_address()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_multichip_rank, args=(
+        r, world, address, agree["cpu_bf16_vs_cpu_f32"], out_dir))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=900)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    if alive or any(codes):
+        raise AssertionError(f"--multichip: rank exit codes {codes}")
+    ranks = [json.loads((out_dir / f"multichip_rank{r}.json").read_text())
+             for r in range(world)]
+    r0 = ranks[0]
+    line = dict(
+        card=smi, cards=world, seconds=time.perf_counter() - t0,
+        fused={k: dict(bitwise=v["bitwise"],
+                       local_bitwise=[r["fused"][k]["local_bitwise"]
+                                      for r in ranks],
+                       median_rel_err=v["median_rel_err"],
+                       launches=v["launches"],
+                       ms=[r["fused"][k]["ms_per_call"] for r in ranks],
+                       plain_ms=v["plain_ms_per_call"])
+               for k, v in r0["fused"].items()},
+        steps={k: dict(f64_worst_grad_err=v["f64_worst_grad_err"],
+                       worst_over_bar=v["worst_over_bar"],
+                       grad_rel_l2_vs_f64=v["grad_rel_l2_vs_f64"],
+                       plain_grad_rel_l2_vs_f64=v[
+                           "plain_grad_rel_l2_vs_f64"],
+                       loss_rel_err=v["loss_rel_err"],
+                       ms=[r["steps"][k]["ms_per_step"] for r in ranks],
+                       plain_ms=v["plain_ms_per_step"],
+                       all_reduce_us=v["all_reduce_us"])
+               for k, v in r0["steps"].items()})
+    log(json.dumps({"multichip": line}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def parallel_line(smi, par, fast):
+    """The one-line summary of phases 13 and 14."""
+    return dict(
+        card=smi, backend=par["backend"], seconds=par["seconds"],
+        sharded_fused_ms=par["fused"]["ms_per_call"],
+        plain_fused_ms=par["fused"]["plain_ms_per_call"],
+        sharded_fused_bitwise=par["fused"]["bitwise"],
+        sharded_fused_launches=par["fused"]["launches"],
+        **{f"{k}_ms": par[f"{k}_step"]["ms_per_step"]
+           for k in ("rcnet", "sml")},
+        **{f"plain_{k}_ms": par[f"{k}_step"]["plain_ms_per_step"]
+           for k in ("rcnet", "sml")},
+        **{f"{k}_f64_worst_grad_err": par[f"{k}_step"]["f64_worst_grad_err"]
+           for k in ("rcnet", "sml")},
+        **{f"{k}_grad_rel_l2_vs_f64": [
+            par[f"{k}_step"]["grad_rel_l2_vs_f64"],
+            par[f"{k}_step"]["plain_grad_rel_l2_vs_f64"]]
+           for k in ("rcnet", "sml")},
+        **{f"{k}_worst_over_bar": par[f"{k}_step"]["worst_over_bar"]
+           for k in ("rcnet", "sml")},
+        all_reduce_us=par["rcnet_step"]["all_reduce_us"],
+        cli_multihost_s=par["cli"]["seconds"],
+        fast_ms={k: v["ms_per_call"] for k, v in fast.items()
+                 if isinstance(v, dict)},
+        fast_literal_ms={k: v["literal_ms_per_call"] for k, v in
+                         fast.items() if isinstance(v, dict)},
+        fast_median_rel_err={k: v["median_rel_err"] for k, v in
+                             fast.items() if isinstance(v, dict)},
+        fast_all_fps=fast["all"]["fps"], fast_seconds=fast["seconds"])
+
+
+def parallel_only(smi, profile_dir=None):
+    """`--parallel`: phase 1, phase 4 (the bf16 spread phase 14 needs),
+    then phases 13 and 14 alone, on an NTU dataset of their own."""
+    import torch
+    agree = reference_agreement()
+    root = HERE / "build" / "phase13_data"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        write_ntu_scene(root, "train", 12, 0)
+        write_ntu_scene(root, "val", 4, 1)
+        par = parallel_phase(root, profile_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fast = fast_paths_phase(agree["cpu_bf16_vs_cpu_f32"],
+                            profile_dir=profile_dir)
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_parallel.json").write_text(json.dumps(dict(
+        card=smi, reference=agree, parallel=par, fast_paths=fast),
+        indent=1))
+    log(json.dumps({"parallel": parallel_line(smi, par, fast)}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def profile(fn, batch, path):
     """Device time by kernel for one call of `fn` (torch.profiler), and
     the same by operator and input shapes (written to `path` only)."""
@@ -3012,6 +3649,10 @@ def main(argv):
         return dpt_only(smi, profile_dir)
     if "--variants" in argv:
         return variants_only(smi)
+    if "--parallel" in argv:
+        return parallel_only(smi, profile_dir)
+    if "--multichip" in argv:
+        return multichip_only(smi)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():
@@ -3088,12 +3729,18 @@ def main(argv):
         dpt = dpt_phase(root, profile_dir=profile_dir)
         log_dpt(dpt)
         families = family_phase(root, profile_dir=profile_dir)
+        torch.cuda.empty_cache()
+        par = parallel_phase(root, profile_dir)
+        log(f"parallel: {json.dumps(par)}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     variants = variants_phase({"ntu": ntu["ms_per_call"],
                                "zju": zju["ms_per_call"]})
     log_variants(variants)
+    fast = fast_paths_phase(agree["cpu_bf16_vs_cpu_f32"],
+                            profile_dir=profile_dir)
+    log(f"fast paths: {json.dumps(fast)}")
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -3147,7 +3794,7 @@ def main(argv):
                    training_kernels=train_kernels, training=training,
                    training_agreement=train_agree, staged=staged,
                    cli=cli_runs, dpt=dpt, dpt_families=families,
-                   rcnet_variants=variants)
+                   rcnet_variants=variants, parallel=par, fast_paths=fast)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -3211,6 +3858,7 @@ def main(argv):
     log(json.dumps(dpt_line(smi, dpt)))
     log(json.dumps(families_line(smi, families)))
     log(json.dumps({"rcnet_variants": variants_line(smi, variants)}))
+    log(json.dumps({"parallel": parallel_line(smi, par, fast)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,20 @@
 
 The subcommands and flags are the JAX package's `riders`, plus
 `--device` (default `cuda`; `--device cpu` runs on the CPU, and without
-a card the default raises).  `bench` and `--multihost` (with its
-companion flags) raise: the port has neither the benchmark nor the
-multi-process mesh yet.
+a card the default raises).  `bench` raises: the port has no benchmark
+yet.
+
+`--multihost` joins a job of several processes, one rank per device,
+before the command runs (`parallel.sharding.initialize_multihost`: NCCL
+on the card, gloo with `--device cpu`), with `--coordinator host:port
+--num-processes N --process-id I`, or without them from torchrun's
+environment:
+
+    torchrun --nproc-per-node 4 -m riders_tpu_torch.cli train-sml \
+        --multihost --dataset zju --root /data/ZJU --ckpt /log/sml
+
+The trainers then run data-parallel over the configured mesh; the
+other commands run on every rank as they do alone.
 """
 
 from __future__ import annotations
@@ -70,7 +81,9 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument("--device", default="cuda",
                        help="'cuda' (default) or 'cpu'")
         p.add_argument("--multihost", action="store_true",
-                       help="join a multi-process job (not ported: raises)")
+                       help="join a multi-process job before the command "
+                       "(torch.distributed; coordinator from the env or "
+                       "--coordinator)")
         p.add_argument("--coordinator", default=None,
                        help="coordinator address for --multihost")
         p.add_argument("--num-processes", type=int, default=None)
@@ -139,14 +152,21 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "bench: the port has no benchmark yet (ROADMAP.md A1); the JAX "
             "package's `riders bench` runs bench.py")
-    if args.multihost or any(getattr(args, k) is not None for k in (
-            "coordinator", "num_processes", "process_id")):
-        raise NotImplementedError(
-            "--multihost: the port has no multi-process mesh yet "
-            "(ROADMAP.md A5)")
-
     from riders_tpu_torch.core.device import resolve_device
     device = resolve_device(args.device)
+    if not args.multihost:
+        return _run(args, device)
+    import torch.distributed as dist
+    from riders_tpu_torch.parallel.sharding import initialize_multihost
+    device = initialize_multihost(args.coordinator, args.num_processes,
+                                  args.process_id, device)
+    try:
+        return _run(args, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device) -> int:
     cfg = _load_config(args)
 
     from riders_tpu_torch.pipelines import drivers

@@ -2,10 +2,11 @@
 training steps.
 
 The port's own copy of the dataclasses and the ZJU / NTU presets of the
-JAX package's configuration, cut to the fields the port reads (the mesh
-layout is left out).  All shapes are static: frame size, patch size,
-the radar-point bucket and the SML network input are part of the
-config.
+JAX package's configuration, cut to the fields the port reads (the
+mesh's axis names are left out: the port's are fixed,
+`parallel.sharding.DATA_AXIS` and `POINTS_AXIS`).  All shapes are
+static: frame size, patch size, the radar-point bucket and the SML
+network input are part of the config.
 """
 
 from __future__ import annotations
@@ -187,6 +188,16 @@ class EvalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The (data, points) mesh of ranks (`parallel.sharding`): `data`
+    splits the frame batch, `points` the per-frame radar-point patches of
+    RC-Net.  data_parallel -1 takes every rank left."""
+
+    data_parallel: int = -1
+    points_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class RidersConfig:
     dataset: DatasetConfig = dataclasses.field(default_factory=DatasetConfig)
     alignment: AlignmentConfig = dataclasses.field(
@@ -198,6 +209,7 @@ class RidersConfig:
     sml_train: SMLTrainConfig = dataclasses.field(
         default_factory=SMLTrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     # Compute dtype of the models the drivers build; weights load in it.
     compute_dtype: str = "bfloat16"
 

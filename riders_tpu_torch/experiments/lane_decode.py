@@ -17,12 +17,12 @@ re-packed only when a parameter or statistic changes.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Sequence
 
 import torch
-import torch.nn as nn
 
-from riders_tpu_torch.models.layers import (bn_fold, depth_to_space2,
+from riders_tpu_torch.models.layers import (bn_fold, cached_weights,
+                                            depth_to_space2, hwio,
                                             nearest2x_phase_kernel,
                                             phase_compose_3x3)
 from riders_tpu_torch.ops.kernels.lane_decoder import (lane_conv3x3,
@@ -56,32 +56,14 @@ def _lane(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
 
 
-def _hwio(conv: nn.Conv2d) -> torch.Tensor:
-    return conv.weight.float().permute(2, 3, 1, 0)
-
-
-def _packed(dec, key: str, modules: Sequence[nn.Module],
-            make: Callable[[], Tuple]) -> Tuple:
-    """`make()` cached on the decoder until a tensor of `modules` is
-    replaced or changed in place (for a tensor made in inference mode,
-    which keeps no version counter: replaced)."""
-    stamp = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
-                  for m in modules for t in (*m.parameters(), *m.buffers()))
-    hit = dec._lane_packed.get(key)
-    if hit is None or hit[0] != stamp:
-        with torch.no_grad():
-            hit = dec._lane_packed[key] = (stamp, make())
-    return hit[1]
-
-
 def _upsample(dec, d: int, h: torch.Tensor, target) -> torch.Tensor:
     """deconv{d}'s upconv: B8 when the target is exactly x2, else the
     nearest resize and B7."""
     block = getattr(dec, f"deconv{d}").deconv.conv
     exact = tuple(target) == (2 * h.shape[1], 2 * h.shape[2])
-    w, g, b = _packed(
-        dec, f"deconv{d}.up.{exact}", [block],
-        lambda: ((pack_upconv if exact else pack_conv)(_hwio(block.conv)),
+    w, g, b = cached_weights(
+        dec._lane_packed, f"deconv{d}.up.{exact}", [block],
+        lambda: ((pack_upconv if exact else pack_conv)(hwio(block.conv)),
                  *bn_fold(block.bn)))
     if exact:
         return lane_upconv2x(h, w, g, b, SLOPE)
@@ -95,10 +77,10 @@ def _fuse(dec, d: int, up: torch.Tensor, skip: torch.Tensor
     upconv's width."""
     block = getattr(dec, f"deconv{d}").conv
     f = up.shape[3]
-    w_up, w_skip, g, b = _packed(
-        dec, f"deconv{d}.fuse", [block],
-        lambda: (pack_conv(_hwio(block.conv)[:, :, :f]),
-                 pack_conv(_hwio(block.conv)[:, :, f:]), *bn_fold(block.bn)))
+    w_up, w_skip, g, b = cached_weights(
+        dec._lane_packed, f"deconv{d}.fuse", [block],
+        lambda: (pack_conv(hwio(block.conv)[:, :, :f]),
+                 pack_conv(hwio(block.conv)[:, :, f:]), *bn_fold(block.bn)))
     return lane_conv3x3([up, skip], [w_up, w_skip], g, b, SLOPE)
 
 
@@ -133,14 +115,14 @@ def _lane_phase_tail(dec, h1: torch.Tensor) -> torch.Tensor:
 
     def make():
         tile = (lambda gb: (gb[0].repeat(4), gb[1].repeat(4)))
-        return (pack_conv(nearest2x_phase_kernel(_hwio(p0.deconv.conv.conv))),
+        return (pack_conv(nearest2x_phase_kernel(hwio(p0.deconv.conv.conv))),
                 *tile(bn_fold(p0.deconv.conv.bn)),
-                pack_conv(phase_compose_3x3(_hwio(p0.conv.conv))),
+                pack_conv(phase_compose_3x3(hwio(p0.conv.conv))),
                 *tile(bn_fold(p0.conv.bn)),
-                pack_conv(phase_compose_3x3(_hwio(dec.output0.conv))))
+                pack_conv(phase_compose_3x3(hwio(dec.output0.conv))))
 
-    w_up, g_up, b_up, w_f, g_f, b_f, w_o = _packed(
-        dec, "tail", [p0, dec.output0], make)
+    w_up, g_up, b_up, w_f, g_f, b_f, w_o = cached_weights(
+        dec._lane_packed, "tail", [p0, dec.output0], make)
     u = lane_conv3x3([h1], [w_up], g_up, b_up, SLOPE)
     m = lane_conv3x3([u], [w_f], g_f, b_f, SLOPE)
     o = lane_conv3x3([m], [w_o], None, None, None)        # (N, h, w, 4)

@@ -28,7 +28,7 @@ from __future__ import annotations
 import queue
 import threading
 from contextlib import nullcontext
-from typing import Dict, Iterator, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -336,13 +336,16 @@ class BatchLoader:
     and must pickle.  A producer thread stacks `prefetch` batches ahead.
     With `device_put` a batch holds tensors on `device` (the card unless
     device='cpu'), else numpy arrays.  `close()` stops the processes.
+    With `rows`, only those rows of each batch are decoded and yielded
+    (a data-parallel rank's share); the order of the batches is the
+    whole batches' own.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_threads: int = 4, prefetch: int = 2, seed: int = 0,
                  drop_last: bool = True, device_put: bool = True,
                  device=None, num_workers: int = 0,
-                 mp_context: str = "spawn"):
+                 mp_context: str = "spawn", rows: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -353,6 +356,7 @@ class BatchLoader:
         self.device = resolve_device(device) if device_put else None
         self.num_workers = num_workers
         self.mp_context = mp_context
+        self.rows = rows
         self._epoch_count = 0
         self._pool = None
 
@@ -389,6 +393,8 @@ class BatchLoader:
             self.rng.shuffle(order)
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
+        if self.rows is not None:
+            batches = [b[self.rows] for b in batches]
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

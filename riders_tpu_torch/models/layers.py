@@ -10,7 +10,7 @@ Module and attribute names mirror the flax parameter tree so
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -18,6 +18,8 @@ import torch.nn.functional as F
 
 from riders_tpu_torch.ops.kernels.stem import KERNEL_SIZE, stem_conv_pool
 from riders_tpu_torch.ops.resize import resize_nchw
+from riders_tpu_torch.parallel.sharding import (batch_norm_axis,
+                                                cross_rank_batch_norm)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1           # flax momentum 0.9: ra = 0.9 ra + 0.1 batch
@@ -33,23 +35,37 @@ class BatchNorm2d(nn.BatchNorm2d):
     ra = 0.9 ra + 0.1 batch, with the *biased* batch variance (torch's
     own BatchNorm2d stores the unbiased one).  In eval it uses the
     running statistics.  The eps is the module's (1e-5 for RC-Net and
-    the SML stem, 1e-3 for EfficientNet)."""
+    the SML stem, 1e-3 for EfficientNet).
+
+    Inside a sharded training step the statistics are the global
+    batch's, over the mesh axis `parallel.sharding.batch_norm_axis`
+    names (`parallel.sharding.cross_rank_batch_norm`)."""
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(mean.to(
+                self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(
+                self.running_var.dtype), alpha=m)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        axis = batch_norm_axis(self)
+        if axis is not None:
+            y, mean, var = cross_rank_batch_norm(x, self.weight, self.bias,
+                                                 self.eps, axis)
+            self._update_running(mean, var)
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean.to(
-                self.running_mean.dtype), alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var.to(
-                self.running_var.dtype), alpha=m)
+        self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
@@ -163,19 +179,53 @@ class TransposeConvBlock(nn.Module):
         return self.activation(x) if self.activation is not None else x
 
 
+def phase_form_on(flag: Optional[bool], x: torch.Tensor) -> bool:
+    """Whether a phase-composed form (`UpConvBlock.fast_2x`,
+    `MultiScaleDecoder.phase_tail`) runs on `x`: `flag` when it is set;
+    None turns it on for bf16 on the card, as the JAX package's None on
+    every backend but the CPU (on the H100 both cut the fused call's
+    device time, PERF.md §6)."""
+    if flag is not None:
+        return flag
+    return x.dtype == torch.bfloat16 and x.is_cuda
+
+
 class UpConvBlock(nn.Module):
-    """Nearest resize to `shape`, then a ConvBlock."""
+    """Nearest resize to `shape`, then a ConvBlock.
+
+    With ``fast_2x``, in eval, for an exact x2 target and a 3x3 kernel,
+    the resize composes into the conv (`nearest2x_phase_kernel`): one
+    conv on the coarse map emits the four output phases, the BN's
+    running statistics apply in f32, then the activation and one
+    depth-to-space; nearest repetition makes this exact, borders
+    included.  True forces it, False keeps the literal path, and None
+    (the default) chooses by `phase_form_on`."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  activation: Optional[Callable] = None,
-                 use_batch_norm: bool = False):
+                 use_batch_norm: bool = False,
+                 fast_2x: Optional[bool] = None):
         super().__init__()
         self.conv = ConvBlock(in_ch, features, kernel_size, 1, activation,
                               use_batch_norm)
+        self.fast_2x = fast_2x
+        self._derived = {}
 
     def forward(self, x: torch.Tensor, shape: Tuple[int, int]
                 ) -> torch.Tensor:
-        return self.conv(resize_nchw(x, shape, "nearest"))
+        block = self.conv
+        if not (phase_form_on(self.fast_2x, x) and not self.training
+                and tuple(shape) == (2 * x.shape[-2], 2 * x.shape[-1])
+                and block.conv.kernel_size == (3, 3)):
+            return block(resize_nchw(x, shape, "nearest"))
+        weight, fold = cached_weights(
+            self._derived, "fast_2x", [block], lambda: (
+                oihw(nearest2x_phase_kernel(hwio(block.conv))),
+                None if block.bn is None else bn_fold(block.bn)))
+        z = phase_conv(x, weight, fold)
+        if block.activation is not None:
+            z = block.activation(z)
+        return phases_to_space(z, block.conv.out_channels)
 
 
 class FullyConnected(nn.Module):
@@ -294,6 +344,54 @@ class DecoderBlock(nn.Module):
         return self.conv(h)
 
 
+def cached_weights(cache: dict, key: str, modules: Sequence[nn.Module],
+                   make: Callable[[], Tuple]) -> Tuple:
+    """`make()` cached in `cache` until a tensor of `modules` is replaced
+    or changed in place (for a tensor made in inference mode, which
+    keeps no version counter: replaced).  With gradients enabled on
+    trainable weights it is made anew, under autograd, at every call."""
+    tensors = [t for m in modules for t in (*m.parameters(), *m.buffers())]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return make()
+    stamp = tuple((t.data_ptr(), 0 if t.is_inference() else t._version)
+                  for t in tensors)
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            hit = cache[key] = (stamp, make())
+    return hit[1]
+
+
+def hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """A conv's weight as an f32 HWIO kernel."""
+    return conv.weight.float().permute(2, 3, 1, 0)
+
+
+def oihw(k: torch.Tensor) -> torch.Tensor:
+    return k.permute(3, 2, 0, 1).contiguous()
+
+
+def phase_conv(x: torch.Tensor, weight: torch.Tensor,
+               fold: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """3x3 conv (zero padding 1) of NCHW x with an OIHW phase kernel in
+    x's dtype, then, with `fold` = (scale, bias) of F channels, the
+    per-channel affine tiled over the four phase blocks in f32."""
+    z = F.conv2d(x, weight.to(x.dtype), padding=1)
+    if fold is None:
+        return z
+    g, b = (t.repeat(4)[None, :, None, None] for t in fold)
+    return (z.float() * g + b).to(x.dtype)
+
+
+def phases_to_space(z: torch.Tensor, features: int) -> torch.Tensor:
+    """NCHW phase tensor (N, 4F, h, w), block (py * 2 + px) * F + f ->
+    (N, F, 2h, 2w): `depth_to_space2` in the NCHW layout."""
+    n, _, h, w = z.shape
+    z = z.reshape(n, 2, 2, features, h, w).permute(0, 3, 4, 1, 5, 2)
+    return z.reshape(n, features, 2 * h, 2 * w)
+
+
 # Nearest x2 taps composed through a 3-tap conv: for output phase p,
 # _M_NEAREST2[p][j, d] maps conv tap d of the upsampled map to tap j of
 # the coarse map (up[2i + p + d - 1] = x[i + j - 1]); row j = 2 (p = 0)
@@ -302,15 +400,23 @@ _M_NEAREST2 = (((1.0, 0.0, 0.0), (0.0, 1.0, 1.0), (0.0, 0.0, 0.0)),
                ((0.0, 0.0, 0.0), (1.0, 1.0, 0.0), (0.0, 0.0, 1.0)))
 
 
+def phase_kernel(k: torch.Tensor, taps) -> torch.Tensor:
+    """Compose an x2 upsample whose phase-p taps are taps[p] (3 x 3, coarse
+    tap j x conv tap d) with a 3x3 conv: k (3, 3, Ci, F) HWIO -> (3, 3,
+    Ci, 4F), output block (py * 2 + px) * F + f holding the conv of the
+    upsampled map at (2i + py, 2j + px).  Summed in k's dtype."""
+    m = [torch.tensor(p, dtype=k.dtype, device=k.device) for p in taps]
+    return torch.cat([torch.einsum("ja,abio,lb->jlio", m[py], k, m[px])
+                      for py in range(2) for px in range(2)], dim=-1)
+
+
 def nearest2x_phase_kernel(k: torch.Tensor) -> torch.Tensor:
     """Compose nearest-x2 upsample + 3x3 conv into one 3x3 conv on the
     coarse map whose output is the PHASE tensor: k (3, 3, Ci, F) HWIO ->
     (3, 3, Ci, 4F), output block (py * 2 + px) * F + f holding
     conv3x3(up2(x), k)[2i + py, 2j + px, f].  Summed in k's dtype (f32
     for the lane decoder, as in the JAX package)."""
-    m = [torch.tensor(p, dtype=k.dtype, device=k.device) for p in _M_NEAREST2]
-    return torch.cat([torch.einsum("ja,abio,lb->jlio", m[py], k, m[px])
-                      for py in range(2) for px in range(2)], dim=-1)
+    return phase_kernel(k, _M_NEAREST2)
 
 
 def phase_compose_3x3(k: torch.Tensor) -> torch.Tensor:

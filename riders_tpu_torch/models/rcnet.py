@@ -28,10 +28,11 @@ from riders_tpu_torch.core.config import RCNetConfig
 from riders_tpu_torch.core.device import resolve_device
 from riders_tpu_torch.experiments import lane_decode
 from riders_tpu_torch.models.attention import LocalFeatureTransformer
-from riders_tpu_torch.models.layers import (ConvBlock, DecoderBlock,
-                                            FullyConnected, FusedStemConv,
-                                            ResNetBlock, activation_fn,
-                                            place)
+from riders_tpu_torch.models.layers import (
+    ConvBlock, DecoderBlock, FullyConnected, FusedStemConv, ResNetBlock,
+    activation_fn, bn_fold, cached_weights, hwio, nearest2x_phase_kernel,
+    oihw, phase_compose_3x3, phase_conv, phase_form_on, phases_to_space,
+    place)
 from riders_tpu_torch.ops.kernels.roi_pool import roi_pool_pyramid
 from riders_tpu_torch.ops.resize import resize_nchw
 
@@ -118,7 +119,18 @@ class MultiScaleDecoder(nn.Module):
     of `experiments.lane_decode` in eval mode, on the same parameters; in
     train mode the literal path runs, as in the JAX package.  The lane
     path has no backward, so it raises with grad enabled; it decodes the
-    single-resolution decoder with one output channel only."""
+    single-resolution decoder with one output channel only.
+
+    ``phase_tail`` runs the full-resolution tail (deconv0's nearest
+    x2 + conv, its fusion conv and output0) in phase space at a quarter
+    of the pixels, as the JAX decoder's phase tail: the upsample composes
+    into the upconv (`layers.nearest2x_phase_kernel`), each following 3x3
+    conv composes with the depth-to-space (`layers.phase_compose_3x3`),
+    exact with the BNs' running statistics, and one depth-to-space of
+    the logits ends it.  It applies in eval to the single-resolution BN
+    decoder with a linear output, an exact x2 last stage and no skip at
+    full resolution.  True forces it, False keeps the literal path, and
+    None (the default) chooses by `layers.phase_form_on`."""
 
     def __init__(self, in_ch: int, skip_channels: Sequence[int],
                  n_filters: Sequence[int] = (256, 128, 64, 32, 16),
@@ -126,7 +138,8 @@ class MultiScaleDecoder(nn.Module):
                  activation: str = "leaky_relu",
                  use_batch_norm: bool = True, n_resolution: int = 1,
                  lane_mode: Optional[str] = None,
-                 output_func: str = "linear", output_channels: int = 1):
+                 output_func: str = "linear", output_channels: int = 1,
+                 phase_tail: Optional[bool] = None):
         super().__init__()
         depth = len(n_filters)
         if depth >= 8:
@@ -151,7 +164,9 @@ class MultiScaleDecoder(nn.Module):
         self.activation_name = activation
         self.use_batch_norm = use_batch_norm
         self.lane_mode = lane_mode
-        self._lane_packed = {}      # packed lane-kernel weights, by stage
+        self.phase_tail = phase_tail
+        self.linear_output = out_act is None
+        self._lane_packed = {}      # packed / composed weights, by stage
         self.output_shape = tuple(output_shape)
         self.n_skips = len(skip_channels)
         prev, up_ch = in_ch, 0
@@ -207,6 +222,12 @@ class MultiScaleDecoder(nn.Module):
                                       "bilinear", align_corners=True)
         if self.upsample_out:
             return outputs + [up_prev]
+        if (phase_form_on(self.phase_tail, h) and not self.training
+                and self.n_resolution == 1
+                and self.linear_output and self.use_batch_norm
+                and len(skips) != self.depth
+                and self.output_shape == (2 * h.shape[-2], 2 * h.shape[-1])):
+            return self._phase_tail(h)
         if up_prev is not None:
             skip0 = (up_prev if len(skips) != self.depth else
                      torch.cat([skips[0], up_prev.to(skips[0].dtype)], 1))
@@ -217,6 +238,23 @@ class MultiScaleDecoder(nn.Module):
             h = self.deconv0(h, shape=self.output_shape)
         out0 = self.output0(h)
         return outputs + [out0] if self.n_resolution > 1 else out0
+
+
+    def _phase_tail(self, h: torch.Tensor) -> torch.Tensor:
+        up, fuse, out = self.deconv0.deconv.conv, self.deconv0.conv, \
+            self.output0
+        w_up, f_up, w_fuse, f_fuse, w_out = cached_weights(
+            self._lane_packed, "phase_tail", [up, fuse, out], lambda: (
+                oihw(nearest2x_phase_kernel(hwio(up.conv))), bn_fold(up.bn),
+                oihw(phase_compose_3x3(hwio(fuse.conv))), bn_fold(fuse.bn),
+                oihw(phase_compose_3x3(hwio(out.conv)))))
+        z = phase_conv(h, w_up, f_up)
+        if up.activation is not None:
+            z = up.activation(z)
+        z = phase_conv(z, w_fuse, f_fuse)
+        if fuse.activation is not None:
+            z = fuse.activation(z)
+        return phases_to_space(phase_conv(z, w_out), out.conv.out_channels)
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
@@ -268,12 +306,31 @@ class RCNet(nn.Module):
                 point_mask: Optional[torch.Tensor] = None,
                 return_logits: bool = True,
                 return_all_scales: bool = False):
+        latent, skips = self.encode(image)
+        return self.decode_points(latent, skips, points, boxes, point_mask,
+                                  return_logits, return_all_scales)
+
+    def encode(self, image: torch.Tensor
+               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The frames' encoder maps: (latent, skips), NCHW."""
+        dtype = self.encoder_image.conv1.conv.weight.dtype
+        return self.encoder_image(image.to(dtype))
+
+    def decode_points(self, latent: torch.Tensor,
+                      skips: Sequence[torch.Tensor], points: torch.Tensor,
+                      boxes: torch.Tensor,
+                      point_mask: Optional[torch.Tensor] = None,
+                      return_logits: bool = True,
+                      return_all_scales: bool = False):
+        """The per-point half of `forward` on `encode`'s maps: RoI pool,
+        point MLP, attention and decoder.  In eval each point's output
+        depends on its frame's maps and on itself alone, so any subset of
+        a frame's points decodes to the same outputs."""
         cfg = self.config
         B, K = points.shape[:2]
         lh, lw = cfg.latent_shape
         dtype = self.encoder_image.conv1.conv.weight.dtype
 
-        latent, skips = self.encoder_image(image.to(dtype))
         pooled_latent, pooled_skips = roi_pool_pyramid(
             _nhwc(latent), [_nhwc(s) for s in skips],
             boxes.float().contiguous(), cfg.patch_size)

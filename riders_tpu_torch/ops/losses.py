@@ -3,7 +3,11 @@ the SML loss and the positive-weighted BCE of RC-Net.
 
 Every loss is a mask-weighted reduction (no boolean indexing, so no
 data-dependent shapes).  Maps keep the JAX package's NHWC layout at
-these functions: (N, H, W, 1) for depth-like maps.
+these functions: (N, H, W, 1) for depth-like maps.  The batch
+reductions - the sums and means over the batch and the batch-wide
+median - go through `parallel.sharding`'s `batch_sum`, `batch_mean` and
+`batch_gather`, which span every rank's part of the global batch inside
+a sharded training step.
 """
 
 from __future__ import annotations
@@ -14,6 +18,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from riders_tpu_torch.parallel.sharding import (batch_gather, batch_mean,
+                                                batch_sum)
+
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
     """|x| with JAX's derivative at 0 (+1; torch.abs gives 0 there).  It
@@ -23,7 +30,7 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return batch_sum(x * mask) / torch.clamp(batch_sum(mask), min=1.0)
 
 
 def l1_loss(pred, target, mask):
@@ -48,7 +55,10 @@ _LOSS_FNS = {"l1": l1_loss, "l2": l2_loss, "smoothl1": smooth_l1_loss}
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Median of x over mask as torch.median takes it (the lower middle
     element): masked-out entries sort last as +inf and the element at
-    (count - 1) // 2 is picked (index 0, +inf, for an empty mask)."""
+    (count - 1) // 2 is picked (index 0, +inf, for an empty mask).  Inside
+    a sharded step it is the global batch's median: every rank's part is
+    gathered in rank order, which is the batch's own order."""
+    x, mask = batch_gather(x, mask)
     flat = x.reshape(-1)
     m = mask.reshape(-1) > 0
     n = torch.sum(m.to(torch.int64))
@@ -119,11 +129,11 @@ def sobel_smoothness_loss(predict: torch.Tensor, image: torch.Tensor,
     weights_y = torch.exp(-torch.abs(_filtered(image, gxs)))
 
     area = float(filter_size * filter_size)
-    smoothness_x = torch.mean(weights * weights_x * _abs(predict_dx))
-    smoothness_y = torch.mean(weights * weights_y * _abs(predict_dy))
+    smoothness_x = batch_mean(weights * weights_x * _abs(predict_dx))
+    smoothness_y = batch_mean(weights * weights_y * _abs(predict_dy))
     smoothness = (smoothness_x + smoothness_y) / area
-    loss_dx = torch.mean(weights * _abs(_abs(predict_dx) - _abs(image_dx)))
-    loss_dy = torch.mean(weights * _abs(_abs(predict_dy) - _abs(image_dy)))
+    loss_dx = batch_mean(weights * _abs(_abs(predict_dx) - _abs(image_dx)))
+    loss_dy = batch_mean(weights * _abs(_abs(predict_dy) - _abs(image_dy)))
     return smoothness, (loss_dx + loss_dy) / area
 
 
@@ -205,4 +215,4 @@ def weighted_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     x, y = logits, targets
     per_elem = (w_positive_class * y * softplus(-x)
                 + (1.0 - y) * softplus(x))
-    return torch.sum(validity_map * per_elem) / torch.sum(validity_map)
+    return batch_sum(validity_map * per_elem) / batch_sum(validity_map)

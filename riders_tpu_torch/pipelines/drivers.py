@@ -15,7 +15,10 @@ They read and write the 16-bit PNG trees of the JAX package's drivers
 package is read by the other.  Checkpoints are the port's
 `<dir>/<step>/state.pt` (`core/checkpoint.py`); a training run starts
 from `models.layers.init_training_` weights (seed 0) unless it resumes.
-Each driver runs on `device`: the card unless device='cpu'.
+Each driver runs on `device`: the card unless device='cpu'.  In a job
+of several ranks (`parallel.sharding.initialize_multihost`) the trainers
+run data-parallel over the configured mesh, each rank decoding only its
+rows of each global batch.
 """
 
 from __future__ import annotations
@@ -65,9 +68,52 @@ def _numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _maybe_shard_training(cfg: RidersConfig, step_fn, batch_size: int):
+    """Data-parallel training over the configured mesh when the job has
+    more than one rank (`parallel.sharding`), by the JAX package's rules:
+    mesh.data_parallel -1 takes the largest rank count the batch splits
+    evenly over, a set size that does not divide the batch raises, and a
+    world of one gets the step back unchanged.  Returns (step, rows):
+    the wrapped step, which takes this rank's `rows` of each global
+    batch, and those rows (None when unsharded).  The ranks the mesh
+    leaves out (all but rank 0 when fewer than two data ranks remain)
+    get (None, None): they sit the training out, as the JAX package
+    leaves the devices outside its mesh idle."""
+    from riders_tpu_torch.parallel import sharding as sh
+
+    n_ranks = sh.process_count()
+    n_data = cfg.mesh.data_parallel
+    if n_data == -1:
+        n_data = n_ranks // max(cfg.mesh.points_parallel, 1)
+        while n_data > 1 and batch_size % n_data != 0:
+            n_data -= 1
+    elif batch_size % n_data != 0:
+        raise ValueError(
+            f"batch size {batch_size} not divisible by the configured "
+            f"mesh data_parallel={n_data}")
+    if n_ranks < 2 or n_data < 2:
+        return (step_fn, None) if sh.process_index() == 0 else (None, None)
+    mesh = sh.mesh_from_config(
+        dataclasses.replace(cfg.mesh, data_parallel=n_data))
+    if mesh.rank >= mesh.size:
+        return None, None
+    per_rank = batch_size // n_data
+    first = mesh.index(sh.DATA_AXIS) * per_rank
+    return (sh.with_data_sharding(mesh, step_fn, frames_local=True),
+            slice(first, first + per_rank))
+
+
+def _sits_out(what: str) -> None:
+    from riders_tpu_torch.parallel.sharding import process_index
+    log_lib.log(f"rank {process_index()} lies outside the training mesh: "
+                f"it trains no {what}")
+
+
 def _train_loader(dataset, batch_size: int, what: str,
-                  device: torch.device) -> BatchLoader:
-    loader = BatchLoader(dataset, batch_size, shuffle=True, device=device)
+                  device: torch.device, rows: Optional[slice] = None
+                  ) -> BatchLoader:
+    loader = BatchLoader(dataset, batch_size, shuffle=True, device=device,
+                         rows=rows)
     if len(loader) == 0:
         raise ValueError(
             f"{len(dataset)} samples < batch size {batch_size}: no full "
@@ -86,34 +132,43 @@ def _train_loop(cfg: RidersConfig, t, state, step_fn, loader: BatchLoader,
     n_step_per_checkpoint steps `on_checkpoint(state, info, batch, timer,
     writer)` logs and the state is saved; at `max_steps` the state is
     saved and the loop returns.  The loss is read on the host only at
-    those steps."""
+    those steps.  In a job of several ranks every rank steps and only
+    rank 0 writes the logs, summaries and checkpoints."""
+    from riders_tpu_torch.parallel.sharding import process_index
+
+    main = process_index() == 0
     if resume and ckpt_lib.latest_step(checkpoint_dir) is not None:
         ckpt_lib.restore_train_state(checkpoint_dir, state)
-        log_lib.log(f"Resumed from step {state.step}", log_path)
+        if main:
+            log_lib.log(f"Resumed from step {state.step}", log_path)
     steps_per_epoch = len(loader)
     n_epochs = t.learning_schedule[-1]
-    writer = log_lib.ScalarWriter(checkpoint_dir, "train")
+    writer = log_lib.ScalarWriter(checkpoint_dir, "train") if main else None
     timer = log_lib.StepTimer(steps_per_epoch * n_epochs)
-    log_lib.log_params(log_path, dataclasses.asdict(cfg))
-    log_lib.log(f"Training {what}: {len(loader.dataset)} samples, "
-                f"{steps_per_epoch} steps/epoch, {n_epochs} epochs",
-                log_path)
+    if main:
+        log_lib.log_params(log_path, dataclasses.asdict(cfg))
+        log_lib.log(f"Training {what}: {len(loader.dataset)} samples, "
+                    f"{steps_per_epoch} steps/epoch, {n_epochs} epochs",
+                    log_path)
     try:
         for _ in range(state.step // steps_per_epoch + 1, n_epochs + 1):
             for batch in loader.epoch():
                 state, info = step_fn(state, batch)
                 timer.tick()
-                if state.step % t.n_step_per_summary == 0:
+                if main and state.step % t.n_step_per_summary == 0:
                     writer.write(state.step, info)
-                if state.step % t.n_step_per_checkpoint == 0:
+                if main and state.step % t.n_step_per_checkpoint == 0:
                     on_checkpoint(state, info, batch, timer, writer)
                     ckpt_lib.save_train_state(checkpoint_dir, state)
                 if max_steps is not None and state.step >= max_steps:
-                    ckpt_lib.save_train_state(checkpoint_dir, state)
+                    if main:
+                        ckpt_lib.save_train_state(checkpoint_dir, state)
                     return
-        ckpt_lib.save_train_state(checkpoint_dir, state)
+        if main:
+            ckpt_lib.save_train_state(checkpoint_dir, state)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
         loader.close()
 
 
@@ -124,10 +179,14 @@ def train_sml(cfg: RidersConfig, checkpoint_dir: str, resume: bool = False,
     augmentations), f32, checkpoints under `checkpoint_dir`."""
     device = resolve_device(device)
     t = cfg.sml_train
+    step, rows = _maybe_shard_training(cfg, sml_training.make_train_step(cfg),
+                                       t.batch_size)
+    if step is None:
+        return _sits_out("SML")
     records = build_manifest(cfg.dataset, cfg.dataset.train_scenes,
                              rcnet_interp=_rcnet_dir(t.rcnet_interp))
     loader = _train_loader(SMLFrameDataset(cfg, records, train=True),
-                           t.batch_size, "sml_train", device)
+                           t.batch_size, "sml_train", device, rows)
     model = init_training_(build_sml_model(cfg, device, torch.float32))
     state = sml_training.init_train_state(cfg, model, len(loader))
 
@@ -135,9 +194,8 @@ def train_sml(cfg: RidersConfig, checkpoint_dir: str, resume: bool = False,
         log_lib.log(f"{timer.format()} Loss={float(info['loss']):.5f}",
                     log_path)
 
-    _train_loop(cfg, t, state, sml_training.make_train_step(cfg), loader,
-                checkpoint_dir, "SML", log_path, resume, max_steps,
-                on_checkpoint)
+    _train_loop(cfg, t, state, step, loader, checkpoint_dir, "SML",
+                log_path, resume, max_steps, on_checkpoint)
 
 
 def train_rcnet(cfg: RidersConfig, checkpoint_dir: str,
@@ -150,9 +208,13 @@ def train_rcnet(cfg: RidersConfig, checkpoint_dir: str,
     depth), the histograms of those panels and the label counts."""
     device = resolve_device(device)
     t = cfg.rcnet_train
+    step, rows = _maybe_shard_training(
+        cfg, rcnet_training.make_rcnet_train_step(cfg), t.batch_size)
+    if step is None:
+        return _sits_out("RC-Net")
     records = build_manifest(cfg.dataset, cfg.dataset.train_scenes)
     loader = _train_loader(RCNetTrainDataset(cfg, records), t.batch_size,
-                           "rcnet_train", device)
+                           "rcnet_train", device, rows)
     model = init_training_(RCNet(cfg.rcnet, device, torch.float32))
     state = rcnet_training.init_rcnet_train_state(cfg, model, len(loader))
     summary_fn = rcnet_training.make_rcnet_summary_fn(cfg)
@@ -177,9 +239,8 @@ def train_rcnet(cfg: RidersConfig, checkpoint_dir: str,
                 "n_ground_truth_label_per_point",
                 "n_predicted_label_per_point")}})
 
-    _train_loop(cfg, t, state, rcnet_training.make_rcnet_train_step(cfg),
-                loader, checkpoint_dir, "RC-Net", log_path, resume,
-                max_steps, on_checkpoint)
+    _train_loop(cfg, t, state, step, loader, checkpoint_dir, "RC-Net",
+                log_path, resume, max_steps, on_checkpoint)
 
 
 def run_rcnet(cfg: RidersConfig, checkpoint_dir: str, output_root: str,

@@ -8,6 +8,8 @@
 
 The stem, the RoI pool and the composition run as CUDA kernels on the
 card (their plain versions on the CPU); the rest is PyTorch.
+`make_sharded_fused_fn` runs the same path over a mesh of ranks
+(`parallel.sharding`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from riders_tpu_torch.core.config import RidersConfig
 from riders_tpu_torch.core.device import (check_model_device,
                                           resolve_device, to_device)
+from riders_tpu_torch.models import sml_folded
 from riders_tpu_torch.models.rcnet import RCNet
 from riders_tpu_torch.models.sml import ScaleMapLearner
 from riders_tpu_torch.ops.kernels.compose import compose_patches
@@ -42,6 +45,72 @@ def _scatter_points(points: torch.Tensor, mask: torch.Tensor,
     return out.index_put_((bi, v, u), z.float())
 
 
+class _Stages:
+    """The fused path's stages around RC-Net, shared by the unsharded and
+    sharded forms: the batch's decoding, RC-Net's inputs, and everything
+    after the responses."""
+
+    def __init__(self, cfg: RidersConfig, rcnet: RCNet,
+                 sml: ScaleMapLearner, device: torch.device):
+        check_model_device("rcnet", rcnet, device)
+        check_model_device("sml", sml, device)
+        self.cfg, self.rcnet, self.sml, self.device = cfg, rcnet, sml, device
+        self.rc_dtype = next(rcnet.parameters()).dtype
+        self.sml_dtype = next(sml.parameters()).dtype
+        # the W-folded SML forward, opt-in (models/sml_folded.py)
+        self.fold = (self.sml_dtype == torch.bfloat16
+                     and cfg.sml.model_type == "midas-small"
+                     and sml_folded.supports_folding(sml, cfg.sml.net_shape))
+
+    def inputs(self, batch: Dict):
+        """(image, mono, radar_points, mask) on the device, decoded."""
+        image = to_device(batch["image"], self.device)
+        if image.dtype == torch.uint8:
+            image = image.float() * (1.0 / 255.0)
+        mono = to_device(batch["mono_pred"], self.device)
+        if mono.dtype == torch.uint16:
+            # through int16 bits: CUDA's uint16 support is bare
+            codes = mono.view(torch.int16).int() & 0xFFFF
+            mono = codes.float() * (1.0 / 256.0)
+        radar_points = to_device(batch["radar_points"], self.device).float()
+        mask = to_device(batch["point_mask"], self.device).float()
+        return image, mono, radar_points, mask.contiguous()
+
+    def rcnet_inputs(self, image: torch.Tensor, radar_points: torch.Tensor):
+        """The edge-padded frame and the points and boxes in its
+        coordinates."""
+        patch = self.cfg.rcnet.patch_size
+        padded = edge_pad2d(image.to(self.rc_dtype), patch[0] // 2,
+                            patch[1] // 2)
+        points, boxes = shift_points_and_boxes(radar_points, patch)
+        return padded, points, boxes
+
+    def depth(self, image, mono, radar_points, mask, points,
+              responses: torch.Tensor) -> torch.Tensor:
+        """Threshold, composition, scatter, stage 1, SML and the bicubic
+        upsample of 1 / pred: (B, H, W) metric depth."""
+        cfg = self.cfg
+        H, W = cfg.dataset.image_shape
+        if cfg.rcnet.adaptive_composition:
+            thr = adaptive_threshold_value(
+                responses, mask, cfg.rcnet.response_threshold,
+                cfg.rcnet.threshold_decay, cfg.rcnet.max_threshold_retries)
+        else:
+            thr = cfg.rcnet.response_threshold
+        quasi_depth, _ = compose_patches(responses, points.contiguous(),
+                                         mask, (H, W), cfg.rcnet.patch_size,
+                                         thr)
+        # Raw radar returns on the frame grid: the alignment target.
+        radar_sparse = _scatter_points(radar_points, mask, (H, W))
+        x, d = prepare_sml_inputs(cfg, image, mono, radar_sparse,
+                                  quasi_depth)
+        x = x.to(self.sml_dtype)
+        pred_inv, _ = (sml_folded.folded_sml_apply(self.sml, x, d)
+                       if self.fold else self.sml(x, d))
+        return resize2d(1.0 / pred_inv, (H, W), "bicubic",
+                        align_corners=False)[..., 0]
+
+
 def make_fused_fn(cfg: RidersConfig, rcnet: RCNet, sml: ScaleMapLearner,
                   device=None) -> Callable[[Dict], torch.Tensor]:
     """Build fn(batch) -> (B, H, W) metric depth on `device` (the card
@@ -54,52 +123,59 @@ def make_fused_fn(cfg: RidersConfig, rcnet: RCNet, sml: ScaleMapLearner,
         codes (decoded x / 256);
       radar_points: (B, K, 3) (u, v, z) in unpadded pixel coordinates;
       point_mask: (B, K).
-    Tensors or numpy arrays; they are moved to the device.
+    Tensors or numpy arrays; they are moved to the device.  With
+    RIDERS_SML_FOLD=1, a bf16 midas-small SML runs its W-folded forward
+    (`models.sml_folded`).
     """
-    device = resolve_device(device)
-    check_model_device("rcnet", rcnet, device)
-    check_model_device("sml", sml, device)
-    patch = cfg.rcnet.patch_size
-    H, W = cfg.dataset.image_shape
-    pad_y, pad_x = patch[0] // 2, patch[1] // 2
-    rc_dtype = next(rcnet.parameters()).dtype
-    sml_dtype = next(sml.parameters()).dtype
-
-    as_tensor = lambda x: to_device(x, device)
+    stages = _Stages(cfg, rcnet, sml, resolve_device(device))
 
     @torch.inference_mode()
     def fused(batch: Dict) -> torch.Tensor:
-        image = as_tensor(batch["image"])
-        if image.dtype == torch.uint8:
-            image = image.float() * (1.0 / 255.0)
-        mono = as_tensor(batch["mono_pred"])
-        if mono.dtype == torch.uint16:
-            # through int16 bits: CUDA's uint16 support is bare
-            codes = mono.view(torch.int16).int() & 0xFFFF
-            mono = codes.float() * (1.0 / 256.0)
-        radar_points = as_tensor(batch["radar_points"]).float()
-        mask = as_tensor(batch["point_mask"]).float().contiguous()
-
-        padded = edge_pad2d(image.to(rc_dtype), pad_y, pad_x)
-        points, boxes = shift_points_and_boxes(radar_points, patch)
+        image, mono, radar_points, mask = stages.inputs(batch)
+        padded, points, boxes = stages.rcnet_inputs(image, radar_points)
         responses = rcnet(padded, points, boxes, mask,
                           return_logits=False)[..., 0].float().contiguous()
-
-        if cfg.rcnet.adaptive_composition:
-            thr = adaptive_threshold_value(
-                responses, mask, cfg.rcnet.response_threshold,
-                cfg.rcnet.threshold_decay, cfg.rcnet.max_threshold_retries)
-        else:
-            thr = cfg.rcnet.response_threshold
-        quasi_depth, _ = compose_patches(responses, points.contiguous(),
-                                         mask, (H, W), patch, thr)
-
-        # Raw radar returns on the frame grid: the alignment target.
-        radar_sparse = _scatter_points(radar_points, mask, (H, W))
-        x, d = prepare_sml_inputs(cfg, image, mono, radar_sparse,
-                                  quasi_depth)
-        pred_inv, _ = sml(x.to(sml_dtype), d)
-        return resize2d(1.0 / pred_inv, (H, W), "bicubic",
-                        align_corners=False)[..., 0]
+        return stages.depth(image, mono, radar_points, mask, points,
+                            responses)
 
     return fused
+
+
+def make_sharded_fused_fn(cfg: RidersConfig, rcnet: RCNet,
+                          sml: ScaleMapLearner, mesh=None, device=None
+                          ) -> Callable[[Dict], torch.Tensor]:
+    """The fused path over the (data, points) mesh of
+    `parallel.sharding` (`mesh_from_config(cfg.mesh)` by default): every
+    rank calls fn(batch) with the same global batch and gets the global
+    (B, H, W) depth back.
+
+    Each rank takes its frames over `data` and encodes them; of each
+    frame it decodes its K / n_points points over `points` (RoI pool,
+    point MLP, attention and decoder: in eval each point's response
+    depends on its frame's maps and itself alone); the responses are
+    gathered over `points`, since the threshold and the composition need
+    every point of a frame; the threshold, composition, stage 1 and the
+    SML run on the rank's frames, and the depths are gathered over
+    `data`.  B must divide over `data` and K over `points`."""
+    from riders_tpu_torch.parallel import sharding as sh
+
+    stages = _Stages(cfg, rcnet, sml, resolve_device(device))
+    if mesh is None:
+        mesh = sh.mesh_from_config(cfg.mesh)
+    by_point = sh.Sharding(mesh, (None, sh.POINTS_AXIS))
+
+    @torch.inference_mode()
+    def sharded(batch: Dict) -> torch.Tensor:
+        image, mono, radar_points, mask = stages.inputs(
+            sh.shard_batch(mesh, batch, point_keys=()))
+        padded, points, boxes = stages.rcnet_inputs(image, radar_points)
+        latent, skips = rcnet.encode(padded)
+        mine = rcnet.decode_points(
+            latent, skips, by_point.local(points), by_point.local(boxes),
+            by_point.local(mask), return_logits=False)[..., 0].float()
+        responses = mesh.axis(sh.POINTS_AXIS).gather(mine, dim=1)
+        depth = stages.depth(image, mono, radar_points, mask, points,
+                             responses.contiguous())
+        return mesh.axis(sh.DATA_AXIS).gather(depth, dim=0)
+
+    return sharded

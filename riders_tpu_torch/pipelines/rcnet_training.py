@@ -5,7 +5,8 @@ boxes and per-patch GT depth crops.  The correspondence labels
 (|gt - radar z| < max_distance and gt > 0) and the validity map are
 synthesized on the device; the positive-class-weighted BCE also masks
 padded bucket slots.  The RoI pool's backward is a CUDA kernel on the
-card (ops/kernels/roi_pool.py).
+card (ops/kernels/roi_pool.py).  Under `parallel.sharding.
+with_data_sharding` the loss and the aux sums span the global batch.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch.nn as nn
 
 from riders_tpu_torch.core.config import RidersConfig
 from riders_tpu_torch.ops.losses import weighted_bce_with_logits
+from riders_tpu_torch.parallel.sharding import batch_sum
 from riders_tpu_torch.pipelines.sml_training import (
     TrainState, adam_state, apply_update, batch_to, model_device,
     piecewise_constant_schedule)
@@ -84,13 +86,13 @@ def make_rcnet_train_step(cfg: RidersConfig
         with torch.no_grad():
             # correspondence-classifier quality scalars
             pred_pos = (logits > 0).float() * validity
-            true_pos = torch.sum(pred_pos * labels)
-            n_positive = torch.sum(labels * validity)
+            true_pos = batch_sum(pred_pos * labels)
+            n_positive = batch_sum(labels * validity)
             aux = {
                 "loss": loss.detach(),
                 "n_positive": n_positive,
-                "n_valid": torch.sum(validity),
-                "precision": true_pos / torch.clamp(torch.sum(pred_pos),
+                "n_valid": batch_sum(validity),
+                "precision": true_pos / torch.clamp(batch_sum(pred_pos),
                                                     min=1.0),
                 "recall": true_pos / torch.clamp(n_positive, min=1.0),
             }

@@ -20,6 +20,7 @@ from riders_tpu_torch.core.config import RidersConfig
 from riders_tpu_torch.ops import losses as losses_lib
 from riders_tpu_torch.ops import outlier
 from riders_tpu_torch.ops.resize import resize2d
+from riders_tpu_torch.parallel import sharding
 from riders_tpu_torch.pipelines.sml_inference import prepare_sml_inputs
 
 
@@ -103,9 +104,10 @@ def batch_to(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
 def apply_update(state: TrainState, loss: torch.Tensor) -> TrainState:
     """Backward of `loss` into fresh `.grad`s, one optimizer update and
     one scheduler step.  The gradients stay on the parameters until the
-    next step."""
+    next step.  The backward is `parallel.sharding.backward`'s: inside a
+    sharded step every rank holds the global batch's gradients."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    sharding.backward(loss, list(state.model.parameters()))
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1

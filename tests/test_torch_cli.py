@@ -7,9 +7,10 @@ package's `riders`.
   synthetic mini-dataset of tests/test_drivers.py (the presets cut to
   its 96x128 frames, narrow RC-Net widths and a tiny SML backbone), and
   writes what its driver writes.
-* `bench`, `--multihost` and its companion flags raise
-  NotImplementedError; without `--device`, every subcommand raises on a
-  host with no card before it reads a file.
+* `bench` raises NotImplementedError; `--multihost` with its companion
+  flags joins a gloo world of one around the command; without
+  `--device`, every subcommand raises on a host with no card before it
+  reads a file.
 """
 
 import dataclasses
@@ -81,14 +82,33 @@ def test_load_config_matches_jax(command, dataset):
     assert (configs[0] != configs[1]) == bool(OVERRIDES[command])
 
 
-def test_bench_and_multihost_raise():
+def test_bench_and_multihost_raise(mini, monkeypatch):
+    """`bench` raises; `--multihost` joins a world of one (gloo, with
+    `--device cpu`) for the command and leaves it after."""
+    import socket
+    import torch.distributed as dist
+
     with pytest.raises(NotImplementedError, match="A1"):
         tcli.main(["bench"])
-    for flags in (["--multihost"], ["--coordinator", "localhost:1"],
-                  ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="A5"):
-            tcli.main(["eval-dir", "--root", "/x", "--results", "/y",
-                       "--device", "cpu"] + flags)
+    seen = []
+    real = tdrivers.evaluate_results_dir
+
+    def spy(cfg, *a, **k):
+        seen.append((dist.get_backend(), dist.get_world_size(),
+                     dist.get_rank(), str(k["device"])))
+        return real(cfg, *a, **k)
+
+    monkeypatch.setattr(tdrivers, "evaluate_results_dir", spy)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root, _, _ = mini
+    assert run(root, "eval-dir", "--results", root, "--subdir", "lidar_png",
+               "--multihost",
+               "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+               "--process-id", "0") == 0
+    assert seen == [("gloo", 1, 0, "cpu")]
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("command", sorted(REQUIRED))

@@ -715,3 +715,150 @@ def test_training_driver_step_on_card(dev, tmp_path, trainer):
     with open(f"{ckpt}/scalars-train.jsonl") as f:
         loss = json.loads(f.readline())["loss"]
     assert loss == loss and abs(loss) < float("inf")
+
+
+def test_nccl_world_of_one_sharded_fused_on_card(dev):
+    """An NCCL world of one (the machine has one card): the sharded fused
+    path on its (1, 1) mesh launches each kernel once a call, gathers
+    over both axes, and equals `make_fused_fn` bit for bit; the process
+    group is gone after."""
+    import socket
+    import torch.distributed as dist
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.models.sml import ScaleMapLearner
+    from riders_tpu_torch.parallel import sharding as sh
+    from riders_tpu_torch.pipelines.fused import (make_fused_fn,
+                                                  make_sharded_fused_fn)
+    cfg = _narrow_cfg()
+    rcnet = init_random_(RCNet(cfg.rcnet, dtype=torch.bfloat16), 0)
+    sml = init_random_(ScaleMapLearner(cfg.sml, dtype=torch.bfloat16), 1)
+    H, W = cfg.dataset.image_shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    pts, mask = _points(g, dev, 2, cfg.dataset.max_points, (H, W), 5)
+    batch = {"image": torch.rand((2, H, W, 3), generator=g, device=dev),
+             "mono_pred": 0.5 + torch.rand((2, H, W), generator=g,
+                                           device=dev),
+             "radar_points": pts, "point_mask": mask}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    assert sh.initialize_multihost(address, 1, 0, timeout_s=120).type == \
+        "cuda"
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = sh.make_mesh(1, 1)
+        fn = make_sharded_fused_fn(cfg, rcnet, sml, mesh)
+        LAUNCHES.clear()
+        got = fn(batch)
+        assert {k: LAUNCHES[k] for k in ("stem", "roi_pool", "compose")} \
+            == {"stem": 1, "roi_pool": 1, "compose": 1}
+        assert mesh.calls == {"all_gather:points": 1, "all_gather:data": 1}
+        assert torch.equal(got, make_fused_fn(cfg, rcnet, sml)(batch))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("form", ["fast_2x", "phase_tail",
+                                  "fast_upsample"])
+def test_fast_forms_on_card_match_literal(dev, form):
+    """Each fast form in bf16 on the card against the literal form on the
+    same module, within two bf16 steps of the larger magnitude plus 2^-7
+    of the output's max abs (both round each op's output in bf16, at
+    different points); the default (None) is the fast form for `fast_2x`
+    and `phase_tail`, the literal one for `fast_upsample`."""
+    from riders_tpu_torch.models import layers
+    from riders_tpu_torch.models.rcnet import MultiScaleDecoder
+    from riders_tpu_torch.models.sml import OutputConv
+    torch.manual_seed(0)
+    if form == "fast_2x":
+        m = layers.UpConvBlock(12, 16, 3, layers.activation_fn(
+            "leaky_relu"), True)
+        args = (torch.randn(4, 12, 75, 25), (150, 50))
+    elif form == "phase_tail":
+        m = MultiScaleDecoder(24, [8, 16], (16, 16, 8), (32, 32))
+        args = (torch.randn(6, 24, 4, 4), [torch.randn(6, 8, 16, 16),
+                                           torch.randn(6, 16, 8, 8)])
+    else:
+        m = OutputConv(64)
+        args = (torch.randn(2, 64, 144, 176),)
+    m = layers.init_random_(m).to(dev, torch.bfloat16).eval()
+    args = [a.to(dev, torch.bfloat16) if isinstance(a, torch.Tensor) else
+            [t.to(dev, torch.bfloat16) for t in a] if isinstance(a, list)
+            else a for a in args]
+    with torch.no_grad():
+        setattr(m, form, False)
+        literal = m(*args).float()
+        setattr(m, form, True)
+        fast = m(*args).float()
+        setattr(m, form, None)
+        default = m(*args).float()
+    # None takes the fast form for bf16 on the card, except the SML head
+    assert torch.equal(default, literal if form == "fast_upsample"
+                       else fast)
+    assert fast.shape == literal.shape
+    assert not torch.equal(fast, literal)
+    limit = 2 * 2 ** -7 * torch.maximum(fast.abs(), literal.abs()) + \
+        2 ** -7 * float(literal.abs().max())
+    assert bool(((fast - literal).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_cross_rank_batch_norm_on_card_matches_batch_norm(dev,
+                                                          channels_last):
+    """The cross-rank BatchNorm's card form (ATen's fused batch-norm
+    operations; one rank, no process group) against torch's train-mode
+    BatchNorm, f32: the output, the input, weight and bias gradients and
+    the statistics within 1e-4 of their max abs, on channels with a
+    large mean against their spread as well."""
+    from riders_tpu_torch.parallel import sharding as sh
+    g = torch.Generator(device=dev).manual_seed(0)
+    scale = torch.tensor([1.0, 1e-2, 0.3, 3.0], device=dev)
+    shift = torch.tensor([0.5, 30.0, -2.0, 0.0], device=dev)
+    x = torch.randn((6, 4, 17, 23), generator=g, device=dev) * \
+        scale[None, :, None, None] + shift[None, :, None, None]
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.rand(4, generator=g, device=dev) + 0.5
+    b = torch.randn(4, generator=g, device=dev)
+    dy = torch.randn(x.shape, generator=g, device=dev)
+    leaves = [[t.clone().requires_grad_() for t in (x, w, b)]
+              for _ in range(2)]
+    want = torch.nn.functional.batch_norm(leaves[0][0], None, None,
+                                          *leaves[0][1:], True, 0.0, 1e-5)
+    got, mean, var = sh.cross_rank_batch_norm(
+        *leaves[1], 1e-5, sh.make_mesh().axis(sh.DATA_AXIS))
+    (want * dy).sum().backward()
+    (got * dy).sum().backward()
+    pairs = [(got, want)] + [(a.grad, c.grad) for a, c in
+                             zip(leaves[1], leaves[0])]
+    v, m = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+    pairs += [(mean, m), (var, v)]
+    for a, c in pairs:
+        a, c = a.detach().float(), c.detach().float()
+        limit = 1e-4 * c.abs() + 1e-4 * float(c.abs().max())
+        assert bool(((a - c).abs() <= limit).all())
+
+
+def test_cross_rank_batch_norm_on_card_is_exact_in_f64(dev):
+    """The card form in f64 against torch's train-mode BatchNorm in f64:
+    the output and the input, weight and bias gradients within 1e-10 of
+    their max abs (ATen's batch-norm operations accumulate f64 in f64)."""
+    from riders_tpu_torch.parallel import sharding as sh
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((6, 4, 17, 23), generator=g, device=dev,
+                    dtype=torch.float64) * 2.0 + 0.5
+    w = torch.rand(4, generator=g, device=dev, dtype=torch.float64) + 0.5
+    b = torch.randn(4, generator=g, device=dev, dtype=torch.float64)
+    dy = torch.randn(x.shape, generator=g, device=dev, dtype=torch.float64)
+    leaves = [[t.clone().requires_grad_() for t in (x, w, b)]
+              for _ in range(2)]
+    want = torch.nn.functional.batch_norm(leaves[0][0], None, None,
+                                          *leaves[0][1:], True, 0.0, 1e-5)
+    got = sh.cross_rank_batch_norm(*leaves[1], 1e-5,
+                                   sh.make_mesh().axis(sh.DATA_AXIS))[0]
+    (want * dy).sum().backward()
+    (got * dy).sum().backward()
+    for a, c in [(got, want)] + [(p.grad, q.grad) for p, q in
+                                 zip(leaves[1], leaves[0])]:
+        assert float((a - c).abs().max()) <= 1e-10 * float(c.abs().max())

@@ -58,7 +58,8 @@ def test_package_imports_without_cuda_nvcc_or_triton(tmp_path):
         "        'io.preprocess.project', 'io.preprocess.projection',\n"
         "        'core.normalization', 'pipelines.drivers', 'models.dpt',\n"
         "        'models.factory', 'models.convert', 'models.swin2',\n"
-        "        'models.levit', 'models.next_vit']\n"
+        "        'models.levit', 'models.next_vit', 'parallel.sharding',\n"
+        "        'ops.fold', 'models.sml_folded']\n"
         "assert all('riders_tpu_torch.' + m in sys.modules for m in need)\n"
         "bad = [m for m in ('jax', 'flax', 'triton', 'riders_tpu')\n"
         "       if m in sys.modules]\n"
@@ -78,7 +79,8 @@ def test_entry_points_refuse_the_cpu_without_a_request(monkeypatch):
     from riders_tpu_torch.core.config import RCNetConfig, zju_config
     from riders_tpu_torch.models.rcnet import RCNet
     from riders_tpu_torch.models.sml import ScaleMapLearner
-    from riders_tpu_torch.pipelines.fused import make_fused_fn
+    from riders_tpu_torch.pipelines.fused import (make_fused_fn,
+                                                  make_sharded_fused_fn)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = zju_config()
@@ -94,6 +96,8 @@ def test_entry_points_refuse_the_cpu_without_a_request(monkeypatch):
     sml = ScaleMapLearner(cfg.sml, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_fused_fn(cfg, rcnet, sml)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_sharded_fused_fn(cfg, rcnet, sml)
     assert callable(make_fused_fn(cfg.replace(rcnet=small), rcnet, sml,
                                   device="cpu"))
 
