@@ -17,6 +17,9 @@ fast paths on one GPU.
                                           # 11 alone on a dataset of
                                           # their own
     python3 chip_smoke.py --variants      # phase 1, then phase 12 alone
+    python3 chip_smoke.py --stem-plans    # phase 1, then every plan of
+                                          # B1's general kernel timed at
+                                          # the shapes of STEM_PLAN_SHAPES
     python3 chip_smoke.py --parallel      # phases 1 and 4, then phases
                                           # 13 and 14 alone on a dataset
                                           # of their own
@@ -141,11 +144,15 @@ Phases, each fatal on failure:
      stem kernel (csrc/stem_general.cu) against its plain version on the
      NTU bench frame (B=16, 662x690 bf16) at (Cin, Cout, k) = (3, 64,
      7), (1, 32, 7), (3, 8, 7), (3, 16, 3), (3, 32, 11) and slopes 0.2,
-     0, 1 (one bf16 step; each call one `stem_general` launch, and (3,
-     32, 7) one `stem` launch), with synchronised and graph times of the
-     kernel, the plain version and cuDNN's conv + leaky + pool, and the
-     bound; (b) the variants at full width on seeded random weights, the
-     counters reset just before each, beside the preset's plain call:
+     0, 1, the conv map alone (pool=False) at (3, 64, 7) and relu6 with
+     lead=0 (TF-SAME) at (3, 16, 3) (one bf16 step; each call one
+     `stem_general` launch, and (3, 32, 7) with the pool one `stem`
+     launch), with synchronised and graph times of the wrapper, the
+     kernel alone on weights packed once, the plain version and cuDNN's
+     conv + leaky (or clamp) + pool, and the bound; at (3, 32, 7) the
+     general kernel beside the tuned one on the same inputs; (b) the
+     variants at full width on seeded random weights, the counters
+     reset just before each, beside the preset's plain call:
      V1 `use_batch_norm=False` (NTU B=16, `make_fused_fn`), V2
      `n_resolution=3` (ZJU B=4: NTU's 150x50 patch pools to a pyramid
      that does not double, where both packages fail) through
@@ -427,15 +434,22 @@ def check_kernels(geometry, B=16):
     flops = 2.0 * k_out.numel() * 147
     bnd, by = bound_ms(nbytes, flops)
     run = lambda: stem.stem_conv_pool(x, w, scale, bias)
-    # the kernel alone, on weights packed once (the wrapper packs per call)
-    launch = getattr(stem, "_launch", None)
-    wk, bk = ((stem.pack_weights(w, scale), bias.float().contiguous())
-              if launch else (None, None))
+    # the kernel alone, on weights packed once as FusedStemConv keeps them
+    # (the wrapper packs per call); a parent tree without `stem_apply`
+    # through its private launcher
+    if hasattr(stem, "stem_apply"):
+        sw = stem.stem_weights(w, scale, bias)
+        launch = lambda: stem.stem_apply(x, sw)
+    elif hasattr(stem, "_launch"):
+        wk, bk = stem.pack_weights(w, scale), bias.float().contiguous()
+        launch = lambda: stem._launch(x, wk, bk)
+    else:
+        launch = None
     out["stem"] = dict(
         max_abs_err=err, tolerance="|k-p| <= 2^-7 |p| + 1e-4",
         ms=time_ms(run), graph_ms=graph_ms(run),
-        kernel_graph_ms=graph_ms(lambda: launch(x, wk, bk)) if launch
-        else None,
+        kernel_ms=time_ms(launch) if launch else None,
+        kernel_graph_ms=graph_ms(launch) if launch else None,
         plain_ms=time_ms(
             lambda: stem.stem_conv_pool_plain(x, w, scale, bias)),
         library_ms=time_ms(library_stem),
@@ -2692,8 +2706,17 @@ def dpt_only(smi, profile_dir):
 
 
 # phase 12: B1's general form and the RC-Net variants
+# (Cin, Cout, k): stems of one to three channels, then wider inputs, whose K
+# streams in Cin slices (all of it in one chunk at (4, 32, 5))
 STEM_GENERAL_CASES = ((3, 64, 7), (1, 32, 7), (3, 8, 7), (3, 16, 3),
-                      (3, 32, 11))          # (Cin, Cout, k)
+                      (3, 32, 11), (8, 64, 7), (64, 64, 3), (4, 32, 5))
+# B1's other forms on the general kernel: name: (Cin, Cout, k, form,
+# slopes); relu6 is slope 0 with a clip at 6, lead=0 TF-SAME
+STEM_GENERAL_FORMS = {
+    "3_64_7_map": (3, 64, 7, dict(pool=False), (0.2, 0.0, 1.0)),
+    "3_16_3_relu6_lead0": (3, 16, 3, dict(pool=False, clip_max=6.0,
+                                          lead=0), (0.0,)),
+}
 VARIANTS = {
     # name: (preset, batch, RC-Net config changes, path, stem kernel)
     "v1_no_bn": ("ntu", 16, dict(use_batch_norm=False), "fused", "stem"),
@@ -2707,17 +2730,52 @@ VARIANTS = {
 }
 
 
+def stem_library(x, w, scale, bias, k, slope=0.2, pool=True, clip_max=None,
+                 lead=None):
+    """The cuDNN yardstick of a stem form, as a function of no
+    arguments: conv with the folded bf16 weights and bias (the input
+    padded by `lead` above and to the left where that is not the
+    symmetric default), leaky relu or, with a clip, clamp to [0, clip],
+    and max pool with the pool."""
+    import torch
+    import torch.nn.functional as F
+    wf = (w * scale[:, None, None, None]).to(torch.bfloat16).to(
+        memory_format=torch.channels_last)
+    xc = x.permute(0, 3, 1, 2)
+    bb = bias.to(torch.bfloat16)
+    H, W = x.shape[1:3]
+    if lead is None or lead == k // 2:
+        pads, padding = None, k // 2
+    else:
+        pads = (lead, max(0, 2 * (-(-W // 2) - 1) + k - lead - W),
+                lead, max(0, 2 * (-(-H // 2) - 1) + k - lead - H))
+        padding = 0
+
+    def run():
+        y = F.conv2d(xc if pads is None else F.pad(xc, pads), wf, bb,
+                     stride=2, padding=padding)
+        y = (F.leaky_relu(y, slope) if clip_max is None
+             else y.clamp(0.0, clip_max))
+        return (y, F.max_pool2d(y, 3, 2, 1)) if pool else y
+    return run
+
+
 def check_stem_general(B=16):
     """Phase 12a: B1's general kernel against `stem_conv_pool_plain` on
     the NTU bench frame (B=16, 662x690 bf16) at each of
-    STEM_GENERAL_CASES and slopes 0.2, 0 and 1 (one bf16 step, each call
-    one `stem_general` launch and no `stem` launch; (3, 32, 7) one `stem`
-    launch and no `stem_general`), with the synchronised and graph times
-    of the kernel, the plain version and the cuDNN yardstick (conv with
-    the folded weights and bias + leaky relu + max pool) at slope 0.2,
-    and the bound."""
+    STEM_GENERAL_CASES and slopes 0.2, 0 and 1, and at the forms of
+    STEM_GENERAL_FORMS (one bf16 step, each call one `stem_general`
+    launch and no `stem` launch; (3, 32, 7) with the pool one `stem`
+    launch and no `stem_general`).  Times at slope 0.2 (the forms at
+    their first slope): the wrapper synchronised (`ms`) and in a graph
+    (`graph_ms`, packing the weights each call), the kernel alone on
+    weights packed once, synchronised and in a graph (`kernel_ms`,
+    `kernel_graph_ms`), the plain version, the cuDNN yardstick
+    (`stem_library`) and the bound (no pooled bytes without the pool).
+    At (3, 32, 7) the general kernel (on weights packed for it by the
+    private `_general_weights`) is checked and timed beside the tuned
+    one on the same inputs."""
     import torch
-    import torch.nn.functional as F
     from riders_tpu_torch.ops.kernels import LAUNCHES, stem
 
     dev = torch.device("cuda")
@@ -2725,67 +2783,176 @@ def check_stem_general(B=16):
     ph, pw = GEOMETRIES["ntu"]["patch"]
     H, W = FRAME[0] + 2 * (ph // 2), FRAME[1] + 2 * (pw // 2)
     out = {}
-    for cin, cout, k in STEM_GENERAL_CASES + ((3, 32, 7),):
-        kind = "stem" if (cin, cout, k) == (3, 32, 7) else "stem_general"
+    cases = [(f"{cin}_{cout}_{k}", cin, cout, k, {}, (0.2, 0.0, 1.0))
+             for cin, cout, k in STEM_GENERAL_CASES + ((3, 32, 7),)]
+    cases += [(name,) + v for name, v in STEM_GENERAL_FORMS.items()]
+    for name, cin, cout, k, form, slopes in cases:
+        tuned = (cin, cout, k) == (3, 32, 7) and not form
+        kind = "stem" if tuned else "stem_general"
         x = torch.rand((B, H, W, cin), generator=g, device=dev).to(
             torch.bfloat16)
         w = torch.randn((cout, cin, k, k), generator=g, device=dev) * (
             2.0 / (cin * k * k)) ** 0.5
         scale = 0.5 + torch.rand(cout, generator=g, device=dev)
         bias = 0.1 * torch.randn(cout, generator=g, device=dev)
+        if "clip_max" in form:          # the clip binds on part of the map
+            w, bias = 4.0 * w, 10.0 * bias
         errs = {}
-        for slope in (0.2, 0.0, 1.0):
+        for slope in slopes:
             before = dict(LAUNCHES)
-            k_maps = stem.stem_conv_pool(x, w, scale, bias, slope)
+            k_maps = stem.stem_conv_pool(x, w, scale, bias, slope, **form)
             torch.cuda.synchronize()
             launched = {n: LAUNCHES[n] - before.get(n, 0)
                         for n in ("stem", "stem_general")}
             if launched != {n: int(n == kind) for n in launched}:
-                raise AssertionError(f"stem {(cin, cout, k)}: launched "
-                                     f"{launched}, expected one {kind}")
-            p_maps = stem.stem_conv_pool_plain(x, w, scale, bias, slope)
+                raise AssertionError(f"stem {name}: launched {launched}, "
+                                     f"expected one {kind}")
+            p_maps = stem.stem_conv_pool_plain(x, w, scale, bias, slope,
+                                               **form)
+            if not form.get("pool", True):
+                k_maps, p_maps = (k_maps,), (p_maps,)
             errs[slope] = stem_max_err(k_maps, p_maps,
-                                       f"stem {(cin, cout, k)} {slope}")
-        k_out, k_pool = k_maps
+                                       f"stem {name} {slope}")
+        k_out = k_maps[0]
+        k_pool = k_maps[1] if len(k_maps) > 1 else None
+        clipped = (float((k_out == form["clip_max"]).float().mean())
+                   if "clip_max" in form else None)
         del k_maps, p_maps
-        if kind == "stem":
-            out["routing_3_32_7"] = dict(kind=kind, max_abs_err=max(
-                errs.values()))
+        slope = slopes[0]
+        if tuned:
+            sw = stem._general_weights(w, scale, bias)
+            before = LAUNCHES["stem_general"]
+            gen = stem.stem_apply(x, sw, slope)
+            torch.cuda.synchronize()
+            if LAUNCHES["stem_general"] != before + 1:
+                raise AssertionError("stem 3_32_7: the general weights "
+                                     "launched no stem_general")
+            gen_err = stem_max_err(gen, stem.stem_conv_pool_plain(
+                x, w, scale, bias, slope), "stem 3_32_7 general")
+            del gen
+            tw = stem.stem_weights(w, scale, bias)
+            out["routing_3_32_7"] = dict(
+                kind=kind, max_abs_err=max(errs.values()),
+                general_max_abs_err=gen_err,
+                tuned_kernel_graph_ms=graph_ms(
+                    lambda: stem.stem_apply(x, tw, slope), n=10,
+                    replays=3),
+                general_kernel_graph_ms=graph_ms(
+                    lambda: stem.stem_apply(x, sw, slope), n=10,
+                    replays=3),
+                general_plan=list(sw.plan))
             continue
-        wf = (w * scale[:, None, None, None]).to(torch.bfloat16).to(
-            memory_format=torch.channels_last)
-        xc = x.permute(0, 3, 1, 2)
-        bb = bias.to(torch.bfloat16)
-
-        def library_stem():
-            y = F.leaky_relu(F.conv2d(xc, wf, bb, stride=2,
-                                      padding=k // 2), 0.2)
-            return y, F.max_pool2d(y, 3, 2, 1)
-
-        nbytes = (2 * (x.numel() + k_out.numel() + k_pool.numel())
+        library = stem_library(x, w, scale, bias, k, slope, **form)
+        nbytes = (2 * (x.numel() + k_out.numel()
+                       + (k_pool.numel() if k_pool is not None else 0))
                   + 4 * (w.numel() + 2 * cout))
         flops = 2.0 * k_out.numel() * k * k * cin
         bnd, by = bound_ms(nbytes, flops)
-        run = lambda: stem.stem_conv_pool(x, w, scale, bias)
+        sw = stem.stem_weights(w, scale, bias, **form)
+        run = lambda: stem.stem_conv_pool(x, w, scale, bias, slope, **form)
         rec = dict(
-            cin=cin, cout=cout, k=k, plan=list(stem.general_plan(cin, cout,
-                                                                 k)),
+            cin=cin, cout=cout, k=k, form=form, plan=list(sw.plan),
             max_abs_err=max(errs.values()),
             slope_max_abs_errs={str(s): e for s, e in errs.items()},
+            clipped_share=clipped,
             tolerance="|k-p| <= 2^-7 max(|k|,|p|) + 1e-4",
             ms=time_ms(run, n=10), graph_ms=graph_ms(run, n=10, replays=3),
+            kernel_ms=time_ms(lambda: stem.stem_apply(x, sw, slope), n=10),
+            kernel_graph_ms=graph_ms(lambda: stem.stem_apply(x, sw, slope),
+                                     n=10, replays=3),
             plain_ms=time_ms(lambda: stem.stem_conv_pool_plain(
-                x, w, scale, bias), n=5, warmup=1),
-            library_ms=time_ms(library_stem, n=10),
-            library_graph_ms=graph_ms(library_stem, n=10, replays=3),
+                x, w, scale, bias, slope, **form), n=5, warmup=1),
+            library_ms=time_ms(library, n=10),
+            library_graph_ms=graph_ms(library, n=10, replays=3),
             bound_ms=bnd, bound_by=by, bytes=nbytes, flops=flops,
             shapes=dict(x=list(x.shape), out=list(k_out.shape),
-                        pooled=list(k_pool.shape)))
+                        pooled=None if k_pool is None else list(
+                            k_pool.shape)))
         rec["bound_share_of_graph"] = bnd / rec["graph_ms"]
-        out[f"{cin}_{cout}_{k}"] = rec
-        del x, k_out, k_pool
+        rec["bound_share_of_kernel_graph"] = bnd / rec["kernel_graph_ms"]
+        out[name] = rec
+        del x, k_out, k_pool, sw
         torch.cuda.empty_cache()
     return out
+
+
+# (Cin, Cout, k, pool) of `--stem-plans`: phase 12a's stems, more wide
+# inputs and two conv maps alone
+STEM_PLAN_SHAPES = tuple((cin, cout, k, True) for cin, cout, k in
+                         STEM_GENERAL_CASES) + (
+    (16, 64, 5, True), (32, 64, 7, True), (8, 32, 3, True),
+    (3, 64, 7, False), (64, 72, 3, False))
+
+
+def stem_plans(smi, B=16):
+    """`--stem-plans`: every plan that `stem.general_plan` weighs (each
+    tile and K chunking within 288 threads and 227 KB) at each shape of
+    STEM_PLAN_SHAPES on the NTU bench frame, each held against the plain
+    version (one bf16 step) and timed alone in a CUDA graph (the median
+    of 2 replays of 3 calls); per shape the chosen plan's time beside the
+    fastest plan's.  The data that `stem.plan_cost` was fitted to.  One
+    {"stem_plans": ...} line; every plan's time in
+    chiprun_out/stem_plans.json."""
+    import torch
+    from riders_tpu_torch.ops.kernels import stem
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    ph, pw = GEOMETRIES["ntu"]["patch"]
+    H, W = FRAME[0] + 2 * (ph // 2), FRAME[1] + 2 * (pw // 2)
+    detail, summary = {}, {}
+    for cin, cout, k, pool in STEM_PLAN_SHAPES:
+        x = torch.rand((B, H, W, cin), generator=g, device=dev).to(
+            torch.bfloat16)
+        w = torch.randn((cout, cin, k, k), generator=g, device=dev) * (
+            2.0 / (cin * k * k)) ** 0.5
+        scale = 0.5 + torch.rand(cout, generator=g, device=dev)
+        bias = 0.1 * torch.randn(cout, generator=g, device=dev)
+        want = stem.stem_conv_pool_plain(x, w, scale, bias, pool=pool)
+        want = want if pool else (want,)
+        chosen = stem.general_plan(cin, cout, k, pool)
+        nt = chosen.nt
+        rows = []
+        for tile in stem.POOL_TILES if pool else stem.MAP_TILES:
+            for kyc, cs in stem._chunkings(k, cin):
+                geo = stem.general_geometry(k, cin, pool, tile, kyc, cs, nt)
+                if (geo.total > stem.GENERAL_SMEM_LIMIT
+                        or 32 * geo.warps > stem.GENERAL_MAX_THREADS):
+                    continue
+                plan = stem.GeneralPlan(tile, kyc, cs, nt, 32 * geo.warps,
+                                        geo.total)
+                sw = stem._general_weights(w, scale, bias, pool, plan=plan)
+                got = stem.stem_apply(x, sw)
+                err = stem_max_err(got if pool else (got,), want,
+                                   f"stem plan {cin, cout, k, pool} {plan}")
+                rows.append(dict(
+                    plan=list(plan), warps=geo.warps,
+                    two_blocks=geo.total <= stem.GENERAL_TWO_BLOCKS,
+                    cost=stem.plan_cost(geo, cin, cs, pool, tile),
+                    max_abs_err=err, chosen=plan == chosen,
+                    graph_ms=graph_ms(lambda: stem.stem_apply(x, sw), n=3,
+                                      replays=2)))
+                del sw, got
+        name = f"{cin}_{cout}_{k}" + ("" if pool else "_map")
+        detail[name] = rows
+        best = min(rows, key=lambda r: r["graph_ms"])
+        pick = next(r for r in rows if r["chosen"])
+        summary[name] = dict(chosen=pick["plan"], chosen_ms=pick["graph_ms"],
+                             fastest=best["plan"], fastest_ms=best["graph_ms"],
+                             plans=len(rows))
+        log(f"stem plans {name}: {json.dumps(summary[name])}")
+        del x, want
+        torch.cuda.empty_cache()
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "stem_plans.json").write_text(
+        json.dumps(dict(card=smi, shapes=detail), indent=1))
+    log(json.dumps({"stem_plans": dict(card=smi, shapes=summary)}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def drive_variant(name, seed=0, n=3):
@@ -2923,11 +3090,15 @@ def stem_general_line(var, launches):
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         graph_ms=r["graph_ms"], library_graph_ms=r["library_graph_ms"],
-        cases={k: {f: c[f] for f in ("ms", "graph_ms", "plain_ms",
-                                     "library_ms", "library_graph_ms",
-                                     "bound_ms", "bound_by",
-                                     "max_abs_err")}
-               for k, c in cases.items()})
+        kernel_graph_ms=r["kernel_graph_ms"],
+        kernel_ms=r["kernel_ms"],
+        cases={k: {f: c[f] for f in ("ms", "graph_ms", "kernel_ms",
+                                     "kernel_graph_ms",
+                                     "plain_ms", "library_ms",
+                                     "library_graph_ms", "bound_ms",
+                                     "bound_by", "max_abs_err")}
+               for k, c in cases.items()},
+        tuned_3_32_7=var["stem_general"]["routing_3_32_7"])
 
 
 def variants_only(smi):
@@ -2957,6 +3128,9 @@ def variants_line(smi, var):
         card=smi, seconds=var["seconds"],
         stem_general_graph_ms={k: v["graph_ms"] for k, v in
                                var["stem_general"].items() if "cin" in v},
+        stem_general_kernel_graph_ms={
+            k: v["kernel_graph_ms"] for k, v in
+            var["stem_general"].items() if "cin" in v},
         stem_general_library_graph_ms={
             k: v["library_graph_ms"] for k, v in
             var["stem_general"].items() if "cin" in v},
@@ -3582,7 +3756,8 @@ def kernel_times(smi):
     {"kernel_times": ...} line.  Run from a copy of another tree, it
     times that tree's kernels with these same inputs."""
     import torch
-    keep = ("ms", "graph_ms", "kernel_graph_ms", "device_ms", "library_ms",
+    keep = ("ms", "graph_ms", "kernel_ms", "kernel_graph_ms", "device_ms",
+            "library_ms",
             "library_graph_ms", "library_device_ms",
             "plain_ms", "bound_ms", "bound_by", "launches_per_call",
             "b2_graph_ms", "clustered_graph_ms", "clustered_bound_ms",
@@ -3649,6 +3824,8 @@ def main(argv):
         return dpt_only(smi, profile_dir)
     if "--variants" in argv:
         return variants_only(smi)
+    if "--stem-plans" in argv:
+        return stem_plans(smi)
     if "--parallel" in argv:
         return parallel_only(smi, profile_dir)
     if "--multichip" in argv:
@@ -3778,6 +3955,7 @@ def main(argv):
                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 graph_ms=r.get("graph_ms"), device_ms=r.get("device_ms"),
+                kernel_ms=r.get("kernel_ms"),
                 kernel_graph_ms=r.get("kernel_graph_ms"),
                 zju=dict((k, recs["zju"][name].get(k)) for k in
                          ("ms", "graph_ms", "device_ms", "plain_ms",

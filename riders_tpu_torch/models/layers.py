@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from riders_tpu_torch.ops.kernels.stem import KERNEL_SIZE, stem_conv_pool
+from riders_tpu_torch.ops.kernels.stem import (KERNEL_SIZE, stem_apply,
+                                               stem_weights)
 from riders_tpu_torch.ops.resize import resize_nchw
 from riders_tpu_torch.parallel.sharding import (batch_norm_axis,
                                                 cross_rank_batch_norm)
@@ -112,33 +113,43 @@ class ConvBlock(nn.Module):
 
 
 class FusedStemConv(nn.Module):
-    """k x k stride-2 conv -> [BN] -> activation, plus MaxPool2d(3, 2, 1)
-    of its output.
+    """k x k stride-2 conv -> [BN] -> activation, with `fuse_pool` also
+    MaxPool2d(3, 2, 1) of its output.
 
     In eval on a bf16 image, for the activations of `STEM_SLOPES` and a
     kernel size with k % 4 == 3 (JAX's condition for its Pallas stem), it
     runs the fused stem kernel with the BN running statistics folded in,
-    or scale 1 and bias 0 without BN (its plain version on the CPU).
+    or scale 1 and bias 0 without BN (its plain version on the CPU); the
+    packed weights are kept until a parameter or statistic changes.
     Otherwise (training, an f32 image, elu or sigmoid, another k) it
     runs the library conv, the BN (over the batch in training), the
     activation and the max pool, as the JAX stem does off its Pallas
-    path.  Takes the NHWC image and returns (conv map, pooled map) as
-    NCHW tensors, channels_last on the kernel path."""
+    path.  Takes the NHWC image and returns the conv map, or with
+    `fuse_pool` (conv map, pooled map), as NCHW tensors, channels_last
+    on the kernel path."""
 
     def __init__(self, in_ch: int = 3, features: int = 32,
                  activation_name: str = "leaky_relu",
                  use_batch_norm: bool = True,
-                 kernel_size: int = KERNEL_SIZE):
+                 kernel_size: int = KERNEL_SIZE, fuse_pool: bool = False):
         super().__init__()
         self.activation = activation_fn(activation_name)
         self.slope = STEM_SLOPES.get(activation_name)
         self.kernel_size = kernel_size
+        self.fuse_pool = fuse_pool
         self.conv = nn.Conv2d(in_ch, features, kernel_size, 2,
                               kernel_size // 2, bias=False)
         self.bn = BatchNorm2d(features) if use_batch_norm else None
+        self._packed: dict = {}
 
-    def forward(self, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _fold(self, device: torch.device
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.bn is not None:
+            return bn_fold(self.bn)
+        n = self.conv.out_channels
+        return (torch.ones(n, device=device), torch.zeros(n, device=device))
+
+    def forward(self, x: torch.Tensor):
         if (self.training or x.dtype != torch.bfloat16
                 or self.slope is None or self.kernel_size % 4 != 3):
             h = self.conv(x.permute(0, 3, 1, 2))
@@ -146,16 +157,15 @@ class FusedStemConv(nn.Module):
                 h = self.bn(h)
             if self.activation is not None:
                 h = self.activation(h)
-            return h, F.max_pool2d(h, 3, 2, 1)
-        if self.bn is not None:
-            scale, bias = bn_fold(self.bn)
-        else:
-            n = self.conv.out_channels
-            scale = torch.ones(n, device=x.device)
-            bias = torch.zeros(n, device=x.device)
-        out, pooled = stem_conv_pool(x.contiguous(), self.conv.weight,
-                                     scale, bias, self.slope)
-        return out.permute(0, 3, 1, 2), pooled.permute(0, 3, 1, 2)
+            return (h, F.max_pool2d(h, 3, 2, 1)) if self.fuse_pool else h
+        packed = cached_weights(
+            self._packed, "stem", [self], lambda: stem_weights(
+                self.conv.weight, *self._fold(x.device),
+                pool=self.fuse_pool))
+        maps = stem_apply(x.contiguous(), packed, self.slope)
+        if not self.fuse_pool:
+            return maps.permute(0, 3, 1, 2)
+        return maps[0].permute(0, 3, 1, 2), maps[1].permute(0, 3, 1, 2)
 
 
 class TransposeConvBlock(nn.Module):

@@ -49,7 +49,7 @@ class ResNetEncoder(nn.Module):
         act = activation_fn(activation)
         self.n_stages = len(n_filters)
         self.conv1 = FusedStemConv(in_ch, n_filters[0], activation,
-                                   use_batch_norm)
+                                   use_batch_norm, fuse_pool=True)
         self.stage_blocks: List[List[str]] = []
         prev = n_filters[0]
         for si, feat in enumerate(n_filters[1:]):

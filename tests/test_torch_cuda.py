@@ -81,13 +81,13 @@ def test_stem_kernel_slopes_match_plain(dev, hw, slope):
 
 @pytest.mark.parametrize("cin,cout,k", [
     (3, 64, 7), (1, 32, 7), (3, 8, 7), (3, 16, 3), (3, 32, 11),
-    (2, 24, 11), (3, 5, 7), (64, 40, 3)])
+    (2, 24, 11), (3, 5, 7), (64, 40, 3), (8, 64, 7), (20, 72, 5)])
 @pytest.mark.parametrize("hw", [(37, 53), (9, 70), (130, 2)])
 def test_stem_general_kernel_matches_plain(dev, hw, cin, cout, k):
     """Every shape but (7, 3, 32) goes to the general kernel, within one
     bf16 step of the plain version at each slope: ragged tiles, Cout not
-    a multiple of 8, a chunked Cout, a plan with a smaller tile
-    (Cin 64)."""
+    a multiple of 8, a chunked Cout, plans with a smaller tile and K in
+    Cin slices staged by 8-byte copies (Cin 64, 8 and 20)."""
     g = torch.Generator(device=dev).manual_seed(cin + cout + k)
     x = torch.rand((2,) + hw + (cin,), generator=g, device=dev).to(
         torch.bfloat16)
@@ -110,11 +110,93 @@ def test_stem_general_kernel_matches_plain(dev, hw, cin, cout, k):
 
 
 def test_stem_general_kernel_refuses_a_shape_no_plan_fits(dev):
-    x = torch.rand((1, 20, 20, 102), device=dev).to(torch.bfloat16)
-    w = torch.randn((8, 102, 7, 7), device=dev)
+    """Cin 102 at k = 7 plans with K streamed over slices of Cin and
+    agrees with the plain version; a 389 x 389 kernel over 8 channels
+    finds no plan."""
+    g = torch.Generator(device=dev).manual_seed(102)
+    x = torch.rand((1, 20, 20, 102), generator=g, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((8, 102, 7, 7), generator=g, device=dev) / 60.0
     one, zero = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    for a, b in zip(stem.stem_conv_pool(x, w, one, zero),
+                    stem.stem_conv_pool_plain(x, w, one, zero)):
+        a, b = a.float(), b.float()
+        limit = 2 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-4
+        assert bool(((a - b).abs() <= limit).all())
+    x = torch.rand((1, 20, 20, 8), device=dev).to(torch.bfloat16)
+    w = torch.randn((64, 8, 389, 389), device=dev)
+    one, zero = torch.ones(64, device=dev), torch.zeros(64, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         stem.stem_conv_pool(x, w, one, zero)
+
+
+STEM_FORMS = [
+    (3, 64, 7, dict(pool=False)), (3, 16, 3, dict(clip_max=6.0, lead=0)),
+    (3, 16, 3, dict(pool=False, clip_max=6.0, lead=0)),
+    (3, 32, 7, dict(pool=False)), (3, 32, 7, dict(clip_max=0.5)),
+    (3, 32, 7, dict(lead=2)), (1, 8, 7, dict(pool=False, lead=0)),
+    (3, 32, 11, dict(pool=False, clip_max=0.4)), (64, 72, 3,
+                                                  dict(pool=False)),
+    (3, 20, 5, dict(lead=0))]
+
+
+@pytest.mark.parametrize("cin,cout,k,form", STEM_FORMS)
+@pytest.mark.parametrize("hw", [(37, 53), (130, 202), (9, 70)])
+def test_stem_general_forms_match_plain(dev, hw, cin, cout, k, form):
+    """pool=False, a clip and another lead go to the general kernel
+    whatever the shape ((3, 32, 7) included), one `stem_general` launch
+    a call, within one bf16 step of the plain version at each slope; a
+    clip of 6 with slope 0 is relu6."""
+    g = torch.Generator(device=dev).manual_seed(cin + cout + k)
+    x = torch.rand((2,) + hw + (cin,), generator=g, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn((cout, cin, k, k), generator=g, device=dev) * (
+        4.0 / (cin * k * k)) ** 0.5
+    scale = 0.5 + torch.rand(cout, generator=g, device=dev)
+    bias = torch.randn(cout, generator=g, device=dev)
+    for slope in (0.2, 0.0, 1.0):
+        before = dict(LAUNCHES)
+        got = stem.stem_conv_pool(x, w, scale, bias, slope, **form)
+        assert LAUNCHES["stem_general"] == before.get("stem_general",
+                                                      0) + 1
+        assert LAUNCHES["stem"] == before.get("stem", 0)
+        want = stem.stem_conv_pool_plain(x, w, scale, bias, slope, **form)
+        if not form.get("pool", True):
+            got, want = (got,), (want,)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.is_contiguous()
+            a, b = a.float(), b.float()
+            limit = 2 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-4
+            assert bool(((a - b).abs() <= limit).all())
+            if "clip_max" in form:       # the clip as bf16 rounds it
+                assert float(a.max()) <= float(torch.tensor(
+                    form["clip_max"]).to(torch.bfloat16))
+
+
+def test_fused_stem_keeps_its_packed_weights(dev):
+    """bf16 eval: the packed weights are made once and kept while the
+    parameters and statistics stay, made anew after an in-place change
+    (the BN's running mean), for both kernels; fuse_pool=False returns
+    the conv map alone on the general kernel."""
+    from riders_tpu_torch.models.layers import FusedStemConv, init_random_
+    x = torch.rand((2, 30, 44, 3), device=dev).to(torch.bfloat16)
+    for cout, pool in ((32, True), (16, True), (32, False)):
+        mod = init_random_(FusedStemConv(3, cout, fuse_pool=pool)).to(
+            dev, torch.bfloat16).eval()
+        with torch.no_grad():
+            first = mod(x)
+            packed = mod._packed["stem"]
+            again = mod(x)
+            assert mod._packed["stem"] is packed
+            mod.bn.running_mean.add_(0.5)
+            moved = mod(x)
+            assert mod._packed["stem"] is not packed
+        first = first if pool else (first,)
+        again = again if pool else (again,)
+        moved = moved if pool else (moved,)
+        assert first[0].shape == (2, cout, 15, 22)
+        for a, b, c in zip(first, again, moved):
+            assert torch.equal(a, b) and not torch.equal(a, c)
 
 
 def test_fused_stem_routes_kernel_sizes_as_jax(dev):
@@ -124,7 +206,8 @@ def test_fused_stem_routes_kernel_sizes_as_jax(dev):
     x = torch.rand((2, 30, 44, 3), device=dev).to(torch.bfloat16)
     for k, kind in ((3, "stem_general"), (5, None), (7, "stem"),
                     (11, "stem_general")):
-        mod = init_random_(FusedStemConv(3, 32, kernel_size=k)).to(
+        mod = init_random_(FusedStemConv(3, 32, kernel_size=k,
+                                                 fuse_pool=True)).to(
             dev, torch.bfloat16).eval()
         before = dict(LAUNCHES)
         with torch.no_grad():
@@ -143,7 +226,8 @@ def test_stem_without_batch_norm_runs_the_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(9)
     for cin, cout, kind in ((3, 32, "stem"), (3, 16, "stem_general"),
                             (1, 32, "stem_general")):
-        mod = init_random_(FusedStemConv(cin, cout, use_batch_norm=False))
+        mod = init_random_(FusedStemConv(cin, cout, use_batch_norm=False,
+                                                  fuse_pool=True))
         mod = mod.to(dev, torch.bfloat16).eval()
         x = torch.rand((2, 40, 56, cin), generator=g, device=dev).to(
             torch.bfloat16)

@@ -411,124 +411,335 @@ def test_stem_tiles_cover_the_maps_and_their_windows(H, W):
 
 # ---- the stem's general form (B1, csrc/stem_general.cu): plan and tiles
 
-@pytest.mark.parametrize("cin,cout,k", [
-    (3, 64, 7), (1, 32, 7), (3, 8, 7), (3, 16, 3), (3, 32, 11),
-    (2, 24, 11), (1, 8, 7), (3, 5, 7), (64, 64, 7), (101, 8, 7)])
+def _tile_pixel(tile, h, g, tch, s):
+    """stem_general.cu:tile_pixel: (lr, lc, valid) of row g + 8 h of M
+    tile `tile`."""
+    if tile < 2 * tch:
+        p = tile & 1
+        lc = (4 * g + 2 * h + p if s == 4 else
+              2 * g + 16 * h + p if s == 2 else g + 8 * h + 16 * p)
+        return tile >> 1, lc, True
+    lr = 16 * (tile - 2 * tch) + 8 * h + g
+    return lr, 32, lr < tch
+
+
+def _pixel_slot(lr, lc, tch, s):
+    """stem_general.cu:pixel_slot, the inverse of `_tile_pixel`."""
+    if lc == 32:
+        return (2 * tch + (lr >> 4)) * 16 + (lr & 15)
+    if s == 4:
+        p, h, g = lc & 1, (lc >> 1) & 1, lc >> 2
+    elif s == 2:
+        p, g, h = lc & 1, (lc >> 1) & 7, lc >> 4
+    else:
+        g, h, p = lc & 7, (lc >> 3) & 1, lc >> 4
+    return (2 * lr + p) * 16 + 8 * h + g
+
+
+def _column_stride(cps):
+    return 4 if cps % 2 else 2 if cps % 4 else 1
+
+
+def _swizzle(m, ntp):
+    return ((m & 7) >> {8: 0, 4: 1, 2: 2, 1: 3}[ntp]) & (ntp - 1)
+
+
+def _offsets(k, cin, pool, plan):
+    """stem_general.cu's offset table: entry G is 4 x the staged offset
+    of group G's first tap from a pixel's base ((G // gr) sp + 8 (G %
+    gr)) + its kind (0 whole, 1 a kernel row's tail, masked past k cps
+    taps, 2 a padding group, offset 0)."""
+    geo = stem.general_geometry(k, cin, pool, *plan[:4])
+    G = np.arange(2 * geo.ksc)
+    kyl, gi = np.divmod(G, geo.gr)
+    tail = (gi == geo.gr - 1) & ((k * geo.cps) % 8 != 0)
+    return np.where(G < geo.ng, (kyl * geo.sp + 8 * gi) * 4 + tail, 2)
+
+
+GENERAL_SHAPES = [(3, 64, 7), (1, 32, 7), (3, 8, 7), (3, 16, 3),
+                  (3, 32, 11), (2, 24, 11), (1, 8, 7), (3, 5, 7),
+                  (64, 64, 7), (101, 8, 7)]
+
+
+@pytest.mark.parametrize("cin,cout,k", GENERAL_SHAPES)
 def test_stem_general_plan_fits_and_covers_the_tile(cin, cout, k):
-    """The plan fits 227 KB, its chunk is a whole number of 8-channel
-    groups no wider than Cout needs, its block has a thread per four
-    conv pixels and eight channels of a chunk, and the stems of up to
-    three input channels take the largest tile and chunk."""
-    tp, co, threads, smem = stem.general_plan(cin, cout, k)
-    assert smem == stem.general_smem_bytes(tp, co, cin, k)
-    assert smem <= stem.GENERAL_SMEM_LIMIT and co % 8 == 0
-    assert co <= max(8, -(-cout // 8) * 8) and threads % 32 == 0
-    npix = (2 * tp + 1) ** 2
-    assert threads * 4 * 8 >= npix * co
-    if cin <= 3:
-        assert tp == 8 and co == min(32, -(-cout // 8) * 8)
+    """With and without the pool: the plan's shared memory is its
+    geometry's and fits 227 KB (two blocks an SM for the stems of up to
+    three channels, which take all of K in one chunk); its warps run
+    every M tile, the M tiles cover the conv tile's pixels once and
+    `pixel_slot` inverts them; the staged rows hold every A load of
+    every pixel, and an A load's 32 lanes fall on 32 banks."""
+    for pool in (True, False):
+        plan = stem.general_plan(cin, cout, k, pool)
+        geo = stem.general_geometry(k, cin, pool, *plan[:4])
+        assert plan.smem == geo.total <= stem.GENERAL_SMEM_LIMIT
+        assert plan.nt == min(8, -(-cout // 8))
+        assert plan.threads == 32 * geo.warps <= stem.GENERAL_MAX_THREADS
+        assert geo.warps * geo.ppw * 2 >= geo.nm
+        assert geo.ppw == (2 if geo.nchunks == 1 else 1)
+        if cin <= 3:
+            assert geo.nchunks == 1
+            assert plan.smem <= stem.GENERAL_TWO_BLOCKS
+        s = _column_stride(geo.cps)
+        assert geo.cps % 8 and (s * geo.cps) % 8 == 4
+        seen = np.zeros((geo.tch, geo.tcw), np.int64)
+        for tile, h, g in np.ndindex(geo.nm, 2, 8):
+            lr, lc, ok = _tile_pixel(tile, h, g, geo.tch, s)
+            if ok:
+                seen[lr, lc] += 1
+                assert _pixel_slot(lr, lc, geo.tch, s) == tile * 16 + 8 * h + g
+        assert (seen == 1).all()
+        tab = _offsets(k, cin, pool, plan)
+        last = 2 * (geo.tch - 1) * geo.sp + 2 * (geo.tcw - 1) * geo.cps
+        assert last + (tab >> 2).max() + 7 < geo.tih * geo.sp
+        assert geo.tiw * geo.cps <= geo.sp and geo.sp % 8 == 0
+        assert (tab >> 2).min() % 2 == 0 == (tab >> 2).max() % 2
+        for tile, h in np.ndindex(2 * geo.tch, 2):
+            banks = set()
+            for g, t in np.ndindex(8, 4):
+                lr, lc, _ = _tile_pixel(tile, h, g, geo.tch, s)
+                el = 2 * lr * geo.sp + 2 * lc * geo.cps + 2 * t
+                banks.add(el // 2 % 32)
+            assert len(banks) == 32
 
 
 @pytest.mark.parametrize("cin,k", [(102, 7), (44, 11), (424, 3), (185, 5)])
 def test_stem_general_plan_refuses_what_no_plan_fits(cin, k):
-    """Past these Cin no plan fits 227 KB (ROADMAP's refusals)."""
-    with pytest.raises(ValueError, match="shared memory"):
-        stem.general_plan(cin, 8, k)
-    stem.general_plan(cin - 1, 8, k)
+    """Wide inputs (Cin 102 at k = 7, 44 at 11, 424 at 3, 185 at 5)
+    plan with K streamed over slices of Cin; what no plan fits is a
+    kernel of 389 x 389 or more with the pool, 437 x 437 without (one
+    kernel row of 4 channels and 64 output channels a chunk outgrow
+    227 KB)."""
+    for pool, largest in ((True, 387), (False, 435)):
+        plan = stem.general_plan(cin, 64, k, pool)
+        assert stem.general_geometry(k, cin, pool, *plan[:4]).nchunks > 1
+        stem.general_plan(cin, 64, largest, pool)
+        with pytest.raises(ValueError, match="shared memory"):
+            stem.general_plan(cin, 64, largest + 2, pool)
 
 
-def _emulate_stem_general(x, weight, scale, bias, slope, plan):
+@pytest.mark.parametrize("cin,cout,k,pool", [
+    (3, 64, 7, True), (1, 32, 7, True), (3, 16, 3, False),
+    (2, 24, 11, True), (64, 40, 3, True), (101, 8, 7, False),
+    (3, 64, 31, True), (16, 20, 5, False)])
+def test_stem_general_k_order_covers_every_tap_once(cin, cout, k, pool):
+    """The K chunks' GEMM rows hold every (ky, kx, ci) exactly once; the
+    packed weights, decoded by the fragment rule (lane 4 g + t, k-step
+    s, pair q, word w = 2 nn + r, element e -> GEMM row 16 s + 8 r +
+    2 t + e, column 16 q + 8 nn + g), are the folded bf16 weights of
+    those taps and zero on every padding row and column; the offset
+    table's groups point each tap at its staged element (kernel row ky
+    of the chunk, column kx, channel ci of the slice)."""
+    plan = stem.general_plan(cin, cout, k, pool)
+    geo = stem.general_geometry(k, cin, pool, *plan[:4])
+    kmap = stem.general_k_map(k, cin, plan.kyc, plan.cs)
+    real = kmap[..., 0] >= 0
+    taps = [tuple(v) for v in kmap[real].tolist()]
+    assert len(taps) == k * k * cin == len(set(taps))
+    rng = np.random.default_rng(cin + cout + k)
+    w = torch.from_numpy(rng.standard_normal((cout, cin, k, k)).astype(
+        np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32))
+    nq = (plan.nt + 1) // 2
+    nco = -(-cout // (8 * plan.nt))
+    packed = stem.pack_general(w, scale, plan)
+    frags = packed.view(torch.int16).numpy().reshape(
+        nco, geo.nchunks, geo.ksc, nq, 32, 2, 2, 2)
+    got = np.zeros((nco, geo.nchunks, 16 * geo.ksc, 16 * nq), np.int16)
+    seen = np.zeros(got.shape, np.int64)
+    for idx in np.ndindex(frags.shape):
+        n, c, s, q, lane, nn, r, e = idx
+        g, t = divmod(lane, 4)
+        kk, col = 16 * s + 8 * r + 2 * t + e, 16 * q + 8 * nn + g
+        got[n, c, kk, col] = frags[idx]
+        seen[n, c, kk, col] += 1
+    assert (seen == 1).all()
+    folded = (w * scale[:, None, None, None]).to(torch.bfloat16).view(
+        torch.int16).numpy()                                 # (co, ci, ky, kx)
+    for n in range(nco):
+        for col in range(16 * nq):
+            co = 8 * plan.nt * n + col
+            if col >= 8 * plan.nt or co >= cout:
+                assert not got[n, :, :, col].any()
+                continue
+            ky, kx, ci = kmap[real].T
+            assert np.array_equal(got[n, :, :, col][real],
+                                  folded[co, ci, ky, kx])
+            assert not got[n, :, :, col][~real].any()
+    tab = _offsets(k, cin, pool, plan)
+    tail = k * geo.cps - 8 * (geo.gr - 1)
+    for c, kk in zip(*np.nonzero(real)):
+        ky, kx, ci = kmap[c, kk]
+        G, e = divmod(int(kk), 8)
+        kind = tab[G] & 3
+        assert kind == 0 or (kind == 1 and e < tail)
+        row, el = divmod(int(tab[G] >> 2) + e, geo.sp)
+        assert row == ky - plan.kyc * (c // geo.ncs)
+        assert divmod(el, geo.cps) == (kx, ci - plan.cs * (c % geo.ncs))
+
+
+def _emulate_stem_general(x, weight, scale, bias, slope, clip_max, lead,
+                          pool, plan):
     """csrc/stem_general.cu in numpy, block by block, with its index
-    math: the staged input in the column-parity layout, the tap offset
-    table, each conv pixel's base, Cout in chunks, the conv tile with the
-    pool's -inf outside the conv extent, the owned conv pixels and the
-    pooled maxima; products summed in f64 (the kernel sums them in f32).
-    Returns (out, pooled, writes of each out / pooled element)."""
-    tp, co, _, _ = plan
+    math: each K chunk staged (raw rows realigned where the chunk holds
+    all of Cin in its own pitch, else element by element) into a buffer
+    that starts NaN, the offset table and each lane's pixel base gather
+    A (tails and padding groups masked), the packed weights decoded by
+    the fragment rule, the accumulators kept over the chunks, products
+    summed in f64 (the kernel sums them in f32); the epilogue's bf16
+    rounding into the swizzled M-order conv tile (-inf outside the conv
+    extent), then the owned conv pixels and the pooled maxima read back
+    through the swizzle.  Returns (out, pooled, writes of each out /
+    pooled element)."""
     B, H, W, cin = x.shape
     cout, _, k, _ = weight.shape
-    wk = stem.general_weights(weight, scale, co).double().numpy()
-    bk = np.zeros(wk.shape[0] * co)
+    geo = stem.general_geometry(k, cin, pool, *plan[:4])
+    nt, tile = plan.nt, plan.tile
+    nq, ntp = (nt + 1) // 2, 1 << (nt - 1).bit_length()
+    nco = -(-cout // (8 * nt))
+    frags = stem.pack_general(weight, scale, plan).float().numpy().reshape(
+        nco, geo.nchunks, geo.ksc, nq, 8, 4, 2, 2, 2)   # q, g, t, nn, r, e
+    bmat = frags.transpose(0, 1, 2, 7, 5, 8, 3, 6, 4).reshape(
+        nco, geo.nchunks, 16 * geo.ksc, 16 * nq)[..., :8 * nt]
+    bk = np.zeros(nco * 8 * nt)
     bk[:cout] = bias.numpy()
+    tab = _offsets(k, cin, pool, plan)
+    valid = k * geo.cps - 8 * (geo.gr - 1)
+    keep = np.ones((2 * geo.ksc, 8), bool)
+    keep[(tab & 3) == 1, valid:] = False
+    keep[(tab & 3) == 2] = False
+    koff = (tab >> 2)[:, None] + np.arange(8)               # (groups, 8)
+    koff, keep = koff.reshape(-1), keep.reshape(-1)
     xs = x.float().numpy()
+    flat = xs.reshape(-1)
     Ho, Wo = -(-H // 2), -(-W // 2)
     Hp, Wp = -(-Ho // 2), -(-Wo // 2)
-    tch, ti = 2 * tp + 1, 4 * tp + k
-    halfw, pad = (ti + 1) // 2, (k - 1) // 2
     out = np.zeros((B, Ho, Wo, cout), np.float32)
     pooled = np.zeros((B, Hp, Wp, cout), np.float32)
     n_out, n_pool = np.zeros(out.shape, int), np.zeros(pooled.shape, int)
-    ky, kx, ci = np.unravel_index(np.arange(k * k * cin), (k, k, cin))
-    off = ((2 * ky + (kx & 1)) * halfw + (kx >> 1)) * cin + ci
-    lr, lc = np.divmod(np.arange(tch * tch), tch)
-    base = (4 * lr * halfw + lc) * cin
-    r, c, cc = np.unravel_index(np.arange(ti * ti * cin), (ti, ti, cin))
-    for b in range(B):
-        for pr0 in range(0, Hp, tp):
-            for pc0 in range(0, Wp, tp):
-                cr0, cc0 = 2 * pr0 - 1, 2 * pc0 - 1
-                gr, gc = 2 * cr0 - pad + r, 2 * cc0 - pad + c
-                ok = (gr >= 0) & (gr < H) & (gc >= 0) & (gc < W)
-                s_in = np.full(ti * 2 * halfw * cin, np.nan)
-                s_in[((r * 2 + (c & 1)) * halfw + (c >> 1)) * cin + cc] = \
-                    np.where(ok, xs[b, gr.clip(0, H - 1),
-                                    gc.clip(0, W - 1), cc], 0.0)
-                taps = s_in[base[:, None] + off[None, :]]
-                assert not np.isnan(taps).any()     # staged, not stale
-                inside = ((cr0 + lr >= 0) & (cr0 + lr < Ho)
-                          & (cc0 + lc >= 0) & (cc0 + lc < Wo))
-                for ch in range(wk.shape[0]):
-                    y = taps @ wk[ch].reshape(-1, co) + bk[ch * co:][:co]
-                    y = torch.from_numpy(np.maximum(y, slope * y)).float()
-                    y = y.to(torch.bfloat16).float().numpy()
-                    y[~inside] = -np.inf
-                    tile = y.reshape(tch, tch, co)
-                    cw = min(co, cout - ch * co)
-                    sl = slice(ch * co, ch * co + cw)
-                    for i in range(1, tch):
-                        for j in range(1, tch):
-                            if cr0 + i < Ho and cc0 + j < Wo:
-                                out[b, cr0 + i, cc0 + j, sl] = \
-                                    tile[i, j, :cw]
-                                n_out[b, cr0 + i, cc0 + j, sl] += 1
-                    for i in range(tp):
-                        for j in range(tp):
-                            if pr0 + i < Hp and pc0 + j < Wp:
-                                win = tile[2 * i:2 * i + 3, 2 * j:2 * j + 3]
-                                pooled[b, pr0 + i, pc0 + j, sl] = \
-                                    win.max((0, 1))[:cw]
-                                n_pool[b, pr0 + i, pc0 + j, sl] += 1
+    s = _column_stride(geo.cps)
+    pix = [_tile_pixel(tl, h, g, geo.tch, s)
+           for tl in range(geo.nm) for h in range(2) for g in range(8)]
+    lr = np.array([min(p[0], geo.tch - 1) for p in pix])
+    lc = np.array([p[1] for p in pix])
+    ok = np.array([p[2] for p in pix])
+    base = 2 * lr * geo.sp + 2 * lc * geo.cps
+    r, e = np.divmod(np.arange(geo.tih * geo.sp), geo.sp)
+    col, cc = np.divmod(e, geo.cps)
+    grid_y = -(-(Hp if pool else Ho) // tile)
+    grid_x = -(-(Wp if pool else Wo) // (16 if pool else 32))
+    for b, by, bx, n in np.ndindex(B, grid_y, grid_x, nco):
+        co0 = 8 * nt * n
+        if pool:
+            pr0, pc0 = by * tile, bx * 16
+            cr0, cc0 = 2 * pr0 - 1, 2 * pc0 - 1
+        else:
+            cr0, cc0 = by * tile, bx * 32
+        ir0, ic0 = 2 * cr0 - lead, 2 * cc0 - lead
+        acc = np.zeros((16 * geo.nm, 8 * nt))
+        for c in range(geo.nchunks):
+            kc, csi = divmod(c, geo.ncs)
+            gr = ir0 + kc * plan.kyc + r
+            s_in = np.full(geo.tih * geo.sp, np.nan)
+            if geo.rawc:
+                lo = (b * H + gr) * W * cin
+                el = lo + ic0 * cin + e
+                inside = (gr >= 0) & (gr < H) & (el >= lo) & (
+                    el < lo + W * cin)
+                s_in[:] = np.where(inside, flat[np.where(inside, el, 0)], 0)
+            else:
+                gc, ci = ic0 + col, plan.cs * csi + cc
+                inside = ((gr >= 0) & (gr < H) & (col < geo.tiw) & (gc >= 0)
+                          & (gc < W) & (cc < plan.cs) & (ci < cin))
+                s_in[:] = np.where(inside, xs[b, gr.clip(0, H - 1),
+                                              gc.clip(0, W - 1),
+                                              ci.clip(0, cin - 1)], 0)
+            a = s_in[base[:, None] + koff[None, :]]
+            a = np.where(keep[None, :], a, 0.0)
+            assert not np.isnan(a).any()            # staged, not stale
+            acc += a @ bmat[n, c]
+        y = acc + bk[co0:co0 + 8 * nt]
+        y = np.maximum(y, slope * y)
+        if clip_max is not None:
+            y = np.where(y > clip_max, clip_max, y)
+        y = torch.from_numpy(y).float().to(torch.bfloat16).float().numpy()
+        gr, gc = cr0 + lr, cc0 + lc
+        inside = (gr >= 0) & (gr < Ho) & (gc >= 0) & (gc < Wo)
+        y[~inside] = -np.inf
+        conv = np.full((16 * geo.nm, ntp, 8), np.nan)
+        for m in np.flatnonzero(ok):
+            for q in range(nt):
+                conv[m, q ^ _swizzle(m, ntp)] = y[m, 8 * q:8 * q + 8]
+
+        def read(lr_, lc_):
+            m = _pixel_slot(lr_, lc_, geo.tch, s)
+            v = np.stack([conv[m, q ^ _swizzle(m, ntp)] for q in range(nt)])
+            v = v.reshape(-1)[:min(8 * nt, cout - co0)]
+            assert not np.isnan(v).any()
+            return v
+
+        sl = slice(co0, co0 + min(8 * nt, cout - co0))
+        d = 1 if pool else 0
+        for i, j in np.ndindex(2 * tile if pool else tile, 32):
+            R, C = cr0 + d + i, cc0 + d + j
+            if R < Ho and C < Wo:
+                out[b, R, C, sl] = read(d + i, d + j)
+                n_out[b, R, C, sl] += 1
+        if not pool:
+            continue
+        for i, j in np.ndindex(tile, 16):
+            if pr0 + i < Hp and pc0 + j < Wp:
+                win = np.stack([read(2 * i + dy, 2 * j + dx)
+                                for dy in range(3) for dx in range(3)])
+                pooled[b, pr0 + i, pc0 + j, sl] = win.max(0)
+                n_pool[b, pr0 + i, pc0 + j, sl] += 1
     return out, pooled, n_out, n_pool
 
 
-@pytest.mark.parametrize("cin,cout,k,hw,plan", [
-    (3, 16, 3, (37, 53), None), (1, 8, 7, (22, 41), None),
-    (2, 20, 11, (19, 30), None), (3, 20, 7, (21, 27), (2, 8)),
-    (3, 40, 5, (13, 9), (1, 16))])
-def test_stem_general_emulated_matches_plain(cin, cout, k, hw, plan):
+@pytest.mark.parametrize("cin,cout,k,hw,form", [
+    (3, 16, 3, (37, 53), {}), (1, 8, 7, (22, 41), {}),
+    (2, 20, 11, (19, 30), {}), (3, 20, 7, (21, 27), dict(pool=False)),
+    (3, 40, 5, (13, 9), dict(pool=False, plan=(2, 1, 3))),
+    (3, 16, 3, (24, 34), dict(clip_max=6.0, lead=0)),
+    (3, 72, 7, (19, 23), dict(lead=2, clip_max=0.3)),
+    (12, 13, 3, (11, 37), dict(plan=(1, 1, 8))),
+    (9, 24, 5, (14, 20), dict(pool=False, plan=(2, 5, 4)))])
+def test_stem_general_emulated_matches_plain(cin, cout, k, hw, form):
     """The emulated kernel writes every conv and pooled element once and
     agrees with `stem_conv_pool_plain` to one bf16 step (they differ only
     in summation order), at ragged extents, Cout not a multiple of 8 or
-    of the chunk, and forced small tiles and chunks."""
+    wider than one block, without the pool, with a clip and another
+    lead, and on forced small tiles and chunked K (plan = (tile, kyc,
+    cs))."""
+    form = dict(form)
+    pool, lead = form.get("pool", True), form.get("lead", (k - 1) // 2)
+    clip_max = form.get("clip_max")
     g = torch.Generator().manual_seed(cin * 100 + cout + k)
     x = torch.rand((2,) + hw + (cin,), generator=g).to(torch.bfloat16)
     weight = torch.randn((cout, cin, k, k), generator=g) * (
         2.0 / (cin * k * k)) ** 0.5
     scale = 0.5 + torch.rand(cout, generator=g)
     bias = 0.1 * torch.randn(cout, generator=g)
-    full = stem.general_plan(cin, cout, k)
-    if plan is not None:
-        tp, co = plan
-        full = (tp, co, 0, stem.general_smem_bytes(tp, co, cin, k))
+    plan = stem.general_plan(cin, cout, k, pool)
+    if "plan" in form:
+        tile, kyc, cs = form["plan"]
+        geo = stem.general_geometry(k, cin, pool, tile, kyc, cs, plan.nt)
+        plan = stem.GeneralPlan(tile, kyc, cs, plan.nt, 32 * geo.warps,
+                                geo.total)
     for slope in (0.2, 0.0, 1.0):
         out, pooled, n_out, n_pool = _emulate_stem_general(
-            x, weight, scale, bias, slope, full)
-        assert (n_out == 1).all() and (n_pool == 1).all()
-        want = stem.stem_conv_pool_plain(x, weight, scale, bias, slope)
-        for got, ref in zip((out, pooled), want):
+            x, weight, scale, bias, slope, clip_max, lead, pool, plan)
+        assert (n_out == 1).all()
+        want = stem.stem_conv_pool_plain(x, weight, scale, bias, slope,
+                                         pool=pool, clip_max=clip_max,
+                                         lead=lead)
+        if pool:
+            assert (n_pool == 1).all()
+        got = (out, pooled) if pool else (out,)
+        for a, ref in zip(got, want if pool else (want,)):
             ref = ref.float().numpy()
-            assert got.shape == ref.shape
-            np.testing.assert_allclose(got, ref, rtol=2 ** -7, atol=1e-4)
+            assert a.shape == ref.shape
+            np.testing.assert_allclose(a, ref, rtol=2 ** -7, atol=1e-4)
 
 
 # ---- the RoI forward (B2, B3, B6): work table and bin table

@@ -156,7 +156,8 @@ def test_stem_plain_matches_literal_f32(rng):
     the BN affine, so agreement is to f32 rounding (rtol 1e-4)."""
     model, variables, image = _stem_vars(rng)
     ref_h, ref_p = model.apply(variables, jnp.asarray(image))
-    port = load_jax_variables(FusedStemConv(3, 32), variables).eval()
+    port = load_jax_variables(FusedStemConv(3, 32, fuse_pool=True),
+                              variables).eval()
     with torch.no_grad():
         h, p = port(t(image))
     np.testing.assert_allclose(h.permute(0, 2, 3, 1).numpy(),

@@ -145,7 +145,7 @@ def test_fused_stem_kernel_sizes_match_the_library_path(rng):
         torch.bfloat16)
     for k in (3, 5, 7, 11):
         stem = tlayers.init_random_(tlayers.FusedStemConv(
-            3, 8, use_batch_norm=False, kernel_size=k)).to(
+            3, 8, use_batch_norm=False, kernel_size=k, fuse_pool=True)).to(
                 torch.bfloat16).eval()
         assert stem.bn is None and stem.conv.kernel_size == (k, k)
         with torch.no_grad():
