@@ -2,8 +2,8 @@
 """Drive the PyTorch / CUDA port's fused inference path, its RC-Net and
 SML training steps, its staged inference, serving and drivers, its
 command line (training, inference and preprocessing), its DPT Scale
-Map Learner, RC-Net's other forms, its parallel layer and its opt-in
-fast paths on one GPU.
+Map Learner, RC-Net's other forms, its parallel layer, its opt-in fast
+paths and its measuring entry points on one GPU.
 
     python3 chip_smoke.py                 # all phases, report lines
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
@@ -26,6 +26,7 @@ fast paths on one GPU.
     python3 chip_smoke.py --multichip     # four cards: phase 13a and
                                           # 13b across them, one NCCL
                                           # rank a card
+    python3 chip_smoke.py --bench         # phase 1, then phase 15 alone
 
 Kernel times: `ms` is the median of synchronised calls (host dispatch
 counts in); `graph_ms` replays 20 calls (10 in phase 12) captured in one
@@ -186,11 +187,24 @@ Phases, each fatal on failure:
      head's `fast_upsample=True`: one stem, RoI pool and compose launch a
      call, the output against the literal call's by phase 4's rule, ms
      per call beside the literal call's, and fps.
+  15. the measuring entry points, under PyTorch's default TF32 and cuDNN
+     settings: (a) `riders_tpu_torch.bench.measure` at NTU and ZJU
+     (640x512, B=16, bf16, full width): the fused call captured as a CUDA
+     graph holds one stem, one RoI pool and one compose launch, its
+     replayed depth equals an eager call's on the same input (bitwise,
+     else phase 4's rule, the difference logged), finite and positive on
+     more than 95% of pixels; graph-replay and eager ms per call; (b)
+     `tools.bench_train` rcnet and sml (ZJU presets), 5 timed steps each,
+     the RC-Net step launching B2's f32 forward and B5; (c)
+     `tools.bench_serving` cut to 32 frames and 1 epoch (of 128 and 2);
+     (d) `tools.profile_bench` at NTU by graph replay and eagerly: the
+     three kernels among the traced device events, the busy share.
 Report lines: the card's name and power limit, one {"kernels": [...]}
 line, one fused line, one lane_decoder line, one training line, one
 staged line, one training_cli line, one dpt line, one dpt_families line,
-one rcnet_variants line, one parallel line; the last line is {"ok":
-true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
+one rcnet_variants line, one parallel line, one bench line; the last
+line is {"ok": true, "device": {...}}.  Details go to
+chiprun_out/chip_smoke.json.
 """
 
 import copy
@@ -3731,6 +3745,148 @@ def parallel_only(smi, profile_dir=None):
     return 0
 
 
+# phase 15: the measuring entry points
+SERVING_CUT = dict(frames=32, epochs=1)    # bench_serving: 128 frames, 2
+
+
+def bench_phase(spread=None):
+    """Phase 15, the port's measuring entry points under PyTorch's default
+    TF32 / cuDNN settings (as they run alone; chip_smoke's own settings
+    come back after): (a) `bench.measure` at NTU and ZJU (640x512, B=16,
+    bf16, full width): the captured call's launches (one stem, one RoI
+    pool, one compose), its replayed depth against an eager call's on the
+    same input (bitwise, else phase 4's rule with the difference logged;
+    `spread` is phase 4's CPU bf16 spread, measured here if None), the
+    output finite and positive on more than 95% of pixels; (b)
+    `bench_train` rcnet and sml, 5 timed steps each (the RC-Net step
+    launches B2's f32 forward and B5); (c) `bench_serving` on
+    SERVING_CUT; (d) `profile_bench` at NTU by graph replay and eagerly:
+    device events traced, the port's three kernels among them, and the
+    device's busy share."""
+    import torch
+    from riders_tpu_torch import bench
+    from riders_tpu_torch.tools import (bench_serving, bench_train,
+                                        profile_bench)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = dict(settings=bench.settings(), presets={})
+        for preset in ("ntu", "zju"):
+            t0 = time.perf_counter()
+            r = bench.measure(preset)
+            r["seconds"] = time.perf_counter() - t0
+            out["presets"][preset] = r
+            log(f"15a {preset}: {json.dumps(r)}")
+            for name in ("stem", "roi_pool", "compose"):
+                if r["capture_launches"].get(name) != 1:
+                    raise AssertionError(
+                        f"bench {preset}: {r['capture_launches']} inside "
+                        f"the captured call, not one {name} launch")
+            if r["depth_shape"] != [bench.BATCH, *FRAME]:
+                raise AssertionError(f"bench {preset}: depth shape "
+                                     f"{r['depth_shape']}")
+            if not r["finite"] or r["positive_share"] <= 0.95:
+                raise AssertionError(f"bench {preset}: finite {r['finite']}"
+                                     f", positive {r['positive_share']}")
+            if not r["replay_equals_eager"]:
+                if spread is None:
+                    spread = reference_agreement()["cpu_bf16_vs_cpu_f32"]
+                r["phase4_bar"] = 1.5 * spread + 0.005
+                log(f"15a {preset}: replay differs from eager: max abs "
+                    f"{r['replay_vs_eager_max_abs']}, median rel "
+                    f"{r['replay_vs_eager_median_rel']} (bar "
+                    f"{r['phase4_bar']})")
+                if r["replay_vs_eager_median_rel"] > r["phase4_bar"]:
+                    raise AssertionError(f"bench {preset}: replay vs eager "
+                                         f"beyond phase 4's rule")
+        out["train"] = dict(rcnet=bench_train.bench_rcnet(5),
+                            sml=bench_train.bench_sml(5))
+        log(f"15b: {json.dumps(out['train'])}")
+        for name in ("roi_pool_f32", "roi_pool_bwd"):
+            if out["train"]["rcnet"]["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"bench_train rcnet: no {name} launch "
+                                     f"({out['train']['rcnet']['launches']})")
+        data = bench_serving.DATA_DIR
+        try:
+            out["serving"] = bench_serving.main(
+                ["--frames", str(SERVING_CUT["frames"]),
+                 "--epochs", str(SERVING_CUT["epochs"])])
+        finally:
+            shutil.rmtree(data / "riders_serving_ntu_512x640",
+                          ignore_errors=True)
+        out["serving"]["cut"] = dict(SERVING_CUT, of=dict(
+            frames=bench_serving.FRAMES, epochs=bench_serving.EPOCHS))
+        log(f"15c: {json.dumps(out['serving'])}")
+        out["profile"] = {}
+        for mode in ("graph", "eager"):
+            prof = profile_bench.profile(
+                "ntu", eager=mode == "eager",
+                out_dir=HERE / "chiprun_out" / "profile_bench")
+            out["profile"][mode] = prof
+            cats = prof["by_category_ms"]
+            missing = [c for c in ("stem (csrc/stem.cu)",
+                                   "roi_pool (csrc/roi_pool.cu)",
+                                   "compose (csrc/compose.cu)")
+                       if cats.get(c, 0.0) <= 0.0]
+            if prof["device_events"] == 0 or missing:
+                raise AssertionError(f"profile_bench {mode}: "
+                                     f"{prof['device_events']} device "
+                                     f"events, missing {missing}")
+        log(f"15d: {json.dumps(out['profile'])}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_line(smi, b):
+    """The phase-15 summary line."""
+    pre = b["presets"]
+    return dict(
+        card=smi, settings=b["settings"],
+        **{p: dict((k, pre[p][k]) for k in (
+            "graph_ms", "eager_ms", "graph_fps", "eager_fps",
+            "graph_samples_ms", "eager_samples_ms", "capture_launches",
+            "replay_equals_eager", "replay_vs_eager_max_abs",
+            "peak_mem_gb")) for p in pre},
+        train=dict(rcnet_ms_per_step=b["train"]["rcnet"]["ms"],
+                   rcnet_batch=b["train"]["rcnet"]["batch"],
+                   sml_ms_per_step=b["train"]["sml"]["ms"],
+                   sml_batch=b["train"]["sml"]["batch"],
+                   rcnet_launches=b["train"]["rcnet"]["launches"]),
+        serving=dict(
+            h2d_mb_s_pre=b["serving"]["h2d"]["pre"],
+            h2d_mb_s_post=b["serving"]["h2d"]["post"],
+            loader_fps=b["serving"]["loader"]["value"],
+            serving_fps=b["serving"]["serving"]["value"],
+            latency_p50_ms=b["serving"]["latency"]["p50_ms"],
+            latency_p99_ms=b["serving"]["latency"]["p99_ms"],
+            cut=b["serving"]["cut"]),
+        profile={m: dict(busy_share=r["busy_share"], busy_ms=r["busy_ms"],
+                         window_ms=r["window_ms"],
+                         device_ms_per_call=r["device_ms_per_call"])
+                 for m, r in b["profile"].items()})
+
+
+def bench_only(smi):
+    """`--bench`: phase 1, then phase 15 alone."""
+    import torch
+    b = bench_phase()
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_bench.json").write_text(json.dumps(
+        dict(card=smi, bench=b), indent=1))
+    log(json.dumps({"bench": bench_line(smi, b)}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def profile(fn, batch, path):
     """Device time by kernel for one call of `fn` (torch.profiler), and
     the same by operator and input shapes (written to `path` only)."""
@@ -3830,6 +3986,8 @@ def main(argv):
         return parallel_only(smi, profile_dir)
     if "--multichip" in argv:
         return multichip_only(smi)
+    if "--bench" in argv:
+        return bench_only(smi)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():
@@ -3918,6 +4076,7 @@ def main(argv):
     fast = fast_paths_phase(agree["cpu_bf16_vs_cpu_f32"],
                             profile_dir=profile_dir)
     log(f"fast paths: {json.dumps(fast)}")
+    bench_rec = bench_phase(agree["cpu_bf16_vs_cpu_f32"])
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -3972,7 +4131,8 @@ def main(argv):
                    training_kernels=train_kernels, training=training,
                    training_agreement=train_agree, staged=staged,
                    cli=cli_runs, dpt=dpt, dpt_families=families,
-                   rcnet_variants=variants, parallel=par, fast_paths=fast)
+                   rcnet_variants=variants, parallel=par, fast_paths=fast,
+                   bench=bench_rec)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -4037,6 +4197,7 @@ def main(argv):
     log(json.dumps(families_line(smi, families)))
     log(json.dumps({"rcnet_variants": variants_line(smi, variants)}))
     log(json.dumps({"parallel": parallel_line(smi, par, fast)}))
+    log(json.dumps({"bench": bench_line(smi, bench_rec)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

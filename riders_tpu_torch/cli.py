@@ -8,11 +8,12 @@
     riders-torch val-rcnet   --dataset zju --root /data/ZJU --ckpt /log/rcnet
     riders-torch eval-dir    --dataset zju --root /data/ZJU --results /out/SML
     riders-torch preprocess  --dataset zju --root /raw --output /data/ZJU
+    riders-torch bench       [--ntu | --zju]
 
 The subcommands and flags are the JAX package's `riders`, plus
 `--device` (default `cuda`; `--device cpu` runs on the CPU, and without
-a card the default raises).  `bench` raises: the port has no benchmark
-yet.
+a card the default raises).  `bench` runs `riders_tpu_torch.bench` on
+the card, as `riders bench` runs `bench.py`.
 
 `--multihost` joins a job of several processes, one rank per device,
 before the command runs (`parallel.sharding.initialize_multihost`: NCCL
@@ -141,17 +142,22 @@ def _parser() -> argparse.ArgumentParser:
     common(p)
     p.add_argument("--output", required=True)
 
-    sub.add_parser("bench", help="the fused-inference benchmark (not "
-                   "ported: raises)")
+    p = sub.add_parser("bench", help="fused-inference fps on the card "
+                       "(CUDA graph replay and eager; riders_tpu_torch."
+                       "bench)")
+    p.add_argument("--ntu", action="store_true",
+                   help="the NTU patch geometry alone")
+    p.add_argument("--zju", action="store_true",
+                   help="the ZJU patch geometry alone")
     return parser
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.command == "bench":
-        raise NotImplementedError(
-            "bench: the port has no benchmark yet (ROADMAP.md A1); the JAX "
-            "package's `riders bench` runs bench.py")
+        from riders_tpu_torch import bench
+        return bench.main([f"--{p}" for p in ("ntu", "zju")
+                           if getattr(args, p)])
     from riders_tpu_torch.core.device import resolve_device
     device = resolve_device(args.device)
     if not args.multihost:

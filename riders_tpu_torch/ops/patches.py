@@ -22,6 +22,7 @@ a composition.
 
 from __future__ import annotations
 
+import numbers
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -157,7 +158,12 @@ def _patch_origins(points: torch.Tensor, image_shape: Tuple[int, int],
 
 
 def frame_thresholds(threshold, batch: int, device) -> torch.Tensor:
-    """A scalar or per-frame threshold as a (B,) float32 tensor."""
+    """A scalar or per-frame threshold as a (B,) float32 tensor.  A
+    Python number is filled on the device (no host-to-device copy, so a
+    CUDA graph can capture it)."""
+    if isinstance(threshold, numbers.Number):
+        return torch.full((batch,), threshold, dtype=torch.float32,
+                          device=device)
     thr = torch.as_tensor(threshold, dtype=torch.float32, device=device)
     return thr.reshape(-1).expand(batch)
 
@@ -217,9 +223,8 @@ def adaptive_threshold_value(responses: torch.Tensor,
     m = masked.amax(dim=(-3, -2, -1))
     k = torch.ceil((response_threshold - m) / threshold_decay)
     k = torch.clamp(k, 0, max_retries)
-    thr0 = torch.tensor(response_threshold, dtype=torch.float32,
-                        device=responses.device)
-    return thr0 - k * threshold_decay
+    # f32(thr0) - f32(k * decay): the scalar rounds to f32, as a tensor
+    return response_threshold - k * threshold_decay
 
 
 def adaptive_compose(responses: torch.Tensor, points: torch.Tensor,

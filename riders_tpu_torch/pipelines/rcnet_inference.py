@@ -36,10 +36,8 @@ def shift_points_and_boxes(points: torch.Tensor,
     """Shift (u, v, z) points into padded-image coordinates and build the
     [x1, y1, x2, y2] patch boxes centred on them."""
     pad_y, pad_x = patch_size[0] // 2, patch_size[1] // 2
-    offset = torch.tensor([pad_x, pad_y, 0.0], dtype=points.dtype,
-                          device=points.device)
-    shifted = points + offset
-    u, v = shifted[..., 0], shifted[..., 1]
+    u, v = points[..., 0] + pad_x, points[..., 1] + pad_y
+    shifted = torch.stack([u, v, points[..., 2]], dim=-1)
     boxes = torch.stack([u - pad_x, v - pad_y, u + pad_x, v + pad_y], dim=-1)
     return shifted, boxes
 

@@ -7,8 +7,9 @@ package's `riders`.
   synthetic mini-dataset of tests/test_drivers.py (the presets cut to
   its 96x128 frames, narrow RC-Net widths and a tiny SML backbone), and
   writes what its driver writes.
-* `bench` raises NotImplementedError; `--multihost` with its companion
-  flags joins a gloo world of one around the command; without
+* `bench` reaches `riders_tpu_torch.bench.main` with its flags;
+  `--multihost` with its companion flags joins a gloo world of one
+  around the command; without
   `--device`, every subcommand raises on a host with no card before it
   reads a file.
 """
@@ -83,13 +84,19 @@ def test_load_config_matches_jax(command, dataset):
 
 
 def test_bench_and_multihost_raise(mini, monkeypatch):
-    """`bench` raises; `--multihost` joins a world of one (gloo, with
-    `--device cpu`) for the command and leaves it after."""
+    """`bench` runs `riders_tpu_torch.bench.main` with its flags (as
+    `riders bench` runs bench.py); `--multihost` joins a world of one
+    (gloo, with `--device cpu`) for the command and leaves it after."""
     import socket
     import torch.distributed as dist
+    from riders_tpu_torch import bench as tbench
 
-    with pytest.raises(NotImplementedError, match="A1"):
-        tcli.main(["bench"])
+    calls = []
+    monkeypatch.setattr(tbench, "main", lambda argv: calls.append(argv) or 0)
+    assert tcli.main(["bench"]) == 0
+    assert tcli.main(["bench", "--zju"]) == 0
+    assert tcli.main(["bench", "--ntu"]) == 0
+    assert calls == [[], ["--zju"], ["--ntu"]]
     seen = []
     real = tdrivers.evaluate_results_dir
 

@@ -700,6 +700,40 @@ def test_fused_server_on_card_equals_direct_calls(dev):
         assert np.array_equal(a, b)
 
 
+def test_bench_chain_graph_replay_equals_eager(dev):
+    """The fused call captured as a CUDA graph (`bench.Chain`): one stem,
+    one RoI pool and one compose launch counted during capture, the
+    replayed depth bitwise an eager call's on the same input, and each
+    replay carrying 1e-12 * depth.sum() into the first pixel alone."""
+    from riders_tpu_torch import bench
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.models.sml import ScaleMapLearner
+    from riders_tpu_torch.pipelines.fused import make_fused_fn
+    cfg = _narrow_cfg()
+    rcnet = init_random_(RCNet(cfg.rcnet, dtype=torch.bfloat16), 0)
+    sml = init_random_(ScaleMapLearner(cfg.sml, dtype=torch.bfloat16), 1)
+    fn = make_fused_fn(cfg, rcnet, sml)
+    H, W = cfg.dataset.image_shape
+    g = torch.Generator(device=dev).manual_seed(24)
+    pts, mask = _points(g, dev, 2, cfg.dataset.max_points, (H, W), 6)
+    depth = 5 + 40 * torch.rand((2, H, W), generator=g, device=dev)
+    batch = {"image": torch.rand((2, H, W, 3), generator=g, device=dev),
+             "mono_pred": (1.0 / depth) / 0.05, "radar_points": pts,
+             "point_mask": mask}
+    chain = bench.Chain(fn, batch, graph=True)
+    assert chain.launches == {"stem": 1, "roi_pool": 1, "compose": 1}
+    for _ in range(3):
+        image = chain.batch["image"].clone()
+        got = chain().clone()
+        assert torch.equal(got, fn(dict(chain.batch, image=image)))
+        now = chain.batch["image"].view(-1)
+        want = image.view(-1)[:1] + 1e-12 * got.sum()
+        assert torch.equal(now[:1], want)
+        assert torch.equal(now[1:], image.view(-1)[1:])
+    assert bool(torch.isfinite(got).all())
+
+
 def test_metrics_and_loader_on_card(dev):
     import numpy as np
     from riders_tpu_torch.core.metrics import compute_depth_metrics
