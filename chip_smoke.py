@@ -3,7 +3,8 @@
 SML training steps, its staged inference, serving and drivers, its
 command line (training, inference and preprocessing), its DPT Scale
 Map Learner, RC-Net's other forms, its parallel layer, its opt-in fast
-paths and its measuring entry points on one GPU.
+paths and its measuring entry points on one GPU, and score the staged
+pipeline on the card against the CPU's goldens.
 
     python3 chip_smoke.py                 # all phases, report lines
     python3 chip_smoke.py --profile       # also torch.profiler breakdowns
@@ -27,6 +28,7 @@ paths and its measuring entry points on one GPU.
                                           # 13b across them, one NCCL
                                           # rank a card
     python3 chip_smoke.py --bench         # phase 1, then phase 15 alone
+    python3 chip_smoke.py --goldens       # phase 1, then phase 16 alone
 
 Kernel times: `ms` is the median of synchronised calls (host dispatch
 counts in); `graph_ms` replays 20 calls (10 in phase 12) captured in one
@@ -199,11 +201,24 @@ Phases, each fatal on failure:
      `tools.bench_serving` cut to 32 frames and 1 epoch (of 128 and 2);
      (d) `tools.profile_bench` at NTU by graph replay and eagerly: the
      three kernels among the traced device events, the busy share.
+  16. golden parity of the staged pipeline from disk: a ZJU-layout
+     dataset of 2 validation scenes x 3 frames at the preset's 480x640
+     written under build/ from a seed, RC-Net and the midas-small SML at
+     the ZJU preset's full widths on seeded weights saved as checkpoints;
+     `run_rcnet` then `validate_sml(save_output=True)` on the card in
+     bf16 (one stem and one RoI pool launch and 1 + rounds compose
+     launches a frame, counted) and on the host CPU in f32 (no launch);
+     `tools.compare_goldens` on (CPU tree, card tree) with --root: within
+     its 1% budget on mae, rmse and delta1, its per-scene deviations equal
+     to a numpy recomputation from the two trees; seconds of each staged
+     run and the stage-2 maps' card-vs-CPU deviation; beside it, reported
+     and not judged, the fused phases' He-normal SML through the same
+     tool and the bf16 drift of both SMLs at the backbone's four taps.
 Report lines: the card's name and power limit, one {"kernels": [...]}
 line, one fused line, one lane_decoder line, one training line, one
 staged line, one training_cli line, one dpt line, one dpt_families line,
-one rcnet_variants line, one parallel line, one bench line; the last
-line is {"ok": true, "device": {...}}.  Details go to
+one rcnet_variants line, one parallel line, one bench line, one
+goldens line; the last line is {"ok": true, "device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -228,6 +243,7 @@ CANVAS_PAD = (96, 48)          # rows, columns of NEG past skip1's extent
 GEOMETRIES = {"ntu": dict(patch=(150, 50), bucket=48, real=40),
               "zju": dict(patch=(240, 100), bucket=32, real=30)}
 FRAME = (512, 640)             # the benchmark resolution (H, W)
+ZJU_FRAME = (480, 640)         # the ZJU preset's frame (H, W)
 
 
 def log(*args):
@@ -1659,15 +1675,15 @@ def served(ntu_fn, n_batches=6, B=16, seed=0):
                 seconds=seconds, pin_ms_per_batch=statistics.median(pin_ms))
 
 
-def write_ntu_scene(root, scene, n_frames, seed):
-    """A mini-dataset scene of NTU frames (512x640): thermal PNGs, the
-    x256 PNG16 mono prior and lidar GT, sparse radar PNGs of 40 returns,
-    from a smooth seeded depth field."""
+def write_scene(root, scene, n_frames, seed, frame=FRAME):
+    """A mini-dataset scene of `frame`-sized frames (NTU's 512x640 by
+    default): thermal PNGs, the x256 PNG16 mono prior and lidar GT,
+    sparse radar PNGs of 40 returns, from a smooth seeded depth field."""
     import numpy as np
     from PIL import Image
     from riders_tpu_torch.io import depthio
     rng = np.random.default_rng(seed)
-    H, W = FRAME
+    H, W = frame
     dirs = {d: depthio.ensure_dir(str(root / scene / d)) for d in (
         "thermal_undistort", "any", "radar_png", "lidar_png",
         "lidar_png_int")}
@@ -1708,7 +1724,7 @@ def disk_drivers(seed=0, n_frames=8):
     shutil.rmtree(root, ignore_errors=True)
     try:
         scene = "scene-ntu"
-        write_ntu_scene(root, scene, n_frames, seed)
+        write_scene(root, scene, n_frames, seed)
         cfg = ntu_config(root=str(root))
         cfg = cfg.replace(
             dataset=dataclasses.replace(cfg.dataset, image_shape=FRAME,
@@ -1925,8 +1941,8 @@ def training_cli_phase(root, n_train=24, n_val=4, steps=3, seed=0):
 
     out = {}
     ckpt = {k: root / f"ckpt_{k}" for k in ("rcnet", "sml_interp", "sml")}
-    write_ntu_scene(root, "train", n_train, seed)
-    write_ntu_scene(root, "val", n_val, seed + 1)
+    write_scene(root, "train", n_train, seed)
+    write_scene(root, "val", n_val, seed + 1)
     with contextlib.ExitStack() as stack:
         stack.enter_context(mock.patch.object(
             config, "ntu_config", _cadence(config.ntu_config, steps)))
@@ -2141,8 +2157,9 @@ def dpt_config(model_type, **sml):
                                                model_type=model_type, **sml))
 
 
-def dpt_weights(cfg, seed, device="cpu"):
-    """Seeded f32 weights of cfg's DPT, with flax's default initialisers
+def sml_weights(cfg, seed, device="cpu", head="head_conv3"):
+    """Seeded f32 weights of cfg's SML (a DPT, or midas-small with
+    head="output_conv.conv3"), with flax's default initialisers
     (`init_training_`, drawn on the host whatever `device` the model and
     the calibrating forward run on), then its head's last conv set so
     that on the network inputs of one seeded NTU frame (stage 1 of a
@@ -2161,7 +2178,7 @@ def dpt_weights(cfg, seed, device="cpu"):
     from riders_tpu_torch.pipelines.sml_inference import prepare_sml_inputs
     model = init_training_(build_sml_model(cfg, device, torch.float32),
                            seed)
-    head = model.head_conv3
+    head = model.get_submodule(head)
     b = make_sml_train_batch(cfg, seed + 60, device, B=1)
     seen = []
     hook = head.register_forward_hook(lambda m, i, o: seen.append(o))
@@ -2468,11 +2485,11 @@ def dpt_phase(root, seed=0, profile_dir=None):
     torch.cuda.empty_cache()
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    weights = {DPT_MAIN: dpt_weights(dpt_config(DPT_MAIN), seed)}
+    weights = {DPT_MAIN: sml_weights(dpt_config(DPT_MAIN), seed)}
     out = {"inference": {DPT_MAIN: dpt_inference(
         DPT_MAIN, weights[DPT_MAIN], profile_dir=profile_dir)}}
     for model_type in DPT_OTHERS:
-        w = dpt_weights(dpt_config(model_type), seed)
+        w = sml_weights(dpt_config(model_type), seed)
         out["inference"][model_type] = dpt_inference(model_type, w, n=3)
         del w
         torch.cuda.empty_cache()
@@ -2489,13 +2506,13 @@ def dpt_phase(root, seed=0, profile_dir=None):
 def family_training(seed=0, profile_dir=None, batches=(12, 8, 6, 4)):
     """Phase 11b: Swin2-L's f32 make_train_step (TF32 off) at the largest
     of `batches` that fits on the card, from weights calibrated as
-    `dpt_weights` says: a gradient in every parameter in the first step,
+    `sml_weights` says: a gradient in every parameter in the first step,
     then `_train_phase`'s steps, ms per step and peak memory
     (`dpt_training`).  The batches that did not fit are listed."""
     import gc
     import torch
     net = FAMILY_NETS[FAMILY_MAIN]
-    weights = dpt_weights(dpt_config(FAMILY_MAIN, net_shape=net), seed,
+    weights = sml_weights(dpt_config(FAMILY_MAIN, net_shape=net), seed,
                           "cuda")
     too_big = []
     for B in batches:
@@ -2533,7 +2550,7 @@ def family_validate(root, seed=0):
         sml_train=dataclasses.replace(cfg.sml_train, rcnet_interp="interp",
                                       rcnet_interp_val=None))
     ckpt = root / "ckpt_swin2"
-    weights = dpt_weights(cfg, seed, "cuda")
+    weights = sml_weights(cfg, seed, "cuda")
     checkpoint.save_train_state(ckpt, sml_training.init_train_state(
         cfg, build_dpt(cfg, weights, "cpu", torch.float32), 1))
     del weights
@@ -2566,7 +2583,7 @@ def family_validate(root, seed=0):
 
 def family_phase(root, seed=0, profile_dir=None):
     """Phase 11: the Swin2 / Swin-V1, LeViT and Next-ViT DPT SMLs at full
-    width on the card, each on weights calibrated by `dpt_weights` (drawn
+    width on the card, each on weights calibrated by `sml_weights` (drawn
     on the host, the calibrating forward on the card), the launch
     counters reset just before: (a) Swin2-L through make_infer_fn at its
     384x384 net, NTU B=16, bf16, 10 calls; (b) its f32 step; (c) the
@@ -2592,7 +2609,7 @@ def family_phase(root, seed=0, profile_dir=None):
         progress.write_text(json.dumps(out, indent=1))
     for model_type, net in FAMILY_NETS.items():
         t = time.perf_counter()
-        w = dpt_weights(dpt_config(model_type, net_shape=net), seed, "cuda")
+        w = sml_weights(dpt_config(model_type, net_shape=net), seed, "cuda")
         main = model_type == FAMILY_MAIN
         out["inference"][model_type] = rec = dpt_inference(
             model_type, w, n=10 if main else 3, net=net,
@@ -2610,7 +2627,7 @@ def family_phase(root, seed=0, profile_dir=None):
     out["step_agreement"] = {}
     for model_type, net in FAMILY_STEP_NETS.items():
         t = time.perf_counter()
-        w = dpt_weights(dpt_config(model_type, net_shape=net), seed, "cuda")
+        w = sml_weights(dpt_config(model_type, net_shape=net), seed, "cuda")
         out["step_agreement"][model_type] = rec = dpt_step_agreement(
             w, model_type=model_type, net=net)
         done(f"step agreement {model_type}", rec)
@@ -2700,8 +2717,8 @@ def dpt_only(smi, profile_dir):
     root = HERE / "build" / "phase10_data"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        write_ntu_scene(root, "train", 24, 0)
-        write_ntu_scene(root, "val", 4, 1)
+        write_scene(root, "train", 24, 0)
+        write_scene(root, "val", 4, 1)
         dpt = dpt_phase(root, profile_dir=profile_dir)
         log_dpt(dpt)
         families = family_phase(root, profile_dir=profile_dir)
@@ -3725,8 +3742,8 @@ def parallel_only(smi, profile_dir=None):
     root = HERE / "build" / "phase13_data"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        write_ntu_scene(root, "train", 12, 0)
-        write_ntu_scene(root, "val", 4, 1)
+        write_scene(root, "train", 12, 0)
+        write_scene(root, "val", 4, 1)
         par = parallel_phase(root, profile_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3887,6 +3904,268 @@ def bench_only(smi):
     return 0
 
 
+def read_x256(path):
+    """A depth PNG decoded with numpy alone (uint16 / 256)."""
+    import numpy as np
+    from PIL import Image
+    return np.asarray(Image.open(path), dtype=np.float32) / 256.0
+
+
+def direct_report(goldens, riders):
+    """compare_goldens' per-scene report recomputed from the two trees
+    with numpy: the mean over a scene's frames of each frame's mean
+    absolute deviation of its sml_depth PNGs (and of its .npy maps)."""
+    import numpy as np
+    report = {}
+    for scene in sorted(p.name for p in goldens.iterdir() if p.is_dir()):
+        devs = {"int_depth": [], "int_scales": [], "depth": []}
+        for png in sorted((goldens / scene / "sml_depth").iterdir()):
+            for key in ("int_depth", "int_scales"):
+                g, r = (t / scene / key / (png.stem + ".npy")
+                        for t in (goldens, riders))
+                if g.exists() and r.exists():
+                    devs[key].append(float(np.abs(np.load(g)
+                                                  - np.load(r)).mean()))
+            r = riders / scene / "sml_depth" / png.name
+            if r.exists():
+                devs["depth"].append(float(np.abs(
+                    read_x256(png) - read_x256(r)).mean()))
+        report[scene] = {k: (float(np.mean(v)) if v else None)
+                         for k, v in devs.items()}
+    return report
+
+
+def goldens_phase(smi, seed=0, n_scenes=2, n_frames=3):
+    """Phase 16: the staged RIDERS pipeline from disk on the card (bf16)
+    scored against the same pipeline on the host CPU (f32, the plain
+    versions of the kernels) by `tools.compare_goldens`, PARITY.md's
+    protocol.  A ZJU-layout dataset of `n_scenes` validation scenes x
+    `n_frames` frames at the preset's 480x640 (tests/test_drivers.py's
+    make_mini_dataset layout, from a seed); RC-Net (`init_random_`, as
+    the fused phases) and the midas-small SML (flax's initialisers, its
+    head calibrated by `sml_weights`, as phases 10-11 before their 1%
+    bar) at the ZJU preset's full widths on seeded weights, saved as port
+    checkpoints; on each device `run_rcnet`
+    (its stage-2 tree under its own output directory), then
+    `validate_sml(save_output=True)` on that tree; the tool on (CPU tree,
+    card tree) with --root on the card: within the 1% budget on mae,
+    rmse and delta1, and its per-scene numbers equal to `direct_report`.
+    The card's run launches B1, B2 and B4 (counted), the CPU's nothing."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from riders_tpu_torch.core import checkpoint
+    from riders_tpu_torch.core.config import zju_config
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.models.sml import ScaleMapLearner
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.pipelines import drivers
+    from riders_tpu_torch.pipelines.rcnet_training import \
+        init_rcnet_train_state
+    from riders_tpu_torch.pipelines.sml_training import init_train_state
+    from riders_tpu_torch.tools.compare_goldens import compare_goldens
+
+    root = HERE / "build" / "phase16_data"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        scenes = tuple(f"zju-val-{i}" for i in range(n_scenes))
+        for i, scene in enumerate(scenes):
+            write_scene(root, scene, n_frames, seed + 20 + i, ZJU_FRAME)
+        cfg = zju_config(root=str(root))
+        cfg = cfg.replace(dataset=dataclasses.replace(
+            cfg.dataset, train_scenes=(), val_scenes=scenes))
+        n = n_scenes * n_frames
+        rc_dir, sml_dir = root / "ckpt_rcnet", root / "ckpt_sml"
+        rcnet = init_random_(RCNet(cfg.rcnet, "cpu", torch.float32), seed)
+        sml = ScaleMapLearner(cfg.sml, "cpu", torch.float32)
+        sml.load_state_dict(sml_weights(cfg, seed + 1,
+                                        head="output_conv.conv3"))
+        for directory, state in (
+                (rc_dir, init_rcnet_train_state(cfg, rcnet, 1)),
+                (sml_dir, init_train_state(cfg, sml, 1))):
+            state.step = 1
+            checkpoint.save_train_state(directory, state)
+        del rcnet, sml, state
+        torch.cuda.empty_cache()
+        runs, run_cfgs = {}, {}
+        for name, device, dtype in (("card", None, "bfloat16"),
+                                    ("cpu", "cpu", "float32")):
+            run_cfg = cfg.replace(compute_dtype=dtype, dataset=(
+                dataclasses.replace(cfg.dataset,
+                                    rcnet_output_dir=f"output_{name}")))
+            run_cfgs[name] = (run_cfg, device)
+            rec = runs[name] = {}
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            drivers.run_rcnet(run_cfg, str(rc_dir),
+                              str(root / f"output_{name}"), scenes=scenes,
+                              save_color=False, device=device)
+            torch.cuda.synchronize()
+            rec["run_rcnet_s"] = time.perf_counter() - t0
+            rec["run_rcnet_launches"] = dict(LAUNCHES)
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rec["best"] = drivers.validate_sml(
+                run_cfg, str(sml_dir), output_path=str(root / f"val_{name}"),
+                save_output=True, device=device)
+            torch.cuda.synchronize()
+            rec["validate_sml_s"] = time.perf_counter() - t0
+            rec["validate_sml_launches"] = dict(LAUNCHES)
+            rec["staged_s"] = rec["run_rcnet_s"] + rec["validate_sml_s"]
+            log(f"16 staged run [{name}, {dtype}]: run_rcnet "
+                f"{rec['run_rcnet_s']:.2f} s, validate_sml "
+                f"{rec['validate_sml_s']:.2f} s for {n} frames "
+                f"({smi}); launches {rec['run_rcnet_launches']} / "
+                f"{rec['validate_sml_launches']}")
+        card = runs["card"]["run_rcnet_launches"]
+        if (card.get("roi_pool") != n or card.get("stem", 0) < n
+                or card.get("compose", 0) < n):
+            raise AssertionError(f"phase 16 run_rcnet on the card: "
+                                 f"launches {card} for {n} frames")
+        cpu = {k: v for r in ("run_rcnet_launches", "validate_sml_launches")
+               for k, v in runs["cpu"][r].items()}
+        if cpu:
+            raise AssertionError(f"phase 16 on the CPU launched {cpu}")
+        stage2 = {}
+        for scene in scenes:
+            tag = f"rcnet_{cfg.rcnet.response_threshold}"
+            for png in sorted((root / "output_cpu" / tag / scene /
+                               "depth_predicted").iterdir()):
+                g = read_x256(png)
+                r = read_x256(root / "output_card" / tag / scene /
+                              "depth_predicted" / png.name)
+                stage2.setdefault("mean_abs_dev", []).append(
+                    float(np.abs(g - r).mean()))
+                stage2.setdefault("covered_cpu", []).append(
+                    float((g > 0).mean()))
+                stage2.setdefault("covered_differently", []).append(
+                    float(((g > 0) != (r > 0)).mean()))
+        if len(stage2["mean_abs_dev"]) != n:
+            raise AssertionError(f"phase 16: {len(stage2['mean_abs_dev'])} "
+                                 f"stage-2 maps, not {n}")
+        goldens, riders = root / "val_cpu" / "SML", root / "val_card" / "SML"
+        for tree in (goldens, riders):
+            pngs = sorted(tree.glob("*/sml_depth/*.png"))
+            if len(pngs) != n:
+                raise AssertionError(f"phase 16: {tree} holds {len(pngs)} "
+                                     f"depth maps, not {n}")
+        t0 = time.perf_counter()
+        tool = compare_goldens(str(goldens), str(riders), root=str(root))
+        tool_s = time.perf_counter() - t0
+        direct = direct_report(goldens, riders)
+        if tool["report"] != direct:
+            raise AssertionError(f"phase 16: the tool's report "
+                                 f"{tool['report']} vs numpy's {direct}")
+        if tool["within_budget"] is not True or not all(
+                math.isfinite(v) for m in ("golden_metrics", "riders_metrics")
+                for v in tool[m].values()):
+            raise AssertionError(f"phase 16: bf16 card vs f32 CPU outside "
+                                 f"the 1% budget: {tool}")
+        he = he_sml_diagnostic(cfg, run_cfgs, root, seed)
+        log(f"16 diagnostic, the He-normal SML: {json.dumps(he)}")
+        return dict(scenes=list(scenes), frames=n, frame=list(ZJU_FRAME),
+                    runs=runs, tool_s=tool_s, report=tool["report"],
+                    golden_metrics=tool["golden_metrics"],
+                    riders_metrics=tool["riders_metrics"],
+                    relative_deviation=tool["relative_deviation"],
+                    within_budget=tool["within_budget"],
+                    stage2_card_vs_cpu={k: max(v) for k, v in
+                                        stage2.items()},
+                    he_normal_sml=he)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def he_sml_diagnostic(cfg, run_cfgs, root, seed, device="cuda"):
+    """Why phase 16's SML is `sml_weights`' and not `build_sml`'s (He-
+    normal, `init_random_`, the head scaled by 1e-3): (a) `validate_sml`
+    of the He-normal SML on each device's stage-2 tree, scored by
+    `compare_goldens` (reported, not judged); (b) the bf16 SML's
+    relative L2 distance from the f32 one, both on `device`, at the
+    backbone's four taps and at the scale map less 1, on the network
+    inputs of one seeded ZJU frame, for both weight sets.  A random deep
+    network in its chaotic regime grows bf16's rounding from tap to tap,
+    one in its ordered regime does not."""
+    import torch
+    from riders_tpu_torch.core import checkpoint
+    from riders_tpu_torch.models.sml import ScaleMapLearner
+    from riders_tpu_torch.pipelines import drivers
+    from riders_tpu_torch.pipelines.sml_inference import prepare_sml_inputs
+    from riders_tpu_torch.pipelines.sml_training import init_train_state
+    from riders_tpu_torch.tools.compare_goldens import compare_goldens
+
+    states = {"he_normal": build_sml(cfg, seed + 1, "cpu",
+                                     torch.float32).state_dict(),
+              "calibrated": sml_weights(cfg, seed + 1,
+                                        head="output_conv.conv3")}
+    model = ScaleMapLearner(cfg.sml, "cpu", torch.float32)
+    model.load_state_dict(states["he_normal"])
+    state = init_train_state(cfg, model, 1)
+    state.step = 1
+    checkpoint.save_train_state(root / "ckpt_sml_he", state)
+    for name, (run_cfg, device) in run_cfgs.items():
+        drivers.validate_sml(run_cfg, str(root / "ckpt_sml_he"),
+                             output_path=str(root / f"he_{name}"),
+                             save_output=True, device=device)
+    tool = compare_goldens(str(root / "he_cpu" / "SML"),
+                           str(root / "he_card" / "SML"), root=str(root))
+    b = make_sml_train_batch(cfg, seed + 70, device, B=1)
+    drift = {}
+    with torch.no_grad():
+        x, d = prepare_sml_inputs(cfg, b["image"], b["mono_pred"],
+                                  b["radar"], b["rcnet"])
+        for name, weights in states.items():
+            outs = []
+            for dtype in (torch.float32, torch.bfloat16):
+                model = ScaleMapLearner(cfg.sml, device, dtype)
+                model.load_state_dict(weights)
+                model.eval()
+                seen = []
+                hook = model.pretrained.register_forward_hook(
+                    lambda m, i, o: seen.extend(t.float() for t in o))
+                _, scales = model(x.to(dtype), d)
+                hook.remove()
+                outs.append(seen + [scales.float() - 1.0])
+            drift[name] = [float((b - a).norm() / a.norm())
+                           for a, b in zip(*outs)]
+    return dict(relative_deviation=tool["relative_deviation"],
+                within_budget=tool["within_budget"],
+                bf16_rel_l2_taps_and_scale=drift)
+
+
+def goldens_line(smi, g):
+    """The phase-16 summary line."""
+    return dict(
+        card=smi, frames=g["frames"], frame=g["frame"],
+        within_budget=g["within_budget"],
+        relative_deviation=g["relative_deviation"], report=g["report"],
+        staged_s={k: r["staged_s"] for k, r in g["runs"].items()},
+        run_rcnet_s={k: r["run_rcnet_s"] for k, r in g["runs"].items()},
+        validate_sml_s={k: r["validate_sml_s"]
+                        for k, r in g["runs"].items()},
+        card_launches={k: g["runs"]["card"]["run_rcnet_launches"].get(k)
+                       for k in ("stem", "roi_pool", "compose")},
+        stage2_card_vs_cpu=g["stage2_card_vs_cpu"],
+        he_normal_sml=g["he_normal_sml"])
+
+
+def goldens_only(smi):
+    """`--goldens`: phase 1, then phase 16 alone."""
+    import torch
+    g = goldens_phase(smi)
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_goldens.json").write_text(json.dumps(
+        dict(card=smi, goldens=g), indent=1))
+    log(json.dumps({"goldens": goldens_line(smi, g)}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def profile(fn, batch, path):
     """Device time by kernel for one call of `fn` (torch.profiler), and
     the same by operator and input shapes (written to `path` only)."""
@@ -3988,6 +4267,8 @@ def main(argv):
         return multichip_only(smi)
     if "--bench" in argv:
         return bench_only(smi)
+    if "--goldens" in argv:
+        return goldens_only(smi)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():
@@ -4077,6 +4358,8 @@ def main(argv):
                             profile_dir=profile_dir)
     log(f"fast paths: {json.dumps(fast)}")
     bench_rec = bench_phase(agree["cpu_bf16_vs_cpu_f32"])
+    torch.cuda.empty_cache()
+    golden = goldens_phase(smi)
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -4132,7 +4415,7 @@ def main(argv):
                    training_agreement=train_agree, staged=staged,
                    cli=cli_runs, dpt=dpt, dpt_families=families,
                    rcnet_variants=variants, parallel=par, fast_paths=fast,
-                   bench=bench_rec)
+                   bench=bench_rec, goldens=golden)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -4198,6 +4481,7 @@ def main(argv):
     log(json.dumps({"rcnet_variants": variants_line(smi, variants)}))
     log(json.dumps({"parallel": parallel_line(smi, par, fast)}))
     log(json.dumps({"bench": bench_line(smi, bench_rec)}))
+    log(json.dumps({"goldens": goldens_line(smi, golden)}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,12 @@
 training steps.
 
 The port's own copy of the dataclasses and the ZJU / NTU presets of the
-JAX package's configuration, cut to the fields the port reads (the
-mesh's axis names are left out: the port's are fixed,
-`parallel.sharding.DATA_AXIS` and `POINTS_AXIS`).  All shapes are
-static: frame size, patch size, the radar-point bucket and the SML
+JAX package's configuration, field for field and value for value, so
+that the trainers log the same parameters.  Four fields are read by
+neither package: `sml.backbone`, `eval.save_output` (the drivers take
+`save_output` as an argument) and the mesh's axis names (the port's are
+fixed, `parallel.sharding.DATA_AXIS` and `POINTS_AXIS`).  All shapes
+are static: frame size, patch size, the radar-point bucket and the SML
 network input are part of the config.
 """
 
@@ -73,6 +75,7 @@ class SMLConfig:
     features: int = 64
     expand: bool = True
     in_channels: int = 3                # (int_depth, int_scales, gray)
+    backbone: str = "efficientnet_lite3"
     align_corners: bool = True          # fusion-block upsample convention
     net_shape: Tuple[int, int] = (288, 384)
     regress_mode: str = "scale"         # 'scale' | 'depth'
@@ -185,6 +188,7 @@ class EvalConfig:
     min_depth_val: float = 0.0
     max_depth_val: float = 50.0                     # NTU: 70.0
     delta_threshold: float = 1.25
+    save_output: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +197,8 @@ class MeshConfig:
     splits the frame batch, `points` the per-frame radar-point patches of
     RC-Net.  data_parallel -1 takes every rank left."""
 
+    data_axis: str = "data"
+    points_axis: str = "points"
     data_parallel: int = -1
     points_parallel: int = 1
 

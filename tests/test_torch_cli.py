@@ -1,8 +1,10 @@
 """The port's command line (riders_tpu_torch.cli) against the JAX
 package's `riders`.
 
-* `_load_config`: equal to JAX's on every field both configurations
-  have, for each preset and every override flag.
+* `_load_config`: the same field paths as JAX's and equal to it on
+  every field, for each preset and every override flag; each preset's
+  `dataclasses.asdict` equal to JAX's, and its `log_params` lines (what
+  both trainers log) JAX's.
 * Every subcommand but `bench` runs with `--device cpu` on the
   synthetic mini-dataset of tests/test_drivers.py (the presets cut to
   its 96x128 frames, narrow RC-Net widths and a tiny SML backbone), and
@@ -52,6 +54,16 @@ REQUIRED = {"train-sml": ["--ckpt", "c"], "train-rcnet": ["--ckpt", "c"],
             "eval-dir": ["--results", "r"], "preprocess": ["--output", "o"]}
 
 
+def _field_paths(cfg, path=""):
+    """The dotted path of every leaf field of a configuration tree."""
+    for f in dataclasses.fields(cfg):
+        x = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(x):
+            yield from _field_paths(x, f"{path}{f.name}.")
+        else:
+            yield f"{path}{f.name}"
+
+
 def _common_fields(a, b, path=""):
     """(path, port value, JAX value) of every leaf field the two
     configuration trees share."""
@@ -74,6 +86,7 @@ def test_load_config_matches_jax(command, dataset):
             [command, "--dataset", dataset, "--root", "/data/x"]
             + REQUIRED[command] + extra)
         got, want = tcli._load_config(args), jcli._load_config(args)
+        assert set(_field_paths(got)) == set(_field_paths(want))
         fields = list(_common_fields(got, want))
         assert len(fields) > 70
         for path, x, y in fields:
@@ -81,6 +94,25 @@ def test_load_config_matches_jax(command, dataset):
         configs.append(got)
     assert configs[0].dataset.root == "/data/x"
     assert (configs[0] != configs[1]) == bool(OVERRIDES[command])
+
+
+@pytest.mark.parametrize("preset", ["zju_config", "ntu_config"])
+def test_config_dicts_and_logged_params_match_jax(preset, capsys):
+    """Both trainers log `log_params(asdict(cfg))`: the same key=value
+    lines in both packages."""
+    from riders_tpu.core import config as jconfig
+    from riders_tpu.core import logging as jlog
+    from riders_tpu_torch.core import logging as tlog
+
+    got = dataclasses.asdict(getattr(tconfig, preset)(root="/data/x"))
+    want = dataclasses.asdict(getattr(jconfig, preset)(root="/data/x"))
+    assert got == want
+    capsys.readouterr()
+    jlog.log_params(None, want)
+    jax_lines = capsys.readouterr().out
+    tlog.log_params(None, got)
+    assert capsys.readouterr().out == jax_lines
+    assert len(jax_lines.splitlines()) == len(want) == 9
 
 
 def test_bench_and_multihost_raise(mini, monkeypatch):

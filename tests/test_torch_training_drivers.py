@@ -197,9 +197,16 @@ def test_train_sml_matches_jax(mini_root, tiny_sml, tmp_path):
 
     tckpt.save_train_state(dirs["torch"], initial_state())
     assert tckpt.all_steps(dirs["torch"]) == [0]
-    jdrivers.train_sml(jcfg, dirs["jax"], max_steps=2)
+    logs = {k: str(tmp_path / f"{k}.log") for k in dirs}
+    jdrivers.train_sml(jcfg, dirs["jax"], max_steps=2, log_path=logs["jax"])
     tdrivers.train_sml(tcfg, dirs["torch"], resume=True, max_steps=2,
-                       device="cpu")
+                       log_path=logs["torch"], device="cpu")
+    params = {}
+    for k, path in logs.items():
+        with open(path) as f:
+            params[k] = [line for line in f
+                         if line.split("=")[0] in dataclasses.asdict(tcfg)]
+    assert params["torch"] == params["jax"] and len(params["jax"]) == 9
     want, _ = _scalars(dirs["jax"])
     got, _ = _scalars(dirs["torch"])
     assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2]
