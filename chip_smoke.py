@@ -29,6 +29,12 @@ pipeline on the card against the CPU's goldens.
                                           # rank a card
     python3 chip_smoke.py --bench         # phase 1, then phase 15 alone
     python3 chip_smoke.py --goldens       # phase 1, then phase 16 alone
+    python3 chip_smoke.py --determinism   # phase 1, then 13d alone: the
+                                          # f64 SML step's run-to-run
+                                          # spread in five determinism
+                                          # modes (one a diagnostic), and
+                                          # the ops without a
+                                          # deterministic implementation
 
 Kernel times: `ms` is the median of synchronised calls (host dispatch
 counts in); `graph_ms` replays 20 calls (10 in phase 12) captured in one
@@ -181,7 +187,13 @@ Phases, each fatal on failure:
      loss collectives, against the plain step by phase 7's rule, ms per
      step of both; (c) three `train-sml` steps through `riders-torch
      --multihost --num-processes 1 --process-id 0` on phase 9's dataset
-     (the IDW scale map), the process group gone after;
+     (the IDW scale map), the process group gone after; (d) opt-in,
+     `--determinism` only: the plain f64 SML step of (b) twice in each
+     of four modes (PyTorch's defaults, cuDNN's deterministic flag,
+     `use_deterministic_algorithms`, both; CUBLAS_WORKSPACE_CONFIG=
+     :4096:8), and under the defaults with the SML's bilinear resizes
+     in f64 (a diagnostic), the spread of each pair and the ops that
+     warn that they have no deterministic implementation;
   14. the opt-in fast paths at full width (NTU, B=16, bf16), each alone
      and then all together, the counters reset just before each:
      RIDERS_SML_FOLD=1 (set and unset inside the phase), the decoder's
@@ -226,6 +238,7 @@ import copy
 import inspect
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -3321,6 +3334,15 @@ def plain_roi_pool():
     return mock.patch.object(rcnet, "roi_pool_pyramid", pyramid)
 
 
+def grad_errs(g, ref):
+    """Each gradient's max abs error over its max abs, floored at 1e-6 of
+    the largest."""
+    top = max(float(r.abs().max()) for r in ref.values())
+    return {k: float((g[k] - r).abs().max())
+            / max(float(r.abs().max()), 1e-6 * top)
+            for k, r in ref.items()}
+
+
 def sharded_step_agreement(kind, mesh, seed=5, profile_dir=None):
     """13b: one step of `kind` ('rcnet': NTU B=24; 'sml': 288x352, B=12)
     through `with_data_sharding` on `mesh`, so through the cross-rank
@@ -3364,14 +3386,6 @@ def sharded_step_agreement(kind, mesh, seed=5, profile_dir=None):
                  if p.grad is not None}
         return float(aux["loss"]), grads, state, step
 
-    def errs(g, ref):
-        """Each gradient's max abs error over its max abs, floored at 1e-6
-        of the largest."""
-        top = max(float(r.abs().max()) for r in ref.values())
-        return {k: float((g[k] - r).abs().max())
-                / max(float(r.abs().max()), 1e-6 * top)
-                for k, r in ref.items()}
-
     def whole(g, ref):
         d = sum(float((g[k] - r).square().sum()) for k, r in ref.items())
         return (d / sum(float(r.square().sum()) for r in ref.values())) ** 0.5
@@ -3400,15 +3414,15 @@ def sharded_step_agreement(kind, mesh, seed=5, profile_dir=None):
         torch.cuda.empty_cache()
         loss_s64, g_s64 = run(torch.float64, sharded=True, b=wide)[:2]
         torch.cuda.empty_cache()
-        repeat = errs(run(torch.float64, b=wide)[1], g_p64)
+        repeat = grad_errs(run(torch.float64, b=wide)[1], g_p64)
     torch.cuda.empty_cache()
-    exact = errs(g_s64, g_p64)
-    err_s, err_p = errs(g_s, g_p64), errs(g_p, g_p64)
+    exact = grad_errs(g_s64, g_p64)
+    err_s, err_p = grad_errs(g_s, g_p64), grad_errs(g_p, g_p64)
     image = batch["image"]
     for s in (1, 2):
         pick = torch.rand(image.shape, device="cuda", generator=(
             torch.Generator(device="cuda").manual_seed(s))) < 0.5
-        draw = errs(run(torch.float32, b=dict(batch, image=torch.where(
+        draw = grad_errs(run(torch.float32, b=dict(batch, image=torch.where(
             pick, torch.nextafter(image, torch.full_like(image, 2.0)),
             image)))[1], g_p64)
         err_p = {k: max(e, draw[k]) for k, e in err_p.items()}
@@ -3460,6 +3474,96 @@ def sharded_step_agreement(kind, mesh, seed=5, profile_dir=None):
             log(profile(lambda b, st=st, sp=sp: sp(st, b), batch,
                         profile_dir / f"profile_{kind}_{name}_step.txt"))
     return res
+
+
+def sml_determinism(seed=5):
+    """13d (opt-in, `--determinism`): the plain f64 SML step of phase 13b
+    (288x352, B=12, its seeded weights and batch) run twice in each of
+    four modes: PyTorch's defaults, `torch.backends.cudnn.deterministic
+    = True` alone, `torch.use_deterministic_algorithms(True,
+    warn_only=True)` alone, and both.  For each mode the spread between
+    its two runs (the loss's relative difference and each gradient's by
+    `grad_errs`), and the ops that warn that they have no deterministic
+    implementation.  The f64 model keeps f32 legs, as the JAX package's
+    does: stage 1, the head's output and the resizes; a fifth pair, a
+    diagnostic that departs from JAX, runs the defaults with the SML's
+    two bilinear resizes (fusion blocks and head) in f64."""
+    import warnings
+    from unittest import mock
+    import torch
+    import torch.nn.functional as F
+    from riders_tpu_torch.models import sml
+    fresh, batch = _step_setup("sml", seed, "cuda")
+    wide = {k: v.double() if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+    def run():
+        state, step = fresh(torch.float64)
+        _, aux = step(state, wide)
+        grads = {k: p.grad.detach().clone()
+                 for k, p in state.model.named_parameters()
+                 if p.grad is not None}
+        return float(aux["loss"]), grads
+
+    def spread():
+        (loss_a, g_a), (loss_b, g_b) = run(), run()
+        torch.cuda.synchronize()
+        errs = grad_errs(g_b, g_a)
+        order = sorted(errs.values())
+        return dict(loss=loss_a, loss_rel_diff=abs(loss_b - loss_a)
+                    / abs(loss_a), worst_grad_err=order[-1],
+                    worst_grad=max(errs, key=errs.get),
+                    median_grad_err=order[len(order) // 2],
+                    n_grads_differing=sum(e > 0 for e in order),
+                    n_grads=len(order))
+
+    def wide_resize(x, out_shape, method="bilinear", align_corners=False):
+        return F.interpolate(x, size=tuple(out_shape), mode=method,
+                             align_corners=align_corners)
+
+    out = {}
+    for mode, (cudnn, algorithms, resize) in {
+            "default": (False, False, sml.resize_nchw),
+            "cudnn_deterministic": (True, False, sml.resize_nchw),
+            "deterministic_algorithms": (False, True, sml.resize_nchw),
+            "both": (True, True, sml.resize_nchw),
+            "default_f64_resizes": (False, False, wide_resize)}.items():
+        torch.backends.cudnn.deterministic = cudnn
+        torch.use_deterministic_algorithms(algorithms, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught, \
+                    mock.patch.object(sml, "resize_nchw", resize):
+                warnings.simplefilter("always")
+                out[mode] = spread()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+        warned = {}
+        for w in caught:
+            text = str(w.message)
+            if "determinis" in text.lower():
+                key = text.split(" does not have a deterministic")[0][:160]
+                warned[key] = warned.get(key, 0) + 1
+        out[mode]["warned_ops"] = warned
+    out["cublas_workspace_config"] = os.environ.get(
+        "CUBLAS_WORKSPACE_CONFIG")
+    return out
+
+
+def determinism_only(smi):
+    """`--determinism`: phase 1, then 13d alone."""
+    import torch
+    rec = dict(card=smi, **sml_determinism())
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_determinism.json").write_text(
+        json.dumps(rec, indent=1))
+    log(json.dumps({"determinism": rec}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def _cadence(preset, steps):
@@ -4224,6 +4328,9 @@ def kernel_times(smi):
 
 
 def main(argv):
+    if "--determinism" in argv:
+        # before cuBLAS starts, so that deterministic mode can hold it
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4269,6 +4376,8 @@ def main(argv):
         return bench_only(smi)
     if "--goldens" in argv:
         return goldens_only(smi)
+    if "--determinism" in argv:
+        return determinism_only(smi)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():

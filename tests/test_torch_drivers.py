@@ -94,15 +94,10 @@ def _random_variables(state, rng):
     return tree
 
 
-@pytest.fixture(scope="module")
-def setup(tmp_path_factory):
-    """The mini dataset, RC-Net and SML checkpoints at steps 1 and 2 of
-    random weights, saved by each package from the same variables, and
-    the JAX drivers' restore templates."""
-    root = str(tmp_path_factory.mktemp("mini_drivers"))
-    make_mini_dataset(root, ["scene-a", "scene-b"])
-    jcfg, tcfg = mini_configs(root)
-    rng = np.random.default_rng(21)
+def save_checkpoints(root, jcfg, tcfg, rng):
+    """RC-Net and SML checkpoints at STEPS of random weights, saved under
+    `root`/ckpt by each package from the same variables, and the JAX
+    drivers' restore templates."""
     dirs = {k: os.path.join(root, "ckpt", k)
             for k in ("jax_rc", "torch_rc", "jax_sml", "torch_sml")}
     templates = {
@@ -124,29 +119,48 @@ def setup(tmp_path_factory):
             tstate = init(tcfg, build(variables), 1)
             tstate.step = step
             tckpt.save_train_state(dirs[f"torch_{kind}"], tstate)
-    return root, dirs, templates
+    return dirs, templates
 
 
-@pytest.fixture
-def jax_templates(setup, monkeypatch):
-    """The JAX drivers restore into the fixture's templates instead of
-    initialising their models eagerly."""
-    templates = setup[2]
+def restore_into(monkeypatch, templates):
+    """The JAX drivers restore into `templates` instead of initialising
+    their models eagerly."""
     monkeypatch.setattr(jrc_train, "init_rcnet_train_state",
                         lambda *a, **k: (templates["rc"], None))
     monkeypatch.setattr(jsml_train, "init_train_state",
                         lambda *a, **k: (templates["sml"], None))
 
 
-@pytest.fixture
-def tiny_sml(monkeypatch):
-    """Both packages' validate_sml build the tiny-backbone SML."""
+def build_tiny_sml(monkeypatch):
+    """Both packages' drivers build the tiny-backbone SML."""
     monkeypatch.setattr(jdrivers, "build_sml_model",
                         lambda cfg, dtype=jnp.float32: JaxSML(
                             config=cfg.sml, dtype=dtype, **BACKBONE))
     monkeypatch.setattr(tdrivers, "build_sml_model",
                         lambda cfg, device, dtype: tdrivers.ScaleMapLearner(
                             cfg.sml, device, dtype, **BACKBONE))
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    """The mini dataset, RC-Net and SML checkpoints at steps 1 and 2 of
+    random weights, saved by each package from the same variables, and
+    the JAX drivers' restore templates."""
+    root = str(tmp_path_factory.mktemp("mini_drivers"))
+    make_mini_dataset(root, ["scene-a", "scene-b"])
+    jcfg, tcfg = mini_configs(root)
+    return (root, *save_checkpoints(root, jcfg, tcfg,
+                                    np.random.default_rng(21)))
+
+
+@pytest.fixture
+def jax_templates(setup, monkeypatch):
+    restore_into(monkeypatch, setup[2])
+
+
+@pytest.fixture
+def tiny_sml(monkeypatch):
+    build_tiny_sml(monkeypatch)
 
 
 def _tree(root):

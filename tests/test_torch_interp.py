@@ -9,7 +9,10 @@ package's on seeded sparse maps.
   same scipy call on the same float32 inputs).
 * Delaunay (`delaunay_interpolate` native and scipy, `_windowed`):
   bitwise against JAX's same form (the same C++ source with the same
-  flags, or the same scipy call).
+  flags, or the same scipy call).  The JAX side's library is loaded
+  through `torch_common.jax_native_library`, so it never densifies on
+  its quiet scipy fall-back; six processes released at once on a copy
+  of native/ with no library all load it through that helper.
 * Stage 1 with the 'interp' / 'interp-exact' sources: rtol 1e-5, atol
   1e-4, within the staged-SML bar of test_torch_inference.py (rtol 1e-3,
   atol 1e-4).  The aligned priors differ by about an ulp (1e-7), and
@@ -19,6 +22,11 @@ package's on seeded sparse maps.
 """
 
 import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -36,6 +44,7 @@ from riders_tpu_torch.core import config as tconfig
 from riders_tpu_torch.io import native as tnative
 from riders_tpu_torch.ops import interp as tinterp
 from riders_tpu_torch.pipelines.sml_inference import prepare_sml_inputs
+from torch_common import jax_native_library
 
 H, W = 40, 56
 
@@ -140,9 +149,10 @@ def test_delaunay_scipy_is_jax_bitwise(rng, n, log_space):
 
 @pytest.fixture(scope="module")
 def native_lib():
-    """Both packages' native libraries, each built by its own loader."""
-    if jnative.load() is None:
-        pytest.fail("the JAX package's native library did not build")
+    """Both packages' native libraries, each built by its own loader;
+    the JAX one through `jax_native_library`, so that JAX never runs on
+    its quiet scipy fall-back."""
+    jax_native_library()
     return tnative.load()
 
 
@@ -187,6 +197,69 @@ def test_native_build_failure_raises(monkeypatch, tmp_path):
         tinterp.delaunay_interpolate(sparse_depth(
             np.random.default_rng(1), 10))
     assert not list((tmp_path / "build").glob("*"))
+
+
+# Each process, like a test worker that imported tests/test_native.py,
+# first calls the JAX loader bare, then goes through the helper.
+RACER = """
+import os, sys, time
+import numpy as np
+from riders_tpu.io import native
+native_dir, out = sys.argv[1], sys.argv[2]
+native._NATIVE_DIR = native_dir
+native._LIB_PATH = os.path.join(native_dir, "libriders_native.so")
+from torch_common import jax_native_library
+open(out + ".ready", "w").close()
+while not os.path.exists(os.path.join(native_dir, "go")):
+    time.sleep(0.005)
+bare = native.load() is not None
+lib = jax_native_library()
+assert native.load() is lib
+np.save(out, native.delaunay_interpolate_native(np.load(sys.argv[3])))
+print("bare load", "ok" if bare else "failed")
+"""
+
+
+def test_jax_native_library_survives_a_concurrent_build(tmp_path):
+    """Six processes released at once on a copy of native/ with no
+    library: each loads the JAX package's library through
+    `jax_native_library`, whatever its bare load met, and all six
+    densify one seeded map alike (and as the port's build does)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    native_dir = tmp_path / "native"
+    native_dir.mkdir()
+    for name in ("Makefile", "delaunay.cpp"):
+        shutil.copy(os.path.join(repo, "native", name), native_dir)
+    depth = sparse_depth(np.random.default_rng(5), 250, (120, 160),
+                         span=60.0)
+    np.save(tmp_path / "depth.npy", depth)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
+        [repo, os.path.join(repo, "tests")]))
+    outs = [str(tmp_path / f"out{i}.npy") for i in range(6)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RACER, str(native_dir), out,
+         str(tmp_path / "depth.npy")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for out in outs]
+    try:
+        deadline = time.monotonic() + 120
+        while not all(os.path.exists(o + ".ready") for o in outs):
+            assert time.monotonic() < deadline, "a racer did not start"
+            assert all(p.poll() is None for p in procs), "a racer died"
+            time.sleep(0.05)
+        (native_dir / "go").touch()
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    print("".join(line for log in logs for line in log.splitlines(True)
+                  if line.startswith("bare load")))
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    got = [np.load(o) for o in outs]
+    for g in got[1:]:
+        np.testing.assert_array_equal(g, got[0])
+    np.testing.assert_array_equal(
+        got[0], tnative.delaunay_interpolate_native(depth))
 
 
 @pytest.mark.parametrize("window", [5, 12])

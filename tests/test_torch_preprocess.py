@@ -21,6 +21,7 @@ import pytest
 
 from riders_tpu.core import config as jconfig
 from riders_tpu.core import normalization as jnorm
+from riders_tpu.io import native as jnative
 from riders_tpu.io import pfm as jpfm
 from riders_tpu.io.preprocess import project as jproject
 from riders_tpu.io.preprocess import projection as jproj
@@ -29,6 +30,7 @@ from riders_tpu_torch.core import normalization as tnorm
 from riders_tpu_torch.io import pfm as tpfm
 from riders_tpu_torch.io.preprocess import project as tproject
 from riders_tpu_torch.io.preprocess import projection as tproj
+from torch_common import jax_native_library
 
 
 def write_pcd(path, xyz, binary=True, rng=None):
@@ -210,8 +212,11 @@ def test_process_frame_outputs_are_jax_bytes(tmp_path, preset):
             os.path.join(raw, "scene", "lidar", "000000.pcd"),
             os.path.join(raw, "scene", "radar_sync", "000000.pcd"))
     out = {k: str(tmp_path / k) for k in ("jax", "torch")}
+    # the JAX side densifies natively, never by its quiet scipy fall-back
+    lib = jax_native_library()
     jproject.process_frame(*args, out["jax"],
                            getattr(jproject, f"{preset}_calibration")())
+    assert jnative.load() is lib
     tproject.process_frame(*args, out["torch"], calib)
     assert_same_tree(out["jax"], out["torch"])
     assert len(tree_files(out["torch"])) == 5
@@ -227,7 +232,10 @@ def test_preprocess_dataset_is_jax_bytes(tmp_path, capsys):
     for i, scene in enumerate(("scene-a", "scene-b")):
         write_raw_scene(raw, scene, calib, 2, seed=10 + i)
     out = {k: str(tmp_path / k) for k in ("jax", "torch", "workers")}
+    # JAX's driver runs here, in this process, on its native library
+    lib = jax_native_library()
     jproject.preprocess_dataset(jconfig.ntu_config(), raw, out["jax"])
+    assert jnative.load() is lib
     tproject.preprocess_dataset(tconfig.ntu_config(), raw, out["torch"])
     tproject.preprocess_dataset(tconfig.ntu_config(), raw, out["workers"],
                                 workers=2)

@@ -1,9 +1,19 @@
 """Shared inputs of the port's CPU parity tests (tests/test_torch_*.py):
-narrow model widths, seeded inputs, and flax variables moved away from
-their initial BatchNorm values."""
+narrow model widths, seeded inputs, flax variables moved away from
+their initial BatchNorm values, and the JAX package's native library
+loaded for real."""
+
+import fcntl
+import hashlib
+import os
+import tempfile
+import time
 
 import jax
 import numpy as np
+import pytest
+
+from riders_tpu.io import native as jnative
 
 # one block per stage, narrow widths (tests/test_convert_sml.py's plan)
 TINY_STAGES = ((3, 1, 1, 8, 1), (3, 2, 6, 8, 1), (5, 2, 6, 12, 1),
@@ -53,3 +63,37 @@ def rcnet_inputs(rng, patch, B=2, K=4, H=40, W=56):
     mask = np.ones((B, K), np.float32)
     mask[:, -1] = 0.0
     return image, pts, boxes, mask
+
+
+def jax_native_library(deadline_s=120.0):
+    """The JAX package's native Delaunay library, loaded in this process,
+    or the test fails saying why.
+
+    On a fresh checkout `native/libriders_native.so` does not exist yet.
+    The JAX loader builds it with `make` straight into place, and every
+    process that imports tests/test_native.py calls that loader, so under
+    several workers one process can open the file while another's linker
+    is still writing it.  The loader remembers such a failure for the
+    life of the process, and `delaunay_interpolate` then densifies with
+    scipy without a word: a JAX side that is not the path
+    `process_frame` takes.  Here, under an exclusive lock (one per
+    library path, so the callers of this helper build one at a time), the
+    remembered failure is cleared and the load retried until it succeeds
+    or `deadline_s` (the JAX loader's own build timeout) has passed."""
+    digest = hashlib.sha1(jnative._LIB_PATH.encode()).hexdigest()[:12]
+    lock_path = os.path.join(tempfile.gettempdir(),
+                             f"riders_native-{digest}.lock")
+    deadline = time.monotonic() + deadline_s
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released as the file closes
+        while True:
+            lib = jnative.load()
+            if lib is not None:
+                return lib
+            if time.monotonic() > deadline:
+                break
+            with jnative._lock:
+                jnative._load_failed = False
+            time.sleep(0.2)
+    pytest.fail(f"the JAX package's native library ({jnative._LIB_PATH}) "
+                f"did not load within {deadline_s:.0f} s")
