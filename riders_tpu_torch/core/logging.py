@@ -6,7 +6,8 @@ streams scalars (and quantile digests of arrays) as JSON lines and
 mirrors them to TensorBoard where `torch.utils.tensorboard` imports,
 `StepTimer` estimates elapsed and remaining time, `save_image_mosaic`
 writes image / depth panels as one PNG, and `trace` records a
-torch.profiler trace of its block.
+torch.profiler trace of its block with the port's spans
+(`core.tracing`) beside it.
 """
 
 from __future__ import annotations
@@ -139,6 +140,24 @@ class StepTimer:
                 f"({s['steps_per_s']:.2f} it/s)")
 
 
+def _write_spans(path: str, spans, base_ns: int) -> None:
+    """Write `core.tracing` spans as Chrome trace events (`ph` "X", the
+    real thread id, `args` request and parent) in microseconds on the
+    profiler's clock less `base_ns`, the `baseTimeNanoseconds` of the
+    profiler's own trace, so that the two line up."""
+    from riders_tpu_torch.core.tracing import offset_ns
+    shift = offset_ns() - base_ns
+    pid = os.getpid()
+    events = [{"name": s.name, "ph": "X", "pid": pid, "tid": s.thread,
+               "ts": (s.start_ns + shift) / 1e3,
+               "dur": (s.end_ns - s.start_ns) / 1e3,
+               "args": {"request": s.request, "parent": s.parent}}
+              for s in spans]
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                   "baseTimeNanoseconds": base_ns}, f)
+
+
 def save_image_mosaic(path: str, panels, max_depth: float = 80.0) -> None:
     """Write image / depth panels as one PNG: a list of (H, W[, 3])
     arrays side by side, or a list of such lists, one mosaic row each.
@@ -183,21 +202,38 @@ def _mosaic_row(panels, max_depth: float) -> np.ndarray:
 def trace(log_dir: Optional[str]):
     """Record a torch.profiler trace of the block (host and, where there
     is one, the card) to `<log_dir>/trace.json`, with the kernel table
-    in `<log_dir>/kernels.txt`; a no-op when log_dir is None."""
+    in `<log_dir>/kernels.txt` and the port's spans of every thread
+    (`core.tracing`, enabled for the block) in `<log_dir>/spans.json`;
+    a no-op when log_dir is None."""
     if log_dir is None:
         yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from riders_tpu_torch.core import tracing
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    was_enabled = tracing.RECORDER.enabled
+    tracing.enable()
+    start_ns = time.perf_counter_ns()
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        if not was_enabled:
+            tracing.disable()
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        base_ns = json.load(f).get("baseTimeNanoseconds", 0)
+    _write_spans(os.path.join(log_dir, "spans.json"),
+                [s for s in tracing.spans() if s.start_ns >= start_ns],
+                base_ns)
     sort = ("cuda_time_total" if torch.cuda.is_available()
             else "cpu_time_total")
     with open(os.path.join(log_dir, "kernels.txt"), "w") as f:

@@ -9,7 +9,14 @@
 The stem, the RoI pool and the composition run as CUDA kernels on the
 card (their plain versions on the CPU); the rest is PyTorch.
 `make_sharded_fused_fn` runs the same path over a mesh of ranks
-(`parallel.sharding`).
+(`parallel.sharding`).  Each call is the span `fused.call`, holding the
+spans `fused.inputs`, `fused.rcnet`, `fused.compose`, `fused.stage1`,
+`fused.sml` and `fused.upsample` in that order (`core.tracing`).  Only
+the two stages between the networks, `fused.compose` and
+`fused.stage1`, are mirrored on the device under a profiler: the call's
+first and last kernels and the networks' stay with the caller's own
+ranges, around the call or around a network's forward, whose mirrors
+would otherwise lose them.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 from riders_tpu_torch.core.config import RidersConfig
 from riders_tpu_torch.core.device import (check_model_device,
                                           resolve_device, to_device)
+from riders_tpu_torch.core.tracing import span
 from riders_tpu_torch.models import sml_folded
 from riders_tpu_torch.models.rcnet import RCNet
 from riders_tpu_torch.models.sml import ScaleMapLearner
@@ -64,17 +72,19 @@ class _Stages:
 
     def inputs(self, batch: Dict):
         """(image, mono, radar_points, mask) on the device, decoded."""
-        image = to_device(batch["image"], self.device)
-        if image.dtype == torch.uint8:
-            image = image.float() * (1.0 / 255.0)
-        mono = to_device(batch["mono_pred"], self.device)
-        if mono.dtype == torch.uint16:
-            # through int16 bits: CUDA's uint16 support is bare
-            codes = mono.view(torch.int16).int() & 0xFFFF
-            mono = codes.float() * (1.0 / 256.0)
-        radar_points = to_device(batch["radar_points"], self.device).float()
-        mask = to_device(batch["point_mask"], self.device).float()
-        return image, mono, radar_points, mask.contiguous()
+        with span("fused.inputs"):
+            image = to_device(batch["image"], self.device)
+            if image.dtype == torch.uint8:
+                image = image.float() * (1.0 / 255.0)
+            mono = to_device(batch["mono_pred"], self.device)
+            if mono.dtype == torch.uint16:
+                # through int16 bits: CUDA's uint16 support is bare
+                codes = mono.view(torch.int16).int() & 0xFFFF
+                mono = codes.float() * (1.0 / 256.0)
+            radar_points = to_device(batch["radar_points"],
+                                     self.device).float()
+            mask = to_device(batch["point_mask"], self.device).float()
+            return image, mono, radar_points, mask.contiguous()
 
     def rcnet_inputs(self, image: torch.Tensor, radar_points: torch.Tensor):
         """The edge-padded frame and the points and boxes in its
@@ -91,24 +101,29 @@ class _Stages:
         upsample of 1 / pred: (B, H, W) metric depth."""
         cfg = self.cfg
         H, W = cfg.dataset.image_shape
-        if cfg.rcnet.adaptive_composition:
-            thr = adaptive_threshold_value(
-                responses, mask, cfg.rcnet.response_threshold,
-                cfg.rcnet.threshold_decay, cfg.rcnet.max_threshold_retries)
-        else:
-            thr = cfg.rcnet.response_threshold
-        quasi_depth, _ = compose_patches(responses, points.contiguous(),
-                                         mask, (H, W), cfg.rcnet.patch_size,
-                                         thr)
-        # Raw radar returns on the frame grid: the alignment target.
-        radar_sparse = _scatter_points(radar_points, mask, (H, W))
-        x, d = prepare_sml_inputs(cfg, image, mono, radar_sparse,
-                                  quasi_depth)
-        x = x.to(self.sml_dtype)
-        pred_inv, _ = (sml_folded.folded_sml_apply(self.sml, x, d)
-                       if self.fold else self.sml(x, d))
-        return resize2d(1.0 / pred_inv, (H, W), "bicubic",
-                        align_corners=False)[..., 0]
+        with span("fused.compose", mirror=True):
+            if cfg.rcnet.adaptive_composition:
+                thr = adaptive_threshold_value(
+                    responses, mask, cfg.rcnet.response_threshold,
+                    cfg.rcnet.threshold_decay,
+                    cfg.rcnet.max_threshold_retries)
+            else:
+                thr = cfg.rcnet.response_threshold
+            quasi_depth, _ = compose_patches(
+                responses, points.contiguous(), mask, (H, W),
+                cfg.rcnet.patch_size, thr)
+            # Raw radar returns on the frame grid: the alignment target.
+            radar_sparse = _scatter_points(radar_points, mask, (H, W))
+        with span("fused.stage1", mirror=True):
+            x, d = prepare_sml_inputs(cfg, image, mono, radar_sparse,
+                                      quasi_depth)
+            x = x.to(self.sml_dtype)
+        with span("fused.sml"):
+            pred_inv, _ = (sml_folded.folded_sml_apply(self.sml, x, d)
+                           if self.fold else self.sml(x, d))
+        with span("fused.upsample"):
+            return resize2d(1.0 / pred_inv, (H, W), "bicubic",
+                            align_corners=False)[..., 0]
 
 
 def make_fused_fn(cfg: RidersConfig, rcnet: RCNet, sml: ScaleMapLearner,
@@ -131,12 +146,16 @@ def make_fused_fn(cfg: RidersConfig, rcnet: RCNet, sml: ScaleMapLearner,
 
     @torch.inference_mode()
     def fused(batch: Dict) -> torch.Tensor:
-        image, mono, radar_points, mask = stages.inputs(batch)
-        padded, points, boxes = stages.rcnet_inputs(image, radar_points)
-        responses = rcnet(padded, points, boxes, mask,
-                          return_logits=False)[..., 0].float().contiguous()
-        return stages.depth(image, mono, radar_points, mask, points,
-                            responses)
+        with span("fused.call"):
+            image, mono, radar_points, mask = stages.inputs(batch)
+            with span("fused.rcnet"):
+                padded, points, boxes = stages.rcnet_inputs(image,
+                                                            radar_points)
+                responses = rcnet(padded, points, boxes, mask,
+                                  return_logits=False)[..., 0]
+                responses = responses.float().contiguous()
+            return stages.depth(image, mono, radar_points, mask, points,
+                                responses)
 
     return fused
 
@@ -166,16 +185,20 @@ def make_sharded_fused_fn(cfg: RidersConfig, rcnet: RCNet,
 
     @torch.inference_mode()
     def sharded(batch: Dict) -> torch.Tensor:
-        image, mono, radar_points, mask = stages.inputs(
-            sh.shard_batch(mesh, batch, point_keys=()))
-        padded, points, boxes = stages.rcnet_inputs(image, radar_points)
-        latent, skips = rcnet.encode(padded)
-        mine = rcnet.decode_points(
-            latent, skips, by_point.local(points), by_point.local(boxes),
-            by_point.local(mask), return_logits=False)[..., 0].float()
-        responses = mesh.axis(sh.POINTS_AXIS).gather(mine, dim=1)
-        depth = stages.depth(image, mono, radar_points, mask, points,
-                             responses.contiguous())
-        return mesh.axis(sh.DATA_AXIS).gather(depth, dim=0)
+        with span("fused.call"):
+            image, mono, radar_points, mask = stages.inputs(
+                sh.shard_batch(mesh, batch, point_keys=()))
+            with span("fused.rcnet"):
+                padded, points, boxes = stages.rcnet_inputs(image,
+                                                            radar_points)
+                latent, skips = rcnet.encode(padded)
+                mine = rcnet.decode_points(
+                    latent, skips, by_point.local(points),
+                    by_point.local(boxes), by_point.local(mask),
+                    return_logits=False)[..., 0].float()
+            responses = mesh.axis(sh.POINTS_AXIS).gather(mine, dim=1)
+            depth = stages.depth(image, mono, radar_points, mask, points,
+                                 responses.contiguous())
+            return mesh.axis(sh.DATA_AXIS).gather(depth, dim=0)
 
     return sharded

@@ -12,11 +12,18 @@ call, and an event marks that copy's end: handing result i back waits
 for batch i alone, not for the calls queued after it.  Up to `depth`
 results stay in flight, and they are handed back as numpy arrays in
 order.
+
+Each phase is a span (`core.tracing`) under the batch's sequence number
+in the run: `server.upload` on the uploader thread; `server.wait_upload`
+(blocked on the next upload), the fused call's `fused.*` spans,
+`server.download` and `server.wait_result` (blocked on a result's copy)
+on the caller's.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import os
 import queue
 import threading
@@ -26,6 +33,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, \
 import numpy as np
 import torch
 
+from riders_tpu_torch.core import tracing
 from riders_tpu_torch.core.device import resolve_device, to_device
 from riders_tpu_torch.io import depthio
 
@@ -48,32 +56,36 @@ class FusedServer:
 
     def _upload(self, batch: Dict, stream) -> tuple:
         """(tensors on the device, the event that ends their copy)."""
-        if stream is None:
-            return {k: to_device(v, self.device)
-                    for k, v in batch.items()}, None
-        with torch.cuda.stream(stream):
-            staged = {k: to_device(v, self.device, pinned=True)
-                      for k, v in batch.items()}
-            done = torch.cuda.Event()
-            done.record(stream)
-        return staged, done
+        with tracing.span("server.upload"):
+            if stream is None:
+                return {k: to_device(v, self.device)
+                        for k, v in batch.items()}, None
+            with torch.cuda.stream(stream):
+                staged = {k: to_device(v, self.device, pinned=True)
+                          for k, v in batch.items()}
+                done = torch.cuda.Event()
+                done.record(stream)
+            return staged, done
 
     def _download(self, out: torch.Tensor) -> tuple:
         """(host tensor, the event that ends its copy): on a card, a
         copy into pinned memory queued behind the call."""
-        if self.device.type != "cuda":
-            return out, None
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return host, done
+        with tracing.span("server.download"):
+            if self.device.type != "cuda":
+                return out, None
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return host, done
 
     @staticmethod
     def _ready(item: tuple) -> np.ndarray:
-        host, done = item
-        if done is not None:
-            done.synchronize()
+        seq, host, done = item
+        tracing.request(seq)
+        with tracing.span("server.wait_result"):
+            if done is not None:
+                done.synchronize()
         return host.numpy()
 
     def run(self, batches: Iterable[Dict[str, np.ndarray]]
@@ -101,7 +113,8 @@ class FusedServer:
 
         def uploader():
             try:
-                for batch in batches:
+                for seq, batch in enumerate(batches):
+                    tracing.request(seq)
                     if not put(self._upload(batch, copy_stream)):
                         return
             except BaseException as e:      # handed to the consumer
@@ -114,8 +127,10 @@ class FusedServer:
         thread.start()
         try:
             in_flight: collections.deque = collections.deque()
-            while True:
-                item = upload_q.get()
+            for seq in itertools.count():
+                tracing.request(seq)
+                with tracing.span("server.wait_upload"):
+                    item = upload_q.get()
                 if item is None:
                     break
                 staged, done = item
@@ -124,7 +139,8 @@ class FusedServer:
                     compute.wait_event(done)
                     for t in staged.values():
                         t.record_stream(compute)
-                in_flight.append(self._download(self.fused_fn(staged)))
+                in_flight.append((seq,
+                                  *self._download(self.fused_fn(staged))))
                 if len(in_flight) >= self.depth:
                     yield self._ready(in_flight.popleft())
             while in_flight:
@@ -132,6 +148,7 @@ class FusedServer:
             if failure:
                 raise failure[0]
         finally:
+            tracing.request(None)
             stop.set()
             thread.join(timeout=10.0)
 

@@ -6,9 +6,11 @@ byte-identical, training augmentations included) and BatchLoader
 on a synthetic mini-dataset written to a temp dir."""
 
 import dataclasses
+import json
 import os
 import shutil
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -273,7 +275,9 @@ def test_batch_loader_early_close_and_errors(mini_root, monkeypatch):
 def test_logging_matches_jax(tmp_path, rng, monkeypatch, capsys):
     """ScalarWriter's JSON lines, the metric table, log_params and the
     mosaic PNG equal the JAX package's (TensorBoard absent: the import
-    fails, as where it is not installed)."""
+    fails, as where it is not installed); `trace` writes the profiler's
+    trace and, beside it, the port's spans of every thread on its
+    clock."""
     from riders_tpu.core import logging as jlog
     from riders_tpu_torch.core import logging as tlog
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
@@ -307,10 +311,47 @@ def test_logging_matches_jax(tmp_path, rng, monkeypatch, capsys):
     timer = tlog.StepTimer(10)
     timer.tick(2)
     assert timer.format().startswith("Step=     2/10 ")
+    from riders_tpu_torch.core import tracing
+    assert not tracing.RECORDER.enabled
+
+    def other_thread():
+        tracing.request(5)
+        with tracing.span("io.side"):
+            pass
+
     with tlog.trace(str(tmp_path / "trace")) as prof:
         torch.ones(8).add_(1)
+        tracing.request(4)
+        with tracing.span("io.block"):
+            torch.ones(8).add_(1)
+        side = threading.Thread(target=other_thread)
+        side.start()
+        side.join(timeout=10)
+        assert not side.is_alive()
+    tracing.request(None)
     assert prof is not None
+    assert not tracing.RECORDER.enabled
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
     assert "Name" in (tmp_path / "trace" / "kernels.txt").read_text()
+    profiled = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert spans["baseTimeNanoseconds"] == profiled.get(
+        "baseTimeNanoseconds", 0)
+    events = {e["name"]: e for e in spans["traceEvents"]}
+    assert set(events) == {"io.block", "io.side"}
+    for e in events.values():
+        assert e["ph"] == "X" and e["pid"] == os.getpid() and e["dur"] >= 0
+    assert events["io.block"]["tid"] == threading.get_native_id()
+    assert events["io.side"]["tid"] != threading.get_native_id()
+    assert events["io.block"]["args"] == {"request": 4, "parent": None}
+    assert events["io.side"]["args"] == {"request": 5, "parent": None}
+    # the main thread's span inside the profiler's range of its name,
+    # widened by 2 ms (microseconds here)
+    ranges = [e for e in profiled["traceEvents"]
+              if e.get("name") == "io.block" and e.get("ph") == "X"]
+    assert len(ranges) == 1
+    span, host = events["io.block"], ranges[0]
+    assert host["ts"] - 2e3 <= span["ts"]
+    assert span["ts"] + span["dur"] <= host["ts"] + host["dur"] + 2e3
     with tlog.trace(None) as prof:
         assert prof is None
