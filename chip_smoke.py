@@ -52,8 +52,9 @@ Phases, each fatal on failure:
      clustered around one spot;
   3. the full-width NTU fused path at 640x512, B=16, K=48 (40 real
      points), bf16, on seeded random weights: three batches with the
-     launch counters reset just before, output checks (one RoI pool
-     launch per call), fps; then the ZJU geometry at B=4 the same way;
+     launch and decode counters reset just before, output checks (one
+     RoI pool launch and one lane decode, B7 and B8 launched, per call),
+     fps; then the ZJU geometry at B=4 the same way;
   4. agreement of the card's bf16 path with the port's f32 CPU path on a
      small input with the same weights, within the CPU's own bf16 spread;
   4b. the lane-major decoder and the 4D RoI pyramid: (a) the lane conv
@@ -62,10 +63,15 @@ Phases, each fatal on failure:
      CUDA-event times of both and of cuDNN (the median of synchronised
      calls, and back to back), a line per call; (b) the decoder's inputs
      captured from a fused B=16 call of each preset, decoded by the
-     literal decoder and by lane_mode "full" and "tail" copies (within 5%
-     of the literal's max, launch counters reset just before each); (c)
-     the 4D pyramid (B6) on that call's encoder maps, skip1 as a NEG-
-     padded canvas, bitwise equal to the B2 pyramid and the plain one;
+     literal decoder (lane_mode "literal", its phase forms off) and by
+     lane_mode "full", "tail" and default (None) copies (within 5% of the
+     literal's max, the default bitwise "full"; launch and decode
+     counters reset just before each); (c) the 4D pyramid (B6) on that
+     call's encoder maps, skip1 as a NEG-padded canvas, bitwise equal to
+     the B2 pyramid and the plain one; (d) (a) and (b) again at the
+     benchmark cells' patch batch, NTU N = 6144 and ZJU N = 4096 (the
+     B=16 call's decoder inputs tiled); `--lane` runs phases 1, 3 and 4b
+     alone;
   5. training kernels at the NTU (B=24, K=40) and ZJU (B=4, K=30)
      training shapes, f32: the RoI pool's forward (bitwise) and its
      backward (within 1e-6 relative of the plain version, two launches
@@ -196,15 +202,17 @@ Phases, each fatal on failure:
      warn that they have no deterministic implementation;
   14. the opt-in fast paths at full width (NTU, B=16, bf16), each alone
      and then all together, the counters reset just before each:
-     RIDERS_SML_FOLD=1 (set and unset inside the phase), the decoder's
-     `phase_tail=True`, every `UpConvBlock(fast_2x=True)` and the SML
-     head's `fast_upsample=True`: one stem, RoI pool and compose launch a
+     RIDERS_SML_FOLD=1 (set and unset inside the phase), the literal
+     decoder's (lane_mode "literal") `phase_tail=True`, every
+     `UpConvBlock(fast_2x=True)` and the SML head's
+     `fast_upsample=True`: one stem, RoI pool and compose launch a
      call, the output against the literal call's by phase 4's rule, ms
      per call beside the literal call's, and fps.
   15. the measuring entry points, under PyTorch's default TF32 and cuDNN
      settings: (a) `riders_tpu_torch.bench.measure` at NTU and ZJU
      (640x512, B=16, bf16, full width): the fused call captured as a CUDA
-     graph holds one stem, one RoI pool and one compose launch, its
+     graph holds one stem, one RoI pool and one compose launch (and one
+     decode's B7 / B8 launches), its
      replayed depth equals an eager call's on the same input (bitwise,
      else phase 4's rule, the difference logged), finite and positive on
      more than 95% of pixels; graph-replay and eager ms per call; (b)
@@ -255,6 +263,9 @@ LANE_DECODE_BAR = 0.05         # max|lane - literal| / max|literal|
 CANVAS_PAD = (96, 48)          # rows, columns of NEG past skip1's extent
 GEOMETRIES = {"ntu": dict(patch=(150, 50), bucket=48, real=40),
               "zju": dict(patch=(240, 100), bucket=32, real=30)}
+# the patch batch of the benchmark's offline cells: B=64 frames of 96
+# (NTU) and 64 (ZJU) points
+CELL_PATCHES = {"ntu": 6144, "zju": 4096}
 FRAME = (512, 640)             # the benchmark resolution (H, W)
 ZJU_FRAME = (480, 640)         # the ZJU preset's frame (H, W)
 
@@ -626,12 +637,12 @@ def make_batch(seed, B, K, n_real, frame, device):
 
 
 def drive(preset, B, seed=0):
-    """The fused path at full width: three batches with the launch
-    counters reset just before, output checks, then timing."""
+    """The fused path at full width: three batches with the launch and
+    decode counters reset just before, output checks, then timing."""
     import dataclasses
     import torch
     from riders_tpu_torch.core.config import ntu_config, zju_config
-    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.ops.kernels import DECODES, LAUNCHES
     from riders_tpu_torch.pipelines.fused import make_fused_fn
 
     geo = GEOMETRIES[preset]
@@ -646,15 +657,21 @@ def drive(preset, B, seed=0):
     torch.cuda.synchronize()
 
     LAUNCHES.clear()
+    DECODES.clear()
     t0 = time.perf_counter()
     outs = [fn(b) for b in batches]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    for name in ("stem", "roi_pool", "compose"):
+    for name in ("stem", "roi_pool", "compose", "lane_conv3x3",
+                 "lane_upconv2x"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{preset}: kernel {name} was not launched "
                                  f"on the fused path ({launches})")
+    if dict(DECODES) != {"full": len(batches)}:
+        raise AssertionError(f"{preset}: decoder paths {dict(DECODES)} in "
+                             f"{len(batches)} calls, not one lane decode "
+                             f"(decode_full) per call")
     if launches["roi_pool"] != len(batches):
         raise AssertionError(f"{preset}: {launches['roi_pool']} RoI pool "
                              f"launches in {len(batches)} calls, not one "
@@ -924,39 +941,54 @@ def capture_path_inputs(fn, rcnet, batch):
 
 
 def drive_lane_decoder(preset, x, skips, literal):
-    """The captured decoder inputs through the literal decoder and its
-    lane_mode "full" and "tail" copies (same weights): each lane output
-    within LANE_DECODE_BAR of the literal's max, the path's kernels
-    launched (counters reset just before each decode), ms per decode."""
+    """The captured decoder inputs through the literal decoder
+    (lane_mode "literal", its phase forms off) and its lane_mode "full"
+    and "tail" copies and default (None) copy (same weights): each lane
+    output within LANE_DECODE_BAR of the literal's max (the default
+    bitwise "full"'s), the path's kernels launched and the path counted
+    in DECODES (counters reset just before each decode), ms per decode
+    synchronised and back to back (`device_ms`)."""
     import torch
-    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.ops.kernels import DECODES, LAUNCHES
 
     need = {"full": ("lane_conv3x3", "lane_upconv2x"),
-            "tail": ("lane_conv3x3",)}
+            "tail": ("lane_conv3x3",), None: ("lane_conv3x3",
+                                              "lane_upconv2x")}
     from riders_tpu_torch.models.layers import UpConvBlock
     rec = dict(preset=preset, patches=int(x.shape[0]))
     lanes = {mode: copy.deepcopy(literal) for mode in need}
     literal = copy.deepcopy(literal)
+    literal.lane_mode = "literal"
     literal.phase_tail = False          # the literal decoder
     for m in literal.modules():
         if isinstance(m, UpConvBlock):
             m.fast_2x = False
     with torch.inference_mode():
+        DECODES.clear()
         want = literal(x, skips).float()
+        if dict(DECODES) != {"literal": 1}:
+            raise AssertionError(f"{preset} literal: decodes {dict(DECODES)}")
         rec["literal_ms"] = time_ms(lambda: literal(x, skips), n=10,
                                     warmup=2)
+        rec["literal_device_ms"] = device_ms(lambda: literal(x, skips),
+                                             n=10, warmup=1)
+        outs = {}
         for mode, dec in lanes.items():
             dec.lane_mode = mode
             dec(x, skips)                                  # packs weights
             torch.cuda.synchronize()
             LAUNCHES.clear()
-            out = dec(x, skips)
+            DECODES.clear()
+            out = outs[mode] = dec(x, skips)
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
             for k in need[mode]:
                 if launches.get(k, 0) <= 0:
                     raise AssertionError(f"{preset} {mode}: kernel {k} was "
                                          f"not launched ({launches})")
+            if dict(DECODES) != {mode or "full": 1}:
+                raise AssertionError(f"{preset} {mode}: decodes "
+                                     f"{dict(DECODES)}")
             if out.shape != want.shape or not bool(torch.isfinite(out).all()):
                 raise AssertionError(f"{preset} {mode}: output {out.shape} "
                                      f"vs {want.shape}, or not finite")
@@ -965,8 +997,13 @@ def drive_lane_decoder(preset, x, skips, literal):
             if rel > LANE_DECODE_BAR:
                 raise AssertionError(f"{preset} {mode}: max |lane - literal|"
                                      f" / max|literal| = {rel}")
-            rec[mode] = dict(launches=launches, rel_err=rel, ms=time_ms(
-                lambda: dec(x, skips), n=10, warmup=2))
+            rec[mode or "default"] = dict(
+                launches=launches, rel_err=rel,
+                ms=time_ms(lambda: dec(x, skips), n=10, warmup=2),
+                device_ms=device_ms(lambda: dec(x, skips), n=10, warmup=1))
+        if not torch.equal(outs[None], outs["full"]):
+            raise AssertionError(f"{preset}: the default decoder is not "
+                                 f"decode_full bit for bit")
     return rec
 
 
@@ -1019,12 +1056,14 @@ def check_roi_4d(preset, maps, boxes, patch):
 
 def lane_phase(runs):
     """Phase 4b for each preset's (fused fn, rcnet): the kernels at the
-    decode's shapes, then the decoders and B6 on a captured B=16 call."""
+    decode's shapes, then the decoders and B6 on a captured B=16 call;
+    then the kernels and the decoders again at the benchmark cells'
+    patch batch (CELL_PATCHES; the B=16 call's decoder inputs tiled)."""
     import torch
     from riders_tpu_torch.pipelines.rcnet_inference import (
         shift_points_and_boxes)
 
-    kernels, decoders = {}, {}
+    kernels, decoders, cells = {}, {}, {}
     for preset, (fn, rcnet) in runs.items():
         geo = GEOMETRIES[preset]
         kernels[preset] = check_lane_kernels(preset)
@@ -1045,9 +1084,87 @@ def lane_phase(runs):
         if n != 1:
             raise AssertionError(f"{preset}: the 4D pyramid took {n} "
                                  f"launches, not one")
+        x, skips = cap["decoder"]
         del cap
+        reps = CELL_PATCHES[preset] // x.shape[0]
+        # NCHW views of NHWC memory, as the fused path hands them over
+        tile = lambda t: t.permute(0, 2, 3, 1).repeat(
+            reps, 1, 1, 1).permute(0, 3, 1, 2)
+        x, skips = tile(x), [tile(t) for t in skips]
         torch.cuda.empty_cache()
-    return kernels, decoders
+        cells[preset] = dict(
+            kernels=check_lane_kernels(
+                preset, B=CELL_PATCHES[preset] // geo["bucket"]),
+            decoder=drive_lane_decoder(preset, x, skips, rcnet.decoder))
+        del x, skips
+        torch.cuda.empty_cache()
+    return kernels, decoders, cells
+
+
+def log_lane(kernels, decoders, cells):
+    """Phase 4b's log lines: each kernel record, each decoder record, and
+    the cells' B7 / B8 calls and decoders."""
+    for g, recs in kernels.items():
+        for name, r in recs.items():
+            log(f"kernel {name} [{g}]: max_abs_err {r['max_abs_err']} "
+                f"({r['tolerance']}) kernel {r['ms']:.4f} ms plain "
+                f"{r['plain_ms']:.4f} ms library {r['library_ms']} bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                + (f" back to back: kernel {r['device_ms']:.4f} ms library "
+                   f"{r['library_device_ms']:.4f} ms"
+                   if "library_device_ms" in r else "")
+                + (f" graph: kernel {r['graph_ms']:.4f} ms"
+                   if "graph_ms" in r else ""))
+        log(f"lane decoder [{g}]: {json.dumps(decoders[g])}")
+    for g, rec in cells.items():
+        for name, r in rec["kernels"].items():
+            log(f"kernel {name} [{g}, cells' N]: max_abs_err "
+                f"{r['max_abs_err']} calls {r['calls_per_decode']} back to "
+                f"back: kernel {r['device_ms']:.4f} ms library "
+                f"{r['library_device_ms']:.4f} ms bound {r['bound_ms']:.4f} "
+                f"ms ({r['bound_by']})")
+        log(f"lane decoder [{g}, cells' N]: {json.dumps(rec['decoder'])}")
+
+
+def lane_line(smi, decoders, cells):
+    """The {"lane_decoder": ..} line: per preset at B=16 and at the
+    cells' patch batch, each path's synchronised and back-to-back ms per
+    decode and its max error against the literal decoder, and the B7 /
+    B8 back-to-back ms of one decode at the cells' batch."""
+    def paths(r):
+        out = dict(patches=r["patches"], literal_ms=r["literal_ms"],
+                   literal_device_ms=r["literal_device_ms"])
+        for mode in ("full", "tail", "default"):
+            out.update({f"{mode}_ms": r[mode]["ms"],
+                        f"{mode}_device_ms": r[mode]["device_ms"],
+                        f"{mode}_rel_err": r[mode]["rel_err"]})
+        return out
+    line = {g: paths(r) for g, r in decoders.items()}
+    for g, rec in cells.items():
+        line[f"{g}_cells"] = dict(paths(rec["decoder"]), **{
+            f"{k}_device_ms": r["device_ms"]
+            for k, r in rec["kernels"].items()})
+    return {"lane_decoder": dict(card=smi, **line)}
+
+
+def lane_only(smi):
+    """`--lane`: phase 1, the fused NTU B=16 and ZJU B=4 calls of phase 3
+    (the weights phase 4b decodes with), and phase 4b; one
+    {"lane_decoder": ..} line."""
+    import torch
+    _, ntu_fn, _, ntu_rcnet = drive("ntu", 16)
+    _, zju_fn, _, zju_rcnet = drive("zju", 4)
+    kernels, decoders, cells = lane_phase({"ntu": (ntu_fn, ntu_rcnet),
+                                           "zju": (zju_fn, zju_rcnet)})
+    log_lane(kernels, decoders, cells)
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_lane.json").write_text(json.dumps(dict(
+        card=smi, torch=torch.__version__, lane_kernels=kernels,
+        lane_decoder=decoders, lane_cells=cells), indent=1))
+    log(json.dumps(lane_line(smi, decoders, cells)))
+    log(smi)
+    return 0
 
 
 def train_config(preset, **overrides):
@@ -3649,6 +3766,9 @@ def fast_paths_phase(spread, seed=0, B=16, profile_dir=None):
     rcnet, sml = build_models(cfg, seed, None, torch.bfloat16)
     batch = make_batch(seed + 11, B, geo["bucket"], geo["real"], FRAME,
                        "cuda")
+    # the phase forms are the literal decoder's; its default on the card
+    # is the lane decode
+    rcnet.decoder.lane_mode = "literal"
     upconvs = [m for m in rcnet.modules() if isinstance(m, UpConvBlock)]
     saved = os.environ.get("RIDERS_SML_FOLD")
     try:
@@ -4378,6 +4498,8 @@ def main(argv):
         return goldens_only(smi)
     if "--determinism" in argv:
         return determinism_only(smi)
+    if "--lane" in argv:
+        return lane_only(smi)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():
@@ -4401,20 +4523,9 @@ def main(argv):
     agree = reference_agreement()
     log(f"reference agreement: {json.dumps(agree)}")
 
-    lane_kernels, lane = lane_phase({"ntu": (ntu_fn, ntu_rcnet),
-                                     "zju": (zju_fn, zju_rcnet)})
-    for g, recs in lane_kernels.items():
-        for name, r in recs.items():
-            log(f"kernel {name} [{g}]: max_abs_err {r['max_abs_err']} "
-                f"({r['tolerance']}) kernel {r['ms']:.4f} ms plain "
-                f"{r['plain_ms']:.4f} ms library {r['library_ms']} bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
-                + (f" back to back: kernel {r['device_ms']:.4f} ms library "
-                   f"{r['library_device_ms']:.4f} ms"
-                   if "library_device_ms" in r else "")
-                + (f" graph: kernel {r['graph_ms']:.4f} ms"
-                   if "graph_ms" in r else ""))
-        log(f"lane decoder [{g}]: {json.dumps(lane[g])}")
+    lane_kernels, lane, lane_cells = lane_phase(
+        {"ntu": (ntu_fn, ntu_rcnet), "zju": (zju_fn, zju_rcnet)})
+    log_lane(lane_kernels, lane, lane_cells)
     del zju_fn, zju_rcnet
 
     train_kernels = {p: check_training_kernels(p) for p in GEOMETRIES}
@@ -4486,12 +4597,11 @@ def main(argv):
                 "lane_conv3x3": "riders_tpu/ops/pallas/lane_decoder.py:312",
                 "lane_upconv2x": "riders_tpu/ops/pallas/lane_decoder.py:461",
                 "roi_pool_4d": "riders_tpu/ops/pallas/roi_pool.py:547"}
-    # inference kernels: launches of the fused NTU run; training kernels:
-    # launches of the three RC-Net training steps; lane kernels: launches
-    # of the NTU decode_full run; B6: launches of one NTU 4D pyramid
-    lane_launches = dict(lane["ntu"]["full"]["launches"], roi_pool_4d=
-                         lane_kernels["ntu"]["roi_pool_4d"][
-                             "launches_per_call"])
+    # inference and lane kernels: launches of the fused NTU run; training
+    # kernels: launches of the three RC-Net training steps; B6: launches
+    # of one NTU 4D pyramid
+    lane_launches = dict(ntu["launches"], roi_pool_4d=lane_kernels["ntu"][
+        "roi_pool_4d"]["launches_per_call"])
     lines = []
     for recs, launches in ((kernels, ntu["launches"]),
                            (train_kernels, training["rcnet"]["launches"]),
@@ -4520,6 +4630,7 @@ def main(argv):
                    build_seconds=build_s, kernels=kernels,
                    fused=dict(ntu=ntu, zju=zju), reference=agree,
                    lane_kernels=lane_kernels, lane_decoder=lane,
+                   lane_cells=lane_cells,
                    training_kernels=train_kernels, training=training,
                    training_agreement=train_agree, staged=staged,
                    cli=cli_runs, dpt=dpt, dpt_families=families,
@@ -4535,12 +4646,7 @@ def main(argv):
                                   zju_fps_b4=zju["fps"],
                                   ref_median_rel_err=agree[
                                       "card_bf16_vs_cpu_f32"])}))
-    log(json.dumps({"lane_decoder": dict(card=smi, **{
-        g: dict(patches=r["patches"], literal_ms=r["literal_ms"],
-                full_ms=r["full"]["ms"], tail_ms=r["tail"]["ms"],
-                full_rel_err=r["full"]["rel_err"],
-                tail_rel_err=r["tail"]["rel_err"])
-        for g, r in lane.items()})}))
+    log(json.dumps(lane_line(smi, lane, lane_cells)))
     log(json.dumps({"training": dict(
         card=smi, rcnet_ntu_b24_ms_per_step=training["rcnet"]["ms_per_step"],
         rcnet_frames_per_s=training["rcnet"]["frames_per_s"],

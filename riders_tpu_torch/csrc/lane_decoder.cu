@@ -38,7 +38,7 @@
 // one of two kernels:
 //  * resident weights (conv_res_kernel), where the inputs come in whole
 //    16-byte channel runs and the weights are small (at decode_full's
-//    shapes, the 75x25 and 120x50 calls with Ci * Co <= 2048): a
+//    shapes, the 75x25 and 120x50 calls with Ci * Co <= 4096): a
 //    persistent grid whose blocks load their column tile's weights once
 //    and walk tiles of 256 consecutive padded positions, the border ones
 //    computed and dropped (a tenth of the work at 75x25).  The rows are
@@ -60,8 +60,9 @@
 // H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md) these ran slower: the
 // resident kernel with 3-4 stages of rows, with 32-column tiles for Co =
 // 64, or with its epilogue stored straight from registers; resident
-// weights beyond 128 KB of shared memory (one block per SM) ran no faster
-// than streamed ones.  For the streamed kernel, tiles of 128 pixels,
+// weights beyond 160 KB of shared memory ran no faster than streamed ones
+// (those of 113-160 KB, one block per SM, ran faster at 4096-6144
+// patches).  For the streamed kernel, tiles of 128 pixels,
 // 128-column tiles, 512-pixel tiles, more A register sets in flight and an
 // mma.sync.m16n8k16 version all ran no faster.
 //

@@ -1,4 +1,4 @@
-"""Lane-major decode paths of `MultiScaleDecoder` (opt-in, inference only).
+"""Lane-major decode paths of `MultiScaleDecoder` (inference only).
 
 * ``decode_full``: every decoder stage in the lane kernels,
   `lane_upconv2x` (B8) for exact-x2 stages, a nearest resize +
@@ -7,17 +7,23 @@
 * ``decode_tail``: the literal decoder for deconv4..2, the lane kernels
   from deconv1 on.
 
-Opt in with ``MultiScaleDecoder(lane_mode="full")`` or ``"tail"``; the
-decoder must be the single-resolution batch-norm leaky-relu one of depth
-5 with one output channel, its output exactly x2 of skips[0], and the
-patch batch a multiple of 128 (the JAX package's conditions, kept as
-they are).  Maps are NHWC bf16; weights are packed once per module and
-re-packed only when a parameter or statistic changes.
+`MultiScaleDecoder`'s default (``lane_mode=None``) runs ``decode_full``
+where `default_path` says so: bf16 on a CUDA device, in eval with grad
+disabled, on a decoder of the structure the lane paths decode (the
+single-resolution batch-norm leaky-relu decoder of depth 5 with one
+linear output channel, no skip at full resolution, its output exactly x2
+of skips[0]; `unsupported` says why not).  The JAX package's None runs
+the literal decoder.  ``lane_mode="full"`` or ``"tail"`` asks for a path
+explicitly; `check_eligible` raises where that structure is missing and,
+as the JAX package does, where the patch batch is no multiple of 128 (a
+TPU layout rule; the CUDA kernels take any batch).  Maps are NHWC bf16;
+weights are packed once per module and re-packed only when a parameter or
+statistic changes.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -29,26 +35,61 @@ from riders_tpu_torch.ops.kernels.lane_decoder import (lane_conv3x3,
                                                        lane_upconv2x,
                                                        pack_conv,
                                                        pack_upconv)
-from riders_tpu_torch.ops.resize import resize2d
+from riders_tpu_torch.ops.resize import nearest_indices
 
 SLOPE = 0.2
 
 
-def _check_eligible(dec, n_batch: int, skip1: torch.Tensor) -> None:
-    """The JAX package's conditions; `MultiScaleDecoder` refuses
-    lane_mode with several resolutions or output channels when built."""
-    if not dec.use_batch_norm or "leaky_relu" not in dec.activation_name:
-        raise ValueError("lane_mode requires the batch-norm leaky-relu "
-                         "decoder")
+def unsupported(dec, n_skips: int, skip1_hw) -> Optional[str]:
+    """Why the lane paths do not compute what the literal decoder `dec`
+    computes on `n_skips` skips, the first `skip1_hw` in size, or None
+    where they do: batch-norm leaky-relu stages, depth 5, one resolution,
+    one linear output channel, a skip at each of the four coarser scales
+    and none at full resolution, and the output exactly x2 of skips[0]."""
+    act = dec.activation_name
+    if (not dec.use_batch_norm or "leaky_relu" not in act
+            or "linear" in act):
+        return "lane_mode requires the batch-norm leaky-relu decoder"
     if dec.depth != 5:
-        raise ValueError(f"lane_mode only supports the depth-5 decoder, got "
-                         f"depth {dec.depth}")
+        return (f"lane_mode only supports the depth-5 decoder, got depth "
+                f"{dec.depth}")
+    if (dec.n_resolution != 1 or not dec.linear_output
+            or dec.output0.conv.out_channels != 1):
+        return ("lane_mode decodes the single-resolution decoder with one "
+                "linear output channel only")
+    if n_skips != dec.depth - 1:
+        return (f"lane_mode requires a skip at each of the {dec.depth - 1} "
+                f"coarser scales and none at full resolution, got "
+                f"{n_skips} skips")
+    if tuple(dec.output_shape) != (2 * skip1_hw[0], 2 * skip1_hw[1]):
+        return "lane_mode requires an exact-x2 full-resolution output"
+    return None
+
+
+def check_eligible(dec, n_batch: int, skips: Sequence[torch.Tensor]
+                   ) -> None:
+    """Raises where an explicit lane_mode cannot run: `unsupported`, and
+    the JAX package's patch batch, a multiple of 128 (a TPU layout rule);
+    `MultiScaleDecoder` refuses lane_mode with several resolutions or
+    output channels when built, as the JAX package does."""
+    reason = unsupported(dec, len(skips),
+                         tuple(skips[0].shape[-2:]) if skips else None)
+    if reason:
+        raise ValueError(reason)
     if n_batch % 128:
         raise ValueError(f"patch batch {n_batch} is not a multiple of 128")
-    if tuple(dec.output_shape) != (2 * skip1.shape[-2],
-                                   2 * skip1.shape[-1]):
-        raise ValueError("lane_mode requires an exact-x2 full-resolution "
-                         "output")
+
+
+def default_path(dtype: torch.dtype, device_type: str, training: bool,
+                 grad_enabled: bool, dec, n_skips: int, skip1_hw) -> str:
+    """The path `MultiScaleDecoder`'s default takes: "full" for a bf16
+    input on a CUDA device, in eval with grad disabled, on a decoder the
+    lane paths decode (`unsupported` finds nothing); "literal" for every
+    other input."""
+    full = (dtype == torch.bfloat16 and device_type == "cuda"
+            and not training and not grad_enabled
+            and unsupported(dec, n_skips, skip1_hw) is None)
+    return "full" if full else "literal"
 
 
 def _lane(t: torch.Tensor) -> torch.Tensor:
@@ -67,8 +108,15 @@ def _upsample(dec, d: int, h: torch.Tensor, target) -> torch.Tensor:
                  *bn_fold(block.bn)))
     if exact:
         return lane_upconv2x(h, w, g, b, SLOPE)
-    up = resize2d(h, tuple(target), "nearest").contiguous()
-    return lane_conv3x3([up], [w], g, b, SLOPE)
+    return lane_conv3x3([_nearest(h, target)], [w], g, b, SLOPE)
+
+
+def _nearest(h: torch.Tensor, target) -> torch.Tensor:
+    """The nearest resize of an NHWC map to `target` in one gather pass,
+    rows and columns picked as `ops.resize.resize2d` picks them."""
+    iy = nearest_indices(h.shape[1], target[0], h.device)
+    ix = nearest_indices(h.shape[2], target[1], h.device)
+    return h[:, iy[:, None], ix[None, :]].contiguous()
 
 
 def _fuse(dec, d: int, up: torch.Tensor, skip: torch.Tensor
@@ -89,7 +137,6 @@ def decode_full(dec, x: torch.Tensor, skips: Sequence[torch.Tensor]
     """The whole decoder in the lane kernels.  x (N, C, h, w) and skips
     NCHW, shallow to deep; returns (N, 1, H, W) logits in the decoder's
     dtype."""
-    _check_eligible(dec, x.shape[0], skips[0])
     h = _lane(x)
     for i in range(dec.depth - 1):
         d = 4 - i
@@ -102,7 +149,6 @@ def decode_full(dec, x: torch.Tensor, skips: Sequence[torch.Tensor]
 def decode_tail(dec, h: torch.Tensor, skip1: torch.Tensor) -> torch.Tensor:
     """The lane kernels from deconv1 on.  h: the literal deconv2 output
     (N, C, h2, w2); skip1: the pooled /2 skip (N, C1, 2 h2', 2 w2')."""
-    _check_eligible(dec, h.shape[0], skip1)
     up = _upsample(dec, 1, _lane(h), skip1.shape[-2:])
     return _lane_phase_tail(dec, _fuse(dec, 1, up, _lane(skip1)))
 

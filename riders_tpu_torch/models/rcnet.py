@@ -5,8 +5,8 @@
 * ``PointEncoder``: MLP lifting each radar (u, v, z) to a token grid;
 * ``MultiScaleDecoder``: U-Net decoder from the fused latent back to a
   per-pixel logit map over the patch, at one or several resolutions
-  (the literal path, or the opt-in lane-major paths of
-  `experiments.lane_decode`);
+  (the literal path, or the lane-major paths of `experiments.lane_decode`,
+  the default for bf16 inference on the card);
 * ``RCNet``: encode once per frame, RoI-pool every scale around each
   point (one kernel launch per scale), LoFTR self / cross attention
   between point and patch tokens, concat fusion, decode the B*K patches.
@@ -33,6 +33,7 @@ from riders_tpu_torch.models.layers import (
     activation_fn, bn_fold, cached_weights, hwio, nearest2x_phase_kernel,
     oihw, phase_compose_3x3, phase_conv, phase_form_on, phases_to_space,
     place)
+from riders_tpu_torch.ops.kernels import DECODES
 from riders_tpu_torch.ops.kernels.roi_pool import roi_pool_pyramid
 from riders_tpu_torch.ops.resize import resize_nchw
 
@@ -115,11 +116,20 @@ class MultiScaleDecoder(nn.Module):
     output0).  Output convs are linear for "upsample" and any name with
     "linear", else they take that activation.
 
-    ``lane_mode`` ("full" / "tail") opts into the lane-major decode paths
-    of `experiments.lane_decode` in eval mode, on the same parameters; in
-    train mode the literal path runs, as in the JAX package.  The lane
-    path has no backward, so it raises with grad enabled; it decodes the
-    single-resolution decoder with one output channel only.
+    ``lane_mode`` chooses the path, on the same parameters.  None (the
+    default) runs `experiments.lane_decode.decode_full`, every stage on
+    the hand-written kernels B7 / B8, for a bf16 input on a CUDA device
+    in eval with grad disabled on a decoder it decodes
+    (`lane_decode.default_path`), and the literal path for every other
+    input; the JAX package's None is the literal path everywhere.
+    "literal" forces the literal path.  "full" / "tail" ask for a lane
+    path in eval mode, and raise where it cannot run (`lane_decode.
+    check_eligible`: the structure above, and the JAX package's patch
+    batch, a multiple of 128); in train mode the literal path runs,
+    as in the JAX package.  The lane paths have no backward, so "full" /
+    "tail" raise with grad enabled; they decode the single-resolution
+    decoder with one output channel only.  Each call counts its path in
+    `ops.kernels.DECODES`.
 
     ``phase_tail`` runs the full-resolution tail (deconv0's nearest
     x2 + conv, its fusion conv and output0) in phase space at a quarter
@@ -149,10 +159,11 @@ class MultiScaleDecoder(nn.Module):
         if not 1 <= n_res < depth:
             raise ValueError(f"n_resolution {n_resolution}: 1 .. "
                              f"{depth - 1} for a depth-{depth} decoder")
-        if lane_mode not in (None, "full", "tail"):
-            raise ValueError(f"lane_mode: None, 'full' or 'tail', got "
-                             f"{lane_mode!r}")
-        if lane_mode is not None and (n_res != 1 or output_channels != 1):
+        if lane_mode not in (None, "full", "tail", "literal"):
+            raise ValueError(f"lane_mode: None, 'full', 'tail' or "
+                             f"'literal', got {lane_mode!r}")
+        if lane_mode in ("full", "tail") and (n_res != 1
+                                               or output_channels != 1):
             raise ValueError("lane_mode decodes the single-resolution "
                              "decoder with one output channel only")
         act = activation_fn(activation)
@@ -192,11 +203,8 @@ class MultiScaleDecoder(nn.Module):
     def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]):
         """The logits (N, output_channels, *output_shape), or with
         n_resolution > 1 the deep -> shallow list of outputs."""
-        lane = self.lane_mode if not self.training else None
-        if lane is not None and torch.is_grad_enabled():
-            raise RuntimeError("the lane-major decode has no backward: run "
-                               "it under torch.no_grad() or "
-                               "torch.inference_mode()")
+        lane = self._path(x, skips)
+        DECODES[lane] += 1
         if lane == "full":
             return lane_decode.decode_full(self, x, skips)
         h = x
@@ -238,6 +246,23 @@ class MultiScaleDecoder(nn.Module):
             h = self.deconv0(h, shape=self.output_shape)
         out0 = self.output0(h)
         return outputs + [out0] if self.n_resolution > 1 else out0
+
+    def _path(self, x: torch.Tensor, skips: Sequence[torch.Tensor]) -> str:
+        """This call's path: "full", "tail" or "literal" (see the
+        class)."""
+        if self.lane_mode is None:
+            return lane_decode.default_path(
+                x.dtype, x.device.type, self.training,
+                torch.is_grad_enabled(), self, len(skips),
+                tuple(skips[0].shape[-2:]) if len(skips) else None)
+        if self.lane_mode == "literal" or self.training:
+            return "literal"
+        if torch.is_grad_enabled():
+            raise RuntimeError("the lane-major decode has no backward: run "
+                               "it under torch.no_grad() or "
+                               "torch.inference_mode()")
+        lane_decode.check_eligible(self, x.shape[0], skips)
+        return self.lane_mode
 
 
     def _phase_tail(self, h: torch.Tensor) -> torch.Tensor:

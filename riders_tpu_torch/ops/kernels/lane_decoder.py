@@ -63,9 +63,11 @@ CONV_TILES = {8: (256, 32), 16: (256, 32), 32: (256, 32), 64: (256, 16)}
 RESIDENT_BK = 32
 SMEM_LIMIT = 232448         # bytes of shared memory a block may use
 # Resident weights where their kernel needs at most this much shared
-# memory: beyond it (a block per SM) it ran no faster than streaming the
-# weights on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
-RESIDENT_SMEM_LIMIT = 128 * 1024
+# memory (one block per SM past 113 KB): at 4096-6144 patches the 64 -> 64
+# convs' 148-155 KB ran 6-12% faster than streaming the weights, the
+# 128 -> 64 convs' 217-220 KB no faster, on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md)
+RESIDENT_SMEM_LIMIT = 160 * 1024
 # the upconv kernel's tiles (compiled in csrc/lane_decoder.cu): streamed
 # weights take (columns of one phase, most coarse pixels, input channels
 # per staged chunk) per block; resident weights take all four phases of

@@ -11,12 +11,14 @@ on the card with
 the card need not have.)
 """
 
+from collections import Counter
+
 import pytest
 import torch
 
 from riders_tpu_torch.ops import patches
-from riders_tpu_torch.ops.kernels import (LAUNCHES, compose, lane_decoder,
-                                          roi_pool, stem)
+from riders_tpu_torch.ops.kernels import (DECODES, LAUNCHES, compose,
+                                          lane_decoder, roi_pool, stem)
 
 
 @pytest.fixture
@@ -549,6 +551,113 @@ def test_lane_upconv2x_kernel_matches_plain(dev, N, h, w, ci, f):
     _lane_within_one_step(got, want)
 
 
+def _rcnet_decoder_call(dev, preset, B=3, K=30):
+    """A full-width bf16 RC-Net of the preset in eval on seeded random
+    weights and the decoder's inputs of one forward over a 96x128 frame,
+    B*K = 90 patches (no multiple of 128), captured by a hook."""
+    from riders_tpu_torch.core.config import ntu_config, zju_config
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.pipelines.rcnet_inference import (
+        shift_points_and_boxes)
+    cfg = (ntu_config if preset == "ntu" else zju_config)().rcnet
+    model = init_random_(RCNet(cfg, device=dev, dtype=torch.bfloat16),
+                         7).eval()
+    g = torch.Generator(device=dev).manual_seed(31)
+    (ph, pw), frame = cfg.patch_size, (96, 128)
+    pts, _ = _points(g, dev, B, K, frame, K)
+    pts, boxes = shift_points_and_boxes(pts, cfg.patch_size)
+    image = torch.rand((B, frame[0] + 2 * (ph // 2),
+                        frame[1] + 2 * (pw // 2), 3), generator=g,
+                       device=dev)
+    got = {}
+    hook = model.decoder.register_forward_pre_hook(
+        lambda m, args: got.update(args=(args[0].clone(),
+                                         [t.clone() for t in args[1]])))
+    with torch.inference_mode():
+        model(image, pts, boxes)
+    hook.remove()
+    return model.decoder, got["args"]
+
+
+@pytest.mark.parametrize("preset", ["ntu", "zju"])
+def test_rcnet_default_decoder_is_the_lane_decode_on_card(dev, preset,
+                                                         monkeypatch):
+    """bf16 eval on the card at a patch batch of 90: the default decoder
+    is the lane decode (lane_mode="full" keeps the JAX package's
+    multiple-of-128 rule and refuses this batch), counted "full" with its
+    B7 / B8 launches; each of its B7 / B8 calls within one bf16 step of
+    the plain version on the same inputs, and the whole within 5% of the
+    literal logits' max of lane_mode="literal" (chip_smoke's
+    LANE_DECODE_BAR)."""
+    from riders_tpu_torch.experiments import lane_decode
+    dec, (x, skips) = _rcnet_decoder_call(dev, preset)
+    assert x.shape[0] % 128 != 0
+    out, launched = {}, {}
+    with torch.inference_mode():
+        for mode in (None, "literal"):
+            dec.lane_mode = mode
+            DECODES.clear()
+            before = Counter(LAUNCHES)
+            out[mode] = dec(x, skips)
+            launched[mode] = dict(LAUNCHES - before)
+            assert dict(DECODES) == {"literal" if mode else "full": 1}
+            assert set(launched[mode]) == (set() if mode else {
+                "lane_conv3x3", "lane_upconv2x"})
+        checked = Counter()
+
+        def held(name):
+            kernel = getattr(lane_decoder, name)
+            plain = getattr(lane_decoder, f"{name}_plain")
+
+            def call(*args):
+                got = kernel(*args)
+                _lane_within_one_step(got, plain(*args))
+                checked[name] += 1
+                return got
+            return call
+
+        for name in ("lane_conv3x3", "lane_upconv2x"):
+            monkeypatch.setattr(lane_decode, name, held(name))
+        dec.lane_mode = None
+        assert torch.equal(dec(x, skips), out[None])
+        assert dict(checked) == launched[None]
+        monkeypatch.undo()
+        dec.lane_mode = "full"
+        with pytest.raises(ValueError, match="multiple of 128"):
+            dec(x, skips)
+    lit = out["literal"].float()
+    assert out[None].shape == lit.shape == (x.shape[0], 1) + tuple(
+        dec.output_shape)
+    rel = float((out[None].float() - lit).abs().max() / lit.abs().max())
+    assert rel < 0.05, rel
+
+
+def test_decode_full_replays_from_a_cuda_graph(dev):
+    """The default decoder (decode_full) captured in a CUDA graph after
+    a warm-up on a side stream: each replay equals the eager call on the
+    same inputs bit for bit."""
+    dec, (x, skips) = _rcnet_decoder_call(dev, "ntu", B=2, K=20)
+    with torch.inference_mode():
+        want = dec(x, skips)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                dec(x, skips)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        DECODES.clear()
+        with torch.cuda.graph(graph):
+            static = dec(x, skips)
+        assert dict(DECODES) == {"full": 1}
+        for _ in range(3):
+            static.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(static, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("C,out_size,scale", [
     (8, (60, 25), 0.5), (32, (37, 12), 0.25), (128, (9, 3), 1 / 16)])
@@ -702,7 +811,8 @@ def test_fused_server_on_card_equals_direct_calls(dev):
 
 def test_bench_chain_graph_replay_equals_eager(dev):
     """The fused call captured as a CUDA graph (`bench.Chain`): one stem,
-    one RoI pool and one compose launch counted during capture, the
+    one RoI pool and one compose launch and one decode_full's B7 / B8
+    launches counted during capture, the
     replayed depth bitwise an eager call's on the same input, and each
     replay carrying 1e-12 * depth.sum() into the first pixel alone."""
     from riders_tpu_torch import bench
@@ -721,8 +831,13 @@ def test_bench_chain_graph_replay_equals_eager(dev):
     batch = {"image": torch.rand((2, H, W, 3), generator=g, device=dev),
              "mono_pred": (1.0 / depth) / 0.05, "radar_points": pts,
              "point_mask": mask}
+    DECODES.clear()
     chain = bench.Chain(fn, batch, graph=True)
-    assert chain.launches == {"stem": 1, "roi_pool": 1, "compose": 1}
+    # the patch decoder on B7 / B8 (66x34 patches: three exact-x2 stages,
+    # one irregular, four fusions, the three-conv tail), as eagerly
+    assert chain.launches == {"stem": 1, "roi_pool": 1, "compose": 1,
+                              "lane_conv3x3": 8, "lane_upconv2x": 3}
+    assert dict(DECODES) == {"full": bench.WARMUP + 1}
     for _ in range(3):
         image = chain.batch["image"].clone()
         got = chain().clone()

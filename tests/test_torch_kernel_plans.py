@@ -109,12 +109,12 @@ def test_conv_plan_blocks_cover_every_pixel_once(N, H, W, cis, co):
     (768, 75, 25, (64,), 32, True), (768, 75, 25, (32, 32), 32, True),
     (768, 75, 25, (32,), 64, True), (768, 75, 25, (64,), 4, True),
     (512, 120, 50, (32,), 64, True), (512, 120, 50, (64,), 4, True),
-    (768, 75, 25, (64,), 64, False), (512, 120, 50, (64,), 64, False),
+    (768, 75, 25, (64,), 64, True), (512, 120, 50, (64,), 64, True),
     (768, 37, 12, (128,), 64, False), (768, 18, 6, (128, 128), 128, False),
     (768, 9, 3, (256, 128), 256, False), (2, 11, 4, (13, 6), 20, False)])
 def test_conv_plan_keeps_weights_resident_where_they_fit(N, H, W, cis, co,
                                                          resident):
-    """decode_full's 75x25 / 120x50 calls with Ci * Co <= 2048 keep their
+    """decode_full's 75x25 / 120x50 calls with Ci * Co <= 4096 keep their
     weights in shared memory; larger weights, and widths that are not
     whole 16-byte runs, stream them."""
     plan = _plan(N, H, W, cis, co)

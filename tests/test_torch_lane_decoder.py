@@ -17,7 +17,17 @@ holding a JAX decoder's variables, against JAX's literal bf16 decoder
 (tests/test_lane_decoder.py); at an exact-x2 patch and at NTU's
 irregular pyramid.  The tail against JAX's own lane tail is in
 tests/test_torch_lane_tail.py.
+
+The default path: `lane_decode.default_path` is "full" for a bf16 CUDA
+input in eval with grad disabled on the decoder decode_full decodes, and
+"literal" off any of these; the default decoder on the CPU, in f32, in
+train mode, with grad enabled, with several resolutions or without BN
+runs the literal path, counts it in `ops.kernels.DECODES`, and equals
+lane_mode="literal" bit for bit.  The lane path itself on the card is in
+tests/test_torch_cuda.py.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -29,9 +39,11 @@ import jax.numpy as jnp
 from riders_tpu.models import layers as JL
 from riders_tpu.models.rcnet import MultiScaleDecoder as JaxDecoder
 from riders_tpu.ops.pallas import lane_decoder as LD
+from riders_tpu_torch.experiments import lane_decode
 from riders_tpu_torch.models import layers as TL
 from riders_tpu_torch.models.from_jax import load_jax_variables
 from riders_tpu_torch.models.rcnet import MultiScaleDecoder
+from riders_tpu_torch.ops.kernels import DECODES
 from riders_tpu_torch.ops.kernels import lane_decoder as TLD
 from riders_tpu_torch.ops.resize import resize2d
 from torch_common import perturbed
@@ -144,13 +156,27 @@ def test_phase_kernel_is_nearest_then_conv(rng):
     ((4, 1), (9, 3)), ((18, 6), (37, 12)), ((37, 12), (75, 25)),
     ((7, 3), (15, 6)), ((30, 12), (60, 25)), ((12, 5), (25, 12))])
 def test_nearest_resize_matches_jax_lane_resize_bitwise(rng, hw, out_hw):
-    """The lane path's resize (`ops.resize.resize2d` 'nearest' on an NHWC
-    map) against JAX's `nearest_resize_lane`."""
+    """The nearest resize (`ops.resize.resize2d` 'nearest' on an NHWC
+    map, which the lane path's gather equals) against JAX's
+    `nearest_resize_lane`."""
     x = rng.standard_normal((3,) + hw + (5,)).astype(np.float32)
     want = _from_lane(LD.nearest_resize_lane(LD.to_lane(jnp.asarray(x)),
                                              out_hw))
     got = resize2d(torch.from_numpy(_bf16(x)), out_hw, "nearest")
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("hw,out_hw", [
+    ((4, 1), (9, 3)), ((18, 6), (37, 12)), ((37, 12), (75, 25)),
+    ((7, 3), (15, 6)), ((30, 12), (60, 25)), ((12, 5), (25, 12))])
+def test_lane_nearest_gather_equals_resize2d_bitwise(rng, hw, out_hw):
+    """decode_full's irregular stages resize in one gather pass: equal to
+    `resize2d` 'nearest' bit for bit, and contiguous NHWC for B7."""
+    x = torch.from_numpy(_bf16(rng.standard_normal(
+        (3,) + hw + (5,)).astype(np.float32))).to(torch.bfloat16)
+    got = lane_decode._nearest(x, out_hw)
+    assert got.is_contiguous() and got.shape == (3,) + out_hw + (5,)
+    assert torch.equal(got, resize2d(x, out_hw, "nearest"))
 
 
 def _decoder_case(rng, patch, skips_hw):
@@ -229,3 +255,127 @@ def test_lane_weights_are_packed_once_and_follow_the_parameters(rng):
         port.output0.conv.weight.mul_(2.0)
         port(x, skips)
     assert id(port._lane_packed["tail"][1]) != packed["tail"]
+
+
+# ---- the default path: the lane decode for bf16 inference on the card ----
+
+def _decoder(**kw):
+    """A narrow depth-5 decoder at the 64x32 geometry, BN statistics
+    moved off their initial values."""
+    patch = GEOMETRIES["x2_64x32"][0]
+    return TL.init_random_(MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch,
+                                             **kw), 3).eval()
+
+
+def _inputs(rng, n, dtype=torch.float32):
+    patch, skips_hw = GEOMETRIES["x2_64x32"]
+    x = torch.from_numpy(rng.standard_normal(
+        (n, X_CH, patch[0] // 32, patch[1] // 32)).astype(np.float32))
+    skips = [torch.from_numpy(rng.standard_normal(
+        (n, c, h, w)).astype(np.float32)) for (h, w), c in zip(skips_hw,
+                                                              SKIP_CH)]
+    return x.to(dtype), [s.to(dtype) for s in skips]
+
+
+# an input the default decodes in full on the card, and each way off it
+ELIGIBLE = dict(dtype=torch.bfloat16, device_type="cuda", training=False,
+                grad_enabled=False)
+OFF_PATH = {
+    "f32": dict(dtype=torch.float32),
+    "cpu": dict(device_type="cpu"),
+    "train_mode": dict(training=True),
+    "grad_enabled": dict(grad_enabled=True),
+    "several_resolutions": dict(decoder=dict(n_resolution=2)),
+    "no_batch_norm": dict(decoder=dict(use_batch_norm=False)),
+    "relu": dict(decoder=dict(activation="relu")),
+    "two_output_channels": dict(decoder=dict(output_channels=2)),
+    "sigmoid_output": dict(decoder=dict(output_func="sigmoid")),
+    "depth_4": dict(decoder=dict(n_filters=FILTERS[1:])),
+    "output_not_x2": dict(skip1_hw=(31, 16)),
+    "full_resolution_skip": dict(n_skips=5),
+}
+
+
+def _default_path(decoder=None, n_skips=4, skip1_hw=(32, 16), **kw):
+    patch = GEOMETRIES["x2_64x32"][0]
+    decoder = decoder or {}
+    filters = decoder.pop("n_filters", FILTERS)
+    dec = MultiScaleDecoder(X_CH, SKIP_CH[-(len(filters) - 1):], filters,
+                            patch, **decoder)
+    return lane_decode.default_path(**dict(ELIGIBLE, **kw), dec=dec,
+                                    n_skips=n_skips, skip1_hw=skip1_hw)
+
+
+def test_default_path_is_full_for_bf16_inference_on_the_card():
+    """The choice is a function of what the decoder observes: a bf16
+    CUDA input in eval with grad disabled, on the decoder decode_full
+    decodes, whatever the patch batch (no multiple-of-128 rule)."""
+    assert _default_path() == "full"
+
+
+@pytest.mark.parametrize("case", sorted(OFF_PATH))
+def test_default_path_is_literal_off_the_lane_decode(case):
+    assert _default_path(**OFF_PATH[case]) == "literal"
+
+
+DEFAULT_LITERAL = {
+    "cpu_bf16": dict(dtype=torch.bfloat16),
+    "f32": dict(),
+    "train_mode": dict(train=True),
+    "grad_enabled": dict(grad=True),
+    "several_resolutions": dict(decoder=dict(n_resolution=2)),
+    "no_batch_norm": dict(decoder=dict(use_batch_norm=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEFAULT_LITERAL))
+def test_default_decoder_takes_the_literal_path_off_the_card(rng, case):
+    """The default decoder on each input it must not decode in full runs
+    the literal path without an error, counts "literal" in DECODES, and
+    equals lane_mode="literal" bit for bit."""
+    kw = DEFAULT_LITERAL[case]
+    dtype = kw.get("dtype", torch.float32)
+    dec = _decoder(**kw.get("decoder", {})).to(dtype)
+    forced = copy.deepcopy(dec)
+    forced.lane_mode = "literal"
+    if kw.get("train"):
+        dec.train()
+        forced.train()
+    x, skips = _inputs(rng, 6, dtype)
+    with torch.set_grad_enabled(bool(kw.get("grad"))):
+        DECODES.clear()
+        got = dec(x, skips)
+        assert dict(DECODES) == {"literal": 1}
+        want = forced(x, skips)
+        assert dict(DECODES) == {"literal": 2}
+    for a, b in zip(got if isinstance(got, list) else [got],
+                    want if isinstance(want, list) else [want]):
+        assert a.dtype == dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["full", "tail", "literal"])
+def test_decodes_counts_each_call_by_path(rng, mode):
+    """An explicit lane_mode counts its path once a call, in eval with
+    grad disabled; in train mode every mode counts "literal"."""
+    dec = _decoder(lane_mode=mode)
+    x, skips = _inputs(rng, N)
+    DECODES.clear()
+    with torch.no_grad():
+        dec(x, skips)
+        assert dict(DECODES) == {mode: 1}
+        dec.train()
+        dec(x[:4], [s[:4] for s in skips])
+    assert dict(DECODES) == ({mode: 1, "literal": 1} if mode != "literal"
+                             else {"literal": 2})
+
+
+def test_literal_lane_mode_takes_every_decoder():
+    """"literal" is the one explicit mode a multi-resolution decoder
+    takes; "full" is refused there as before."""
+    patch = GEOMETRIES["x2_64x32"][0]
+    MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch, n_resolution=3,
+                      lane_mode="literal")
+    with pytest.raises(ValueError, match="single-resolution"):
+        MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch, n_resolution=3,
+                          lane_mode="full")
