@@ -7,9 +7,12 @@ a traffic mix `benchmark/traffic/<traffic>.json` whose `kind` names the
 driver `benchmark/drivers/<kind>.py`, and a per-layer metric `a.b.c` is
 read by `benchmark/metrics/a.b.c.py`, or else by the file of its longest
 dotted prefix (`a.b.py`).  From the system under test, `riders_tpu_torch`,
-the harness takes the configuration presets, the models, the fused
-entry (`pipelines.fused.make_fused_fn`) and the server
-(`pipelines.serving.FusedServer`), and nothing else.
+the harness takes the configuration presets, RC-Net, the SML of the
+configuration's `sml.model_type` as the port's factory builds it
+(`models.factory.build_sml_model`), the fused entry
+(`pipelines.fused.make_fused_fn`) and the server
+(`pipelines.serving.FusedServer`), and nothing else.  The SML's plain
+reference is found by the same model type (`reference/chain.py`).
 
 What the run serves is checked after the window (`check_outputs`): a
 seeded sample of the served frames, the RC-Net responses the timed path
@@ -24,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
 import json
 import math
 import sys
@@ -34,6 +36,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from benchmark.loader import load_file_module
 
 BENCH_DIR = "benchmark"         # the benchmark's files under a checkout
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "riders_tpu")
@@ -53,13 +57,6 @@ class CellError(Exception):
 def load_json(path: Path) -> dict:
     with open(path) as f:
         return json.load(f)
-
-
-def load_file_module(path: Path, name: str):
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def find_cell(root: Path, name: str):
@@ -303,12 +300,12 @@ def build_program(session: Session, cfg, config: dict, program: str):
         return ref, ref.rcnet, {"rcnet": ref.rcnet, "sml": ref.sml}
     if program != "port":
         raise CellError(f"no program {program!r}")
+    from riders_tpu_torch.models.factory import build_sml_model
     from riders_tpu_torch.models.rcnet import RCNet
-    from riders_tpu_torch.models.sml import ScaleMapLearner
     from riders_tpu_torch.pipelines import fused as fused_mod
     dtype = getattr(torch, config["dtype"])
     rcnet = RCNet(cfg.rcnet, dev, dtype)
-    sml = ScaleMapLearner(cfg.sml, dev, dtype)
+    sml = build_sml_model(cfg, dev, dtype)
     rcnet.load_state_dict(session.weights["rcnet"])
     sml.load_state_dict(session.weights["sml"])
     fused = fused_mod.make_fused_fn(cfg, rcnet, sml, dev)

@@ -15,6 +15,11 @@ float32; 'fp8', the precision step below the configuration's bfloat16,
 is the control.  `__call__(batch)` is the whole chain on one batch of
 device tensors as the server hands it over, so that the reference can
 stand in the program's place.
+
+The SML reference is chosen by the configuration's `sml.model_type`:
+`nets.SML` for midas-small, else the class `SML` of
+`benchmark/reference/sml/<model_type>.py` (its README gives the
+contract).
 """
 
 from __future__ import annotations
@@ -26,10 +31,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from benchmark.loader import load_file_module
 from benchmark.reference import ops
 from benchmark.reference.nets import SML, RCNet
 
 FP8_MAX = 448.0
+SML_DIR = __file__.rsplit("/", 1)[0] + "/sml"
 
 
 def round_fp8(x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +56,8 @@ def emulate_(model: nn.Module, rounding) -> nn.Module:
     """Round the weights of every conv and linear layer in place, and
     each one's input and output on every call: the network with its
     weights and activations stored in a lower precision, computed in
-    float32."""
+    float32.  A module with a method `emulate_(rounding)` does the same
+    for the weights it holds outside such layers."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             with torch.no_grad():
@@ -57,6 +65,9 @@ def emulate_(model: nn.Module, rounding) -> nn.Module:
             m.register_forward_pre_hook(
                 lambda mod, args: (rounding(args[0]),) + args[1:])
             m.register_forward_hook(lambda mod, args, out: rounding(out))
+        own = getattr(m, "emulate_", None)
+        if own is not None:
+            own(rounding)
     return model
 
 
@@ -74,11 +85,36 @@ def f32_exact():
          torch.backends.cudnn.allow_tf32) = flags
 
 
+def sml_class(model_type: str) -> type:
+    """The SML reference of `model_type`: `nets.SML` for midas-small,
+    else the class `SML` of `SML_DIR/<model_type>.py`."""
+    if model_type == "midas-small":
+        return SML
+    path = f"{SML_DIR}/{model_type}.py"
+    try:
+        module = load_file_module(path, "bench_sml_" + "".join(
+            c if c.isalnum() else "_" for c in model_type))
+    except FileNotFoundError as e:
+        if e.filename != path:
+            raise
+        raise ValueError(f"no SML reference for model_type {model_type!r}:"
+                         f" no file {path}") from None
+    return module.SML
+
+
+def sml_head(sml: nn.Module) -> str:
+    """The dotted name of the SML's last head conv, which the weights'
+    calibration sets: its class's `HEAD`, else "output_conv.conv3" (as
+    for `nets.SML`)."""
+    return getattr(type(sml), "HEAD", "output_conv.conv3")
+
+
 def build_models(cfg: dict, device, meta: bool = False):
     """(RC-Net, SML) of the configuration, f32, eval; on the meta device
     when `meta` (shapes only)."""
+    sml = sml_class(cfg["sml"]["model_type"])
     with torch.device("meta" if meta else device):
-        return RCNet(cfg["rcnet"]).eval(), SML(cfg["sml"]).eval()
+        return RCNet(cfg["rcnet"]).eval(), sml(cfg["sml"]).eval()
 
 
 def decode(frames: Dict, device):

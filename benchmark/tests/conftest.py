@@ -72,6 +72,58 @@ def add_tiny_cell(root: Path, dtype: str = "float32") -> dict:
     return cells
 
 
+DEPTH_REFERENCE = '''"""midas-small-depth: the layers of nets.SML with the port's direct
+depth regression, pred = relu(1 + out), clamped."""
+
+import torch.nn.functional as F
+
+from benchmark.reference import nets
+
+
+class SML(nets.SML):
+    def __init__(self, sml):
+        super().__init__(dict(sml, model_type="midas-small",
+                              regress_mode="scale"))
+
+    def forward(self, x, d):
+        out = self.output_conv.conv3(self.head_input(x)).permute(0, 2, 3, 1)
+        pred = F.relu(1.0 + out)
+        if self.min_pred > 0:
+            pred = pred.clamp(max=1.0 / self.min_pred)
+        return pred.clamp(min=1.0 / self.max_pred)
+'''
+
+
+def add_family_cell(root: Path) -> str:
+    """Add the tiny cells, then, as new files and new entries only, a
+    configuration whose SML is a second family that the port's factory
+    builds (midas-small-depth) with its reference file under
+    `reference/sml/`, and a closed-loop cell of it; return its name."""
+    add_tiny_cell(root)
+    bench = root / "benchmark"
+    name = "tiny_depth"
+    cfg = json.loads((bench / "configs" / f"{TINY}.json").read_text())
+    cfg["name"] = name
+    cfg["sml"]["model_type"] = "midas-small-depth"
+    (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    (bench / "reference" / "sml").mkdir(exist_ok=True)
+    (bench / "reference" / "sml" / "midas-small-depth.py").write_text(
+        DEPTH_REFERENCE)
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": name, "source": "https://example.org",
+                            "file": f"benchmark/configs/{name}.json",
+                            "reduced": [], "why": "tests"})
+    cell = f"{name}.closed"
+    spec["workloads"].append({"name": cell, "config": name,
+                              "traffic": "tiny_closed", "chips": 1,
+                              "why": "tests"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if f"{TINY}.closed" in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return cell
+
+
 def copy_checkout(dest: Path) -> Path:
     """BENCHMARK.json and the benchmark's files, copied under `dest`."""
     dest.mkdir(parents=True, exist_ok=True)

@@ -141,7 +141,7 @@ def test_nothing_the_harness_loads_is_forbidden():
         "from benchmark.reference import chain\n"
         "import riders_tpu_torch.pipelines.fused, "
         "riders_tpu_torch.pipelines.serving, riders_tpu_torch.models.rcnet,"
-        " riders_tpu_torch.models.sml\n"
+        " riders_tpu_torch.models.sml, riders_tpu_torch.models.factory\n"
         "print(harness.forbidden_modules())\n" % str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True).stdout

@@ -17,7 +17,22 @@ run's seed; each tensor is a scaled slice of them.
   this one is not.  Its head's last 1x1 conv is then set so that on the
   pool's first frame, run through the reference, its output has mean 0.1
   and deviation 0.02: scales near 1.1, as a trained SML's small
-  corrections.
+  corrections.  The head is the conv its reference class names
+  (`reference.chain.sml_head`).
+
+A tensor held directly by a module that is none of Conv2d, Linear,
+BatchNorm2d and LayerNorm (a raw projection kernel, a bias table, a
+layer-scale gamma, a token) takes the kind that the module's class
+declares for it in `INIT`, {attribute name: kind}: one of `RAW_KINDS`
+or ("normal", std).
+
+- "w": the scheme's weight rule, its fan-in the numel of one row
+  (t[0]: the second dimension of a 2-D kernel), as a Linear weight's;
+- "w_t": the same rule on a transposed conv's (in, out, kh, kw) weight,
+  its fan-in in * kh * kw;
+- "b": the scheme's bias rule;
+- "zeros", "ones";
+- ("normal", std): std N(0, 1), not clipped.
 """
 
 from __future__ import annotations
@@ -28,9 +43,10 @@ import torch
 import torch.nn as nn
 
 from benchmark.reference.chain import Reference, build_models, decode, \
-    f32_exact
+    f32_exact, sml_head
 
 LECUN_TRUNC = 0.87962566103423978     # std of N(0, 1) cut at +-2
+RAW_KINDS = ("w", "w_t", "b", "zeros", "ones")
 
 
 def _plan(model: nn.Module):
@@ -47,10 +63,24 @@ def _plan(model: nn.Module):
             elif isinstance(m, nn.LayerNorm):
                 kind = "ln_" + pname
             else:
-                raise TypeError(f"no initialiser for {key} of {type(m)}")
-            out.append((key, tuple(t.shape), kind,
-                        t[0].numel() if t.dim() > 1 else 1))
+                kind = _declared(m, pname, key)
+            if kind == "w_t":
+                fan_in = t.shape[0] * t[0, 0].numel()
+            else:
+                fan_in = t[0].numel() if t.dim() > 1 else 1
+            out.append((key, tuple(t.shape), kind, fan_in))
     return out
+
+
+def _declared(m: nn.Module, pname: str, key: str):
+    """The kind that `m`'s class declares in `INIT` for its own tensor
+    `pname`: one of RAW_KINDS or ("normal", std); TypeError otherwise."""
+    kind = getattr(m, "INIT", {}).get(pname)
+    if kind not in RAW_KINDS and not (isinstance(kind, tuple)
+                                      and len(kind) == 2
+                                      and kind[0] == "normal"):
+        raise TypeError(f"no initialiser for {key} of {type(m)}: {kind!r}")
+    return kind
 
 
 def _fill(plan, scheme: str, g: torch.Generator, device):
@@ -59,12 +89,19 @@ def _fill(plan, scheme: str, g: torch.Generator, device):
     total = sum(sizes)
     z = torch.randn(total, generator=g, device=device)
     u = torch.rand(total, generator=g, device=device)
-    if scheme == "flax":
-        z.clamp_(-2.0, 2.0)
+    zc = z.clamp(-2.0, 2.0) if scheme == "flax" else z
     state, off = {}, 0
     for (key, shape, kind, fan_in), n in zip(plan, sizes):
-        zn, un = z[off:off + n].view(shape), u[off:off + n].view(shape)
+        zn, un = zc[off:off + n].view(shape), u[off:off + n].view(shape)
+        unclipped = z[off:off + n].view(shape)
         off += n
+        if isinstance(kind, tuple):         # ("normal", std)
+            state[key] = kind[1] * unclipped
+            continue
+        if kind in ("zeros", "ones"):
+            state[key] = torch.full(shape, float(kind == "ones"),
+                                    device=device)
+            continue
         if kind == "bn_num_batches_tracked":
             state[key] = torch.zeros(shape, dtype=torch.long, device=device)
             continue
@@ -80,7 +117,7 @@ def _fill(plan, scheme: str, g: torch.Generator, device):
                      "bn_bias": 0.0 * zn, "bn_running_mean": 0.0 * zn,
                      "bn_running_var": 1.0 + 0.0 * zn,
                      "ln_weight": 1.0 + 0.0 * zn, "ln_bias": 0.0 * zn}
-        state[key] = value[kind].contiguous()
+        state[key] = value["w" if kind == "w_t" else kind].contiguous()
     return state
 
 
@@ -92,15 +129,16 @@ def make_weights(cfg: dict, seed: int, device, calibration_frame: Dict
     g = torch.Generator(device=device).manual_seed(seed)
     weights = {"rcnet": _fill(_plan(rc_meta), "he", g, device),
                "sml": _fill(_plan(sml_meta), "flax", g, device)}
-    head_w = weights["sml"]["output_conv.conv3.weight"]
-    head_b = weights["sml"]["output_conv.conv3.bias"]
+    head = sml_head(sml_meta)
+    head_w = weights["sml"][head + ".weight"]
+    head_b = weights["sml"][head + ".bias"]
     head_b.zero_()
     ref = Reference(cfg, weights, device)
     with torch.no_grad(), f32_exact():
         image, mono, points, mask = decode(calibration_frame, device)
         x, d = ref.stage_inputs(image, mono, points, mask,
                                 ref.rcnet_responses(image, points, mask))
-        out = ref.sml.output_conv.conv3(ref.sml.head_input(x))
+        out = ref.sml.get_submodule(head)(ref.sml.head_input(x))
         mean, std = out.mean(), out.std()
         head_w.mul_(0.02 / std)
         head_b.fill_(0.1 - 0.02 * float(mean / std))
