@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -49,6 +50,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from riders_tpu_torch.core.device import resolve_device
+from riders_tpu_torch.core.tracing import span
 from riders_tpu_torch.models.layers import KeepF32, PatchEmbed, place
 from riders_tpu_torch.models.levit import LeViTBackbone, LeViTConfig
 from riders_tpu_torch.models.next_vit import NextViTBackbone, NextViTConfig
@@ -57,6 +59,9 @@ from riders_tpu_torch.models.swin2 import Swin2Config, SwinV2Backbone
 from riders_tpu_torch.ops.resize import resize_nchw
 
 BACKBONES = ("vit", "beit", "vit_hybrid", "swin2", "levit", "next_vit")
+# "forwards" of DPTScaleMapLearner and "bias_tables", the BEiT relative
+# position biases built (gather and resize, `BEiTAttention.rel_pos_bias`)
+COUNTS: Counter = Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +218,7 @@ class BEiTAttention(nn.Module):
 
     def rel_pos_bias(self, grid: Tuple[int, int]) -> torch.Tensor:
         """(heads, N, N) f32 bias of a (gh, gw) window plus cls."""
+        COUNTS["bias_tables"] += 1
         gh, gw = grid
         pg, h = self.pretrained_grid, self.num_heads
         table = self.rel_pos_bias_table.float()
@@ -235,11 +241,14 @@ class BEiTAttention(nn.Module):
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias])
         qkv = F.linear(x, self.qkv_kernel, bias)
-        q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).permute(
-            2, 0, 3, 1, 4).unbind(0)
-        attn = (q @ k.transpose(-2, -1)).float() / math.sqrt(hd)
-        attn = (attn + self.rel_pos_bias(grid)[None]).softmax(-1)
-        out = (attn.to(x.dtype) @ v).transpose(1, 2).reshape(B, N, C)
+        # everything between the two projections, so that the SML's first
+        # and last kernels stay outside every `dpt.attn` range
+        with span("dpt.attn", mirror=True):
+            q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).permute(
+                2, 0, 3, 1, 4).unbind(0)
+            attn = (q @ k.transpose(-2, -1)).float() / math.sqrt(hd)
+            attn = (attn + self.rel_pos_bias(grid)[None]).softmax(-1)
+            out = (attn.to(x.dtype) @ v).transpose(1, 2).reshape(B, N, C)
         return self.proj(out)
 
 
@@ -589,6 +598,7 @@ class DPTScaleMapLearner(KeepF32):
     def forward(self, x: torch.Tensor, d: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
+        COUNTS["forwards"] += 1
         x = x.to(self.head_conv1.weight.dtype).permute(0, 3, 1, 2)
         feats = [getattr(self, f"layer{i + 1}_rn")(h)
                  for i, h in enumerate(self.encode(x))]
