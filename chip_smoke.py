@@ -17,6 +17,7 @@ pipeline on the card against the CPU's goldens.
     python3 chip_smoke.py --dpt           # phase 1, then phases 10 and
                                           # 11 alone on a dataset of
                                           # their own
+    python3 chip_smoke.py --attention     # phase 1, then phase 10d alone
     python3 chip_smoke.py --variants      # phase 1, then phase 12 alone
     python3 chip_smoke.py --stem-plans    # phase 1, then every plan of
                                           # B1's general kernel timed at
@@ -124,9 +125,18 @@ Phases, each fatal on failure:
      that has an exactly cocircular neighbour (a tie); (f) idw_scale_map
      at 512x640 on the card against the CPU, 300, 40 and 0 knots: equal
      knot indices and rtol 1e-5.
-  10. the DPT SML at full width (none of the hand-written kernels lies on
-     its path; the counters, reset just before, stay empty), after the
-     earlier phases' memory is freed: (a) `make_infer_fn` at the NTU
+  10. the DPT SML at full width (of the hand-written kernels only the
+     BEiT attention lies on its path, in bf16 inference; the counters
+     reset just before), after the earlier phases' memory is freed: (d)
+     first, the BEiT attention kernel (csrc/beit_attention.cu) against
+     its plain version within one bf16 step of the output's largest
+     value at the BEiT cell's shape (B=16, window 32x40, 16 heads of 64)
+     and at BEiT-L/16-384's and BEiT-B/16-384's (24x24; 16 and 12
+     heads), with its device ms, bound, the plain version's and SDPA's
+     (a yardstick), then a BEiT-L/16-512 SML forward at 512x640, B=16,
+     bf16: 24 launches and 24 "attn_kernel" counts, its ms beside the
+     plain attention's (`--attention` runs phases 1 and 10d alone);
+     (a) `make_infer_fn` at the NTU
      preset (640x512 frames, SML net 288x352, B=16, bf16) with
      DPT-BEiT-L/16-512 on seeded flax-default weights: finite depth and
      metrics, ms per call over 10 calls with their spread, peak memory,
@@ -2367,6 +2377,8 @@ def dpt_inference(model_type, weights, B=16, seed=0, n=10,
     spread, peak memory, parameters, and the call's operations over the
     bf16 peak (its bound)."""
     import torch
+    from riders_tpu_torch.models import dpt as tdpt
+    from riders_tpu_torch.ops.kernels import LAUNCHES
     from riders_tpu_torch.pipelines.sml_inference import make_infer_fn
     cfg = dpt_config(model_type, **({"net_shape": net} if net else {}))
     model = build_dpt(cfg, weights, None, torch.bfloat16)
@@ -2374,7 +2386,12 @@ def dpt_inference(model_type, weights, B=16, seed=0, n=10,
     fn = make_infer_fn(cfg, model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    tdpt.COUNTS.clear()
+    n0 = LAUNCHES["beit_attention"]
     out = fn(batch)
+    attention = dict(launches=LAUNCHES["beit_attention"] - n0,
+                     **{k: tdpt.COUNTS[k] for k in (
+                         "forwards", "attn_kernel", "attn_plain")})
     d = out["depth"]
     if (tuple(d.shape) != (B,) + tuple(cfg.dataset.image_shape)
             or not bool(torch.isfinite(d).all())
@@ -2394,7 +2411,7 @@ def dpt_inference(model_type, weights, B=16, seed=0, n=10,
                 frames_per_s=B / (statistics.median(ms) / 1e3),
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                 flops_per_call=flops,
-                bound_ms=flops / BF16_FLOP_PER_S * 1e3)
+                bound_ms=flops / BF16_FLOP_PER_S * 1e3, attention=attention)
 
 
 def dpt_training(weights, seed=0, profile_dir=None, model_type=DPT_MAIN,
@@ -2601,13 +2618,186 @@ def dpt_drivers(root, weights, steps=3):
     return out
 
 
+# phase 10d: the BEiT attention kernel (csrc/beit_attention.cu) at the
+# BEiT cell's shape (BEiT-L/16-512 at 512x640) and at BEiT-L/16-384's and
+# BEiT-B/16-384's (384x384): name: (B, window, heads)
+BEIT_ATTENTION_SHAPES = {
+    "beitl16_512_512x640": (16, (32, 40), 16),
+    "beitl16_384_384x384": (16, (24, 24), 16),
+    "beitb16_384_384x384": (16, (24, 24), 12),
+}
+
+
+def bf16_step(x):
+    """One bf16 step (2^-7 of the binade) at the largest |x|."""
+    return 2.0 ** (math.floor(math.log2(float(x.abs().max()))) - 7)
+
+
+def check_beit_attention(seed=0):
+    """Phase 10d (a): the BEiT attention kernel on seeded N(0, 1) qkv rows
+    (bf16) and tables (f32) at each of BEIT_ATTENTION_SHAPES, against
+    float32 attention on the same bf16 inputs within one bf16 step of the
+    output's largest value (the kernel rounds its f32 output once), and
+    against `beit_attention_plain` within that step beyond the plain
+    version's own distance from the float32 attention (the plain version
+    rounds q k^T to bf16 before its f32 softmax, which puts it up to two
+    steps from it at the BEiT cell's shape).  Device ms back to back of
+    the kernel, the plain version and, as a yardstick the port never
+    calls, SDPA with the gathered bias cast to bf16 (`library_ms`), beside
+    the bound (4 B H N^2 d operations at the bf16 rate)."""
+    import torch
+    import torch.nn.functional as F
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.ops.kernels.attention import (
+        HEAD_DIM, _rel_index, beit_attention, beit_attention_plain,
+        table_rows)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, (B, grid, H) in BEIT_ATTENTION_SHAPES.items():
+        gh, gw = grid
+        N, C = gh * gw + 1, H * HEAD_DIM
+        qkv = torch.randn((B, N, 3 * C), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        table = torch.randn((H, table_rows(grid)), generator=g,
+                            device="cuda")
+        n0 = LAUNCHES["beit_attention"]
+        got = beit_attention(qkv, table, grid, H)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["beit_attention"] - n0
+        plain = beit_attention_plain(qkv, table, grid, H)
+        bias = table[:, _rel_index(grid, table.device)].reshape(H, N, N)
+        q, k, v = (t.contiguous() for t in qkv.reshape(
+            B, N, 3, H, HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0))
+        logits = (q.float() @ k.float().transpose(-2, -1)) / math.sqrt(
+            HEAD_DIM) + bias[None]
+        ref = (logits.softmax(-1) @ v.float()).transpose(1, 2).reshape(
+            B, N, C)
+        del logits
+        err = float((got.float() - plain.float()).abs().max())
+        tol = bf16_step(ref)
+        rec = dict(
+            batch=B, window=list(grid), tokens=N, heads=H,
+            launches=launches, max_abs_err=err, tolerance=tol,
+            finite=bool(torch.isfinite(got).all()),
+            kernel_vs_f32_max_abs=float((got.float() - ref).abs().max()),
+            plain_vs_f32_max_abs=float((plain.float() - ref).abs().max()),
+            kernel_vs_f32_rel_l1=float((got.float() - ref).abs().sum()
+                                       / ref.abs().sum()),
+            plain_vs_f32_rel_l1=float((plain.float() - ref).abs().sum()
+                                      / ref.abs().sum()))
+        del ref, plain, got
+        mask = bias.to(torch.bfloat16)[None]
+        rec.update(
+            ms=device_ms(lambda: beit_attention(qkv, table, grid, H)),
+            plain_ms=device_ms(lambda: beit_attention_plain(qkv, table, grid,
+                                                            H), n=5),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), n=10),
+            bound_ms=4.0 * B * H * N * N * HEAD_DIM / BF16_FLOP_PER_S * 1e3)
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        log(f"beit attention {name}: {json.dumps(rec)}")
+        out[name] = rec
+        del qkv, table, bias, q, k, v, mask
+        torch.cuda.empty_cache()
+        if (launches != 1 or not rec["finite"]
+                or rec["kernel_vs_f32_max_abs"] > tol
+                or err > rec["plain_vs_f32_max_abs"] + tol):
+            raise AssertionError(f"beit attention {name}: {rec}")
+    return out
+
+
+def beit_sml_forward(B=16, net=(512, 640), seed=0, profile_dir=None):
+    """Phase 10d (b): a BEiT-L/16-512 SML (built on the card, bf16, its
+    initial weights) at the BEiT cell's net, grad off: one forward must
+    launch the attention kernel 24 times and count 24 "attn_kernel" and
+    no "attn_plain" in `models.dpt.COUNTS`; the forward's device ms back
+    to back, beside the same forward with every block's attention on the
+    plain version, and the relative L1 distance of the two forwards'
+    last encoder taps (24 blocks of bf16 residual stream; the head's
+    initial weights leave the scale map at 1, so the depth is equal).
+    With `profile_dir`, a torch.profiler table of one forward."""
+    import torch
+    from unittest import mock
+    from riders_tpu_torch.models import dpt as tdpt
+    from riders_tpu_torch.models.factory import build_sml_model
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    cfg = dpt_config(DPT_MAIN, net_shape=net)
+    model = build_sml_model(cfg, "cuda", torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, *net, 3), generator=g, device="cuda")
+    d = torch.rand((B, *net, 1), generator=g, device="cuda") + 0.5
+    taps = []
+    model.pretrained.register_forward_hook(
+        lambda m, i, o: taps.append(o[0][-1].float()))
+    with torch.inference_mode():
+        tdpt.COUNTS.clear()
+        n0 = LAUNCHES["beit_attention"]
+        pred = model(x, d)[0]
+        torch.cuda.synchronize()
+        counts = dict(tdpt.COUNTS)
+        launches = LAUNCHES["beit_attention"] - n0
+        with mock.patch.object(tdpt, "attention_path",
+                               lambda *a: "plain"):
+            model(x, d)
+        kernel_tap, plain_tap = taps[:2]
+        taps.clear()
+        ms = device_ms(lambda: model(x, d), n=5, warmup=1)
+        with mock.patch.object(tdpt, "attention_path",
+                               lambda *a: "plain"):
+            plain_ms = device_ms(lambda: model(x, d), n=3, warmup=1)
+        taps.clear()
+        if profile_dir is not None:
+            log(profile(lambda _: model(x, d), None,
+                        profile_dir / "profile_beit_sml.txt"))
+    rec = dict(batch=B, net=list(net), launches=launches, counts=counts,
+               ms=ms, plain_ms=plain_ms,
+               finite=bool(torch.isfinite(pred).all()),
+               last_tap_rel_l1=float((kernel_tap - plain_tap).abs().sum()
+                                     / plain_tap.abs().sum()))
+    log(f"beit sml forward: {json.dumps(rec)}")
+    depth = model.config.depth
+    if (launches != depth or counts.get("attn_kernel") != depth
+            or counts.get("attn_plain", 0) != 0
+            or counts.get("forwards") != 1 or not rec["finite"]):
+        raise AssertionError(f"beit sml forward: {rec}")
+    return rec
+
+
+def attention_phase(profile_dir=None):
+    """Phase 10d: the kernel's checks and times, then the SML forward."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = dict(kernel=check_beit_attention(),
+               sml_forward=beit_sml_forward(profile_dir=profile_dir))
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_only(smi, profile_dir):
+    """`--attention`: phase 1, then phase 10d alone."""
+    out = attention_phase(profile_dir)
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_attention.json").write_text(json.dumps(out,
+                                                                  indent=1))
+    log(json.dumps({"beit_attention": dict(card=smi, **out)}))
+    log(smi)
+    return 0
+
+
 def dpt_phase(root, seed=0, profile_dir=None):
-    """Phase 10: the DPT SML at full width on the card (10a inference,
-    10b training and its agreement with the CPU, 10c the drivers on the
-    NTU mini-dataset under `root`), the launch counters reset just
-    before; the DPT path reaches none of the hand-written kernels.  With
-    `profile_dir`, torch.profiler tables of a BEiT-L inference call and
-    training step."""
+    """Phase 10: the DPT SML at full width on the card (10d the BEiT
+    attention kernel first, then 10a inference, 10b training and its
+    agreement with the CPU, 10c the drivers on the NTU mini-dataset under
+    `root`), the launch counters reset just before; of the hand-written
+    kernels only the BEiT attention lies on the DPT paths, in bf16
+    inference (10a's BEiT-L call launches it once a block, the ViT rows
+    not at all).  With `profile_dir`, torch.profiler tables of a BEiT-L
+    inference call and training step."""
     import gc
     import torch
     from riders_tpu_torch.ops.kernels import LAUNCHES
@@ -2615,14 +2805,22 @@ def dpt_phase(root, seed=0, profile_dir=None):
     torch.cuda.empty_cache()
     LAUNCHES.clear()
     t0 = time.perf_counter()
+    out = {"attention": attention_phase(profile_dir)}
     weights = {DPT_MAIN: sml_weights(dpt_config(DPT_MAIN), seed)}
-    out = {"inference": {DPT_MAIN: dpt_inference(
-        DPT_MAIN, weights[DPT_MAIN], profile_dir=profile_dir)}}
+    out["inference"] = {DPT_MAIN: dpt_inference(
+        DPT_MAIN, weights[DPT_MAIN], profile_dir=profile_dir)}
     for model_type in DPT_OTHERS:
         w = sml_weights(dpt_config(model_type), seed)
         out["inference"][model_type] = dpt_inference(model_type, w, n=3)
         del w
         torch.cuda.empty_cache()
+    want = {DPT_MAIN: 24, **{k: 0 for k in DPT_OTHERS}}
+    got = {k: r["attention"]["launches"] for k, r in out["inference"].items()}
+    if got != want or out["inference"][DPT_MAIN]["attention"][
+            "attn_kernel"] != 24:
+        raise AssertionError(f"phase 10a: BEiT attention launches a call "
+                             f"{got}, {want} expected; "
+                             f"{out['inference'][DPT_MAIN]['attention']}")
     out["training"] = dpt_training(weights[DPT_MAIN], seed, profile_dir)
     torch.cuda.empty_cache()
     out["step_agreement"] = dpt_step_agreement(weights[DPT_MAIN])
@@ -2830,6 +3028,12 @@ def dpt_line(smi, dpt):
         validate_sml_card_bf16_s=drv["validate_sml_card_bf16_s"],
         validate_sml_cpu_f32_s=drv["validate_sml_cpu_f32_s"],
         metric_rel_dev=drv["metric_rel_dev"],
+        attention={k: {f: r[f] for f in ("ms", "bound_ms", "plain_ms",
+                                         "library_ms", "max_abs_err",
+                                         "tolerance")}
+                   for k, r in dpt["attention"]["kernel"].items()},
+        attention_sml_forward_ms=[dpt["attention"]["sml_forward"][k]
+                                  for k in ("ms", "plain_ms")],
         launches=dpt["launches"], seconds=dpt["seconds"])}
 
 
@@ -2860,8 +3064,6 @@ def dpt_only(smi, profile_dir):
         dict(dpt=dpt, dpt_families=families), indent=1))
     log(json.dumps(dpt_line(smi, dpt)))
     log(json.dumps(families_line(smi, families)))
-    log(json.dumps({"rcnet_variants": variants_line(smi, variants)}))
-    log(json.dumps({"parallel": parallel_line(smi, par, fast)}))
     log(smi)
     return 0
 
@@ -4484,6 +4686,8 @@ def main(argv):
     profile_dir = HERE / "chiprun_out" if "--profile" in argv else None
     if "--dpt" in argv:
         return dpt_only(smi, profile_dir)
+    if "--attention" in argv:
+        return attention_only(smi, profile_dir)
     if "--variants" in argv:
         return variants_only(smi)
     if "--stem-plans" in argv:

@@ -40,11 +40,9 @@ inside, maps are NCHW (channels_last on the card).
 from __future__ import annotations
 
 import dataclasses
-import math
 from collections import Counter
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -56,11 +54,18 @@ from riders_tpu_torch.models.levit import LeViTBackbone, LeViTConfig
 from riders_tpu_torch.models.next_vit import NextViTBackbone, NextViTConfig
 from riders_tpu_torch.models.sml import ResidualConvUnit
 from riders_tpu_torch.models.swin2 import Swin2Config, SwinV2Backbone
+from riders_tpu_torch.ops.kernels.attention import (attention_path,
+                                                    beit_attention,
+                                                    beit_attention_plain,
+                                                    beit_rel_pos_index)
 from riders_tpu_torch.ops.resize import resize_nchw
 
 BACKBONES = ("vit", "beit", "vit_hybrid", "swin2", "levit", "next_vit")
-# "forwards" of DPTScaleMapLearner and "bias_tables", the BEiT relative
-# position biases built (gather and resize, `BEiTAttention.rel_pos_bias`)
+# "forwards" of DPTScaleMapLearner; "bias_tables", the BEiT relative
+# position tables built (resized to the window, `BEiTAttention.
+# rel_pos_table`); "attn_kernel" / "attn_plain", BEiT block attentions run
+# by the kernel or the plain version (`ops.kernels.attention.
+# attention_path`)
 COUNTS: Counter = Counter()
 
 
@@ -155,32 +160,16 @@ class ViTBlock(nn.Module):
         return x + self.mlp_fc2(_gelu(self.mlp_fc1(self.norm2(x))))
 
 
-def beit_rel_pos_index(gh: int, gw: int) -> np.ndarray:
-    """Relative position index of a (gh, gw) window plus cls token, of
-    shape (gh*gw+1, gh*gw+1), into a table of (2gh-1)*(2gw-1) + 3 rows:
-    the spatial offsets, then cls<->cls, cls->token, token->cls."""
-    coords = np.stack(np.meshgrid(np.arange(gh), np.arange(gw),
-                                  indexing="ij")).reshape(2, -1)
-    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0).copy()
-    rel[:, :, 0] += gh - 1
-    rel[:, :, 1] += gw - 1
-    rel[:, :, 0] *= 2 * gw - 1
-    n = gh * gw
-    num_rel = (2 * gh - 1) * (2 * gw - 1)
-    idx = np.zeros((n + 1, n + 1), np.int64)
-    idx[1:, 1:] = rel.sum(-1)
-    idx[0, 0:] = num_rel + 1     # cls -> token
-    idx[0:, 0] = num_rel + 2     # token -> cls
-    idx[0, 0] = num_rel          # cls -> cls
-    return idx
-
-
 class BEiTAttention(nn.Module):
     """BEiT attention: one qkv projection with q / v biases only, and a
     learned relative position bias, parametrised at the pretrained square
     grid and resized bilinearly (align_corners=False) to the runtime
     window on every call (the table is trained, so the resize stays in
     the graph).  The bias is added to f32 logits before an f32 softmax.
+    Between the two projections, bf16 inference on the card at head
+    width 64 runs one kernel that gathers the bias from the table in
+    shared memory (`ops.kernels.attention.attention_path`); everything
+    else runs its plain version, which gathers the (heads, N, N) bias.
 
     `qkv_kernel` is held as a torch Linear weight (3C, C); the flax leaf
     of that name is its transpose (`JAX_TRANSPOSED`)."""
@@ -197,7 +186,6 @@ class BEiTAttention(nn.Module):
         self.rel_pos_bias_table = nn.Parameter(
             torch.empty((2 * pg - 1) ** 2 + 3, num_heads))
         self.proj = nn.Linear(dim, dim)
-        self._index: Dict[Tuple, torch.Tensor] = {}
         self.reset_jax_init_(None)
 
     @torch.no_grad()
@@ -209,15 +197,9 @@ class BEiTAttention(nn.Module):
         self.q_bias.zero_()
         self.v_bias.zero_()
 
-    def _rel_index(self, grid, device) -> torch.Tensor:
-        key = (tuple(grid), str(device))
-        if key not in self._index:
-            self._index[key] = torch.from_numpy(
-                beit_rel_pos_index(*grid).reshape(-1)).to(device)
-        return self._index[key]
-
-    def rel_pos_bias(self, grid: Tuple[int, int]) -> torch.Tensor:
-        """(heads, N, N) f32 bias of a (gh, gw) window plus cls."""
+    def rel_pos_table(self, grid: Tuple[int, int]) -> torch.Tensor:
+        """(heads, R) f32 table of a (gh, gw) window plus cls, R =
+        (2gh-1)(2gw-1) + 3 rows as `beit_rel_pos_index` indexes them."""
         COUNTS["bias_tables"] += 1
         gh, gw = grid
         pg, h = self.pretrained_grid, self.num_heads
@@ -229,26 +211,25 @@ class BEiTAttention(nn.Module):
                 spatial.permute(0, 3, 1, 2), size=(2 * gh - 1, 2 * gw - 1),
                 mode="bilinear", align_corners=False)
             spatial = spatial.permute(0, 2, 3, 1).reshape(-1, h)
-        full = torch.cat([spatial, table[-3:]], dim=0)
-        n = gh * gw + 1
-        bias = full[self._rel_index(grid, full.device)]
-        return bias.reshape(n, n, h).permute(2, 0, 1)
+        return torch.cat([spatial, table[-3:]], dim=0).t().contiguous()
 
     def forward(self, x: torch.Tensor, grid: Tuple[int, int]
                 ) -> torch.Tensor:
         B, N, C = x.shape
-        hd = C // self.num_heads
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias])
         qkv = F.linear(x, self.qkv_kernel, bias)
         # everything between the two projections, so that the SML's first
         # and last kernels stay outside every `dpt.attn` range
         with span("dpt.attn", mirror=True):
-            q, k, v = qkv.reshape(B, N, 3, self.num_heads, hd).permute(
-                2, 0, 3, 1, 4).unbind(0)
-            attn = (q @ k.transpose(-2, -1)).float() / math.sqrt(hd)
-            attn = (attn + self.rel_pos_bias(grid)[None]).softmax(-1)
-            out = (attn.to(x.dtype) @ v).transpose(1, 2).reshape(B, N, C)
+            table = self.rel_pos_table(grid)
+            path = attention_path(x.dtype, x.device.type, self.training,
+                                  torch.is_grad_enabled(),
+                                  C // self.num_heads)
+            COUNTS[f"attn_{path}"] += 1
+            attend = beit_attention if path == "kernel" else \
+                beit_attention_plain
+            out = attend(qkv, table, grid, self.num_heads)
         return self.proj(out)
 
 

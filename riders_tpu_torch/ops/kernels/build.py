@@ -22,7 +22,8 @@ from typing import Callable, Dict, List, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "riders_tpu_torch"
-KERNELS = ("stem", "stem_general", "roi_pool", "compose", "lane_decoder")
+KERNELS = ("stem", "stem_general", "roi_pool", "compose", "lane_decoder",
+           "beit_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -16,9 +16,11 @@ from collections import Counter
 import pytest
 import torch
 
+from riders_tpu_torch.models import dpt
 from riders_tpu_torch.ops import patches
-from riders_tpu_torch.ops.kernels import (DECODES, LAUNCHES, compose,
-                                          lane_decoder, roi_pool, stem)
+from riders_tpu_torch.ops.kernels import (DECODES, LAUNCHES, attention,
+                                          compose, lane_decoder, roi_pool,
+                                          stem)
 
 
 @pytest.fixture
@@ -1095,3 +1097,73 @@ def test_cross_rank_batch_norm_on_card_is_exact_in_f64(dev):
     for a, c in [(got, want)] + [(p.grad, q.grad) for p, q in
                                  zip(leaves[1], leaves[0])]:
         assert float((a - c).abs().max()) <= 1e-10 * float(c.abs().max())
+
+
+def _beit_inputs(dev, batch, window, heads, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = window[0] * window[1] + 1
+    qkv = torch.randn((batch, n, 3 * heads * 64), generator=g,
+                      device=dev).to(torch.bfloat16)
+    table = torch.randn((heads, attention.table_rows(window)), generator=g,
+                        device=dev)
+    return qkv, table
+
+
+@pytest.mark.parametrize("batch,window,heads", [
+    (1, (1, 3), 2), (2, (4, 5), 4), (3, (7, 9), 3), (2, (12, 11), 2),
+    (1, (32, 40), 2)])
+def test_beit_attention_kernel_matches_f32_attention(dev, batch, window,
+                                                     heads):
+    """One key tile holding row 0, key 0 and the ragged tail; several
+    query blocks and key tiles; the BEiT cell's window.  Within one bf16
+    step of the output's largest value of float32 attention on the same
+    bf16 inputs, and of the plain version beyond its own distance from
+    it (the plain version rounds q k^T to bf16)."""
+    qkv, table = _beit_inputs(dev, batch, window, heads)
+    before = LAUNCHES["beit_attention"]
+    got = attention.beit_attention(qkv, table, window, heads).float()
+    assert LAUNCHES["beit_attention"] == before + 1
+    plain = attention.beit_attention_plain(qkv, table, window, heads).float()
+    B, N, _ = qkv.shape
+    q, k, v = qkv.float().reshape(B, N, 3, heads, 64).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    bias = table[:, attention._rel_index(window, table.device)].reshape(
+        heads, N, N)
+    ref = ((q @ k.transpose(-2, -1) / 8 + bias).softmax(-1) @ v).transpose(
+        1, 2).reshape(B, N, heads * 64)
+    step = 2.0 ** (int(torch.log2(ref.abs().max()).floor()) - 7)
+    assert float((got - ref).abs().max()) <= step
+    assert float((got - plain).abs().max()) <= (
+        float((plain - ref).abs().max()) + step)
+
+
+def test_beit_attention_kernel_refuses_what_it_does_not_take(dev):
+    qkv, table = _beit_inputs(dev, 1, (4, 5), 2)
+    with pytest.raises(TypeError):
+        attention.beit_attention(qkv.float(), table, (4, 5), 2)
+    with pytest.raises(TypeError):
+        attention.beit_attention(qkv, table.double(), (4, 5), 2)
+    with pytest.raises(ValueError):
+        attention.beit_attention(qkv, table, (4, 5), 4)      # width 32
+    with pytest.raises(ValueError):
+        attention.beit_attention(qkv, table[:, 1:].contiguous(), (4, 5),
+                                 2)                          # table rows
+    with pytest.raises(ValueError):
+        attention.beit_attention(qkv, table, (3, 5), 2)      # tokens
+
+
+def test_beit_block_takes_the_kernel_for_bf16_inference_only(dev):
+    """A bf16 BEiT block on the card runs the kernel in eval with grad
+    off, and the plain version in training mode or with grad on."""
+    block = dpt.BEiTAttention(128, 2, 4).to(dev, torch.bfloat16).eval()
+    x = torch.randn((2, 21, 128), device=dev).to(torch.bfloat16)
+    dpt.COUNTS.clear()
+    before = LAUNCHES["beit_attention"]
+    with torch.inference_mode():
+        block(x, (4, 5))
+    with torch.no_grad():
+        block.train()(x, (4, 5))
+    block.eval()(x, (4, 5))
+    assert LAUNCHES["beit_attention"] == before + 1
+    assert dpt.COUNTS == {"bias_tables": 3, "attn_kernel": 1,
+                          "attn_plain": 2}

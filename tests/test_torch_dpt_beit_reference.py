@@ -108,13 +108,15 @@ def test_reference_state_matches_the_factory_at_published_widths():
 def test_attention_spans_and_counts():
     """Under a profiler each block's attention is one `dpt.attn` user
     range, the forward's first and last ops lie outside every one of
-    them, and `COUNTS` counts one forward and a bias table a block."""
+    them, and `COUNTS` counts one forward, and a bias table and a plain
+    attention a block."""
     port, _ = _models((48, 80))
     x, d = _inputs((48, 80), 1)
     dpt.COUNTS.clear()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
         port(x, d)
-    assert dpt.COUNTS == {"forwards": 1, "bias_tables": TINY["depth"]}
+    assert dpt.COUNTS == {"forwards": 1, "bias_tables": TINY["depth"],
+                          "attn_plain": TINY["depth"]}
     events = list(prof.profiler.kineto_results.events())
     ranges = [(e.start_ns(), e.start_ns() + e.duration_ns())
               for e in events if e.name() == "dpt.attn"]
