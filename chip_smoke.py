@@ -64,15 +64,15 @@ Phases, each fatal on failure:
      CUDA-event times of both and of cuDNN (the median of synchronised
      calls, and back to back), a line per call; (b) the decoder's inputs
      captured from a fused B=16 call of each preset, decoded by the
-     literal decoder (lane_mode "literal", its phase forms off) and by
-     lane_mode "full", "tail" and default (None) copies (within 5% of the
-     literal's max, the default bitwise "full"; launch and decode
-     counters reset just before each); (c) the 4D pyramid (B6) on that
-     call's encoder maps, skip1 as a NEG-padded canvas, bitwise equal to
-     the B2 pyramid and the plain one; (d) (a) and (b) again at the
-     benchmark cells' patch batch, NTU N = 6144 and ZJU N = 4096 (the
-     B=16 call's decoder inputs tiled); `--lane` runs phases 1, 3 and 4b
-     alone;
+     literal decoder (`MultiScaleDecoder.literal`, its phase forms off),
+     by `decode_full` and by the default forward (within 5% of the
+     literal's max, the default bitwise `decode_full`'s and counted
+     "full"; launch and decode counters reset just before each); (c)
+     the 4D pyramid (B6) on that call's encoder maps, skip1 as a
+     NEG-padded canvas, bitwise equal to the B2 pyramid and the plain
+     one; (d) (a) and (b) again at the benchmark cells' patch batch, NTU
+     N = 6144 and ZJU N = 4096 (the B=16 call's decoder inputs tiled);
+     `--lane` runs phases 1, 3 and 4b alone;
   5. training kernels at the NTU (B=24, K=40) and ZJU (B=4, K=30)
      training shapes, f32: the RoI pool's forward (bitwise) and its
      backward (within 1e-6 relative of the plain version, two launches
@@ -213,9 +213,8 @@ Phases, each fatal on failure:
   14. the opt-in fast paths at full width (NTU, B=16, bf16), each alone
      and then all together, the counters reset just before each:
      RIDERS_SML_FOLD=1 (set and unset inside the phase), the literal
-     decoder's (lane_mode "literal") `phase_tail=True`, every
-     `UpConvBlock(fast_2x=True)` and the SML head's
-     `fast_upsample=True`: one stem, RoI pool and compose launch a
+     decoder's (`MultiScaleDecoder.literal`) `phase_tail=True` and every
+     `UpConvBlock(fast_2x=True)`: one stem, RoI pool and compose launch a
      call, the output against the literal call's by phase 4's rule, ms
      per call beside the literal call's, and fps.
   15. the measuring entry points, under PyTorch's default TF32 and cuDNN
@@ -652,7 +651,8 @@ def drive(preset, B, seed=0):
     import dataclasses
     import torch
     from riders_tpu_torch.core.config import ntu_config, zju_config
-    from riders_tpu_torch.ops.kernels import DECODES, LAUNCHES
+    from riders_tpu_torch.models.lane_decode import DECODES
+    from riders_tpu_torch.ops.kernels import LAUNCHES
     from riders_tpu_torch.pipelines.fused import make_fused_fn
 
     geo = GEOMETRIES[preset]
@@ -952,66 +952,61 @@ def capture_path_inputs(fn, rcnet, batch):
 
 def drive_lane_decoder(preset, x, skips, literal):
     """The captured decoder inputs through the literal decoder
-    (lane_mode "literal", its phase forms off) and its lane_mode "full"
-    and "tail" copies and default (None) copy (same weights): each lane
-    output within LANE_DECODE_BAR of the literal's max (the default
-    bitwise "full"'s), the path's kernels launched and the path counted
-    in DECODES (counters reset just before each decode), ms per decode
-    synchronised and back to back (`device_ms`)."""
+    (`MultiScaleDecoder.literal`, its phase forms off), and through
+    `decode_full` and the default forward of a copy (same weights): each
+    within LANE_DECODE_BAR of the literal's max, the default bitwise
+    `decode_full`'s, B7 and B8 launched, the default forward counted
+    "full" in DECODES (counters reset just before each decode), ms per
+    decode synchronised and back to back (`device_ms`)."""
     import torch
-    from riders_tpu_torch.ops.kernels import DECODES, LAUNCHES
-
-    need = {"full": ("lane_conv3x3", "lane_upconv2x"),
-            "tail": ("lane_conv3x3",), None: ("lane_conv3x3",
-                                              "lane_upconv2x")}
+    from riders_tpu_torch.models import lane_decode
     from riders_tpu_torch.models.layers import UpConvBlock
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+
     rec = dict(preset=preset, patches=int(x.shape[0]))
-    lanes = {mode: copy.deepcopy(literal) for mode in need}
+    dec = copy.deepcopy(literal)
     literal = copy.deepcopy(literal)
-    literal.lane_mode = "literal"
     literal.phase_tail = False          # the literal decoder
     for m in literal.modules():
         if isinstance(m, UpConvBlock):
             m.fast_2x = False
+    paths = {"full": (lambda: lane_decode.decode_full(dec, x, skips), {}),
+             "default": (lambda: dec(x, skips), {"full": 1})}
     with torch.inference_mode():
-        DECODES.clear()
-        want = literal(x, skips).float()
-        if dict(DECODES) != {"literal": 1}:
-            raise AssertionError(f"{preset} literal: decodes {dict(DECODES)}")
-        rec["literal_ms"] = time_ms(lambda: literal(x, skips), n=10,
+        want = literal.literal(x, skips).float()
+        rec["literal_ms"] = time_ms(lambda: literal.literal(x, skips), n=10,
                                     warmup=2)
-        rec["literal_device_ms"] = device_ms(lambda: literal(x, skips),
-                                             n=10, warmup=1)
+        rec["literal_device_ms"] = device_ms(
+            lambda: literal.literal(x, skips), n=10, warmup=1)
         outs = {}
-        for mode, dec in lanes.items():
-            dec.lane_mode = mode
-            dec(x, skips)                                  # packs weights
+        for name, (run, decodes) in paths.items():
+            run()                                          # packs weights
             torch.cuda.synchronize()
             LAUNCHES.clear()
-            DECODES.clear()
-            out = outs[mode] = dec(x, skips)
+            lane_decode.DECODES.clear()
+            out = outs[name] = run()
             torch.cuda.synchronize()
             launches = dict(LAUNCHES)
-            for k in need[mode]:
+            for k in ("lane_conv3x3", "lane_upconv2x"):
                 if launches.get(k, 0) <= 0:
-                    raise AssertionError(f"{preset} {mode}: kernel {k} was "
+                    raise AssertionError(f"{preset} {name}: kernel {k} was "
                                          f"not launched ({launches})")
-            if dict(DECODES) != {mode or "full": 1}:
-                raise AssertionError(f"{preset} {mode}: decodes "
-                                     f"{dict(DECODES)}")
+            if dict(lane_decode.DECODES) != decodes:
+                raise AssertionError(f"{preset} {name}: decodes "
+                                     f"{dict(lane_decode.DECODES)}")
             if out.shape != want.shape or not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"{preset} {mode}: output {out.shape} "
+                raise AssertionError(f"{preset} {name}: output {out.shape} "
                                      f"vs {want.shape}, or not finite")
             rel = float((out.float() - want).abs().max()
                         / want.abs().max())
             if rel > LANE_DECODE_BAR:
-                raise AssertionError(f"{preset} {mode}: max |lane - literal|"
+                raise AssertionError(f"{preset} {name}: max |lane - literal|"
                                      f" / max|literal| = {rel}")
-            rec[mode or "default"] = dict(
+            rec[name] = dict(
                 launches=launches, rel_err=rel,
-                ms=time_ms(lambda: dec(x, skips), n=10, warmup=2),
-                device_ms=device_ms(lambda: dec(x, skips), n=10, warmup=1))
-        if not torch.equal(outs[None], outs["full"]):
+                ms=time_ms(run, n=10, warmup=2),
+                device_ms=device_ms(run, n=10, warmup=1))
+        if not torch.equal(outs["default"], outs["full"]):
             raise AssertionError(f"{preset}: the default decoder is not "
                                  f"decode_full bit for bit")
     return rec
@@ -1144,7 +1139,7 @@ def lane_line(smi, decoders, cells):
     def paths(r):
         out = dict(patches=r["patches"], literal_ms=r["literal_ms"],
                    literal_device_ms=r["literal_device_ms"])
-        for mode in ("full", "tail", "default"):
+        for mode in ("full", "default"):
             out.update({f"{mode}_ms": r[mode]["ms"],
                         f"{mode}_device_ms": r[mode]["device_ms"],
                         f"{mode}_rel_err": r[mode]["rel_err"]})
@@ -3970,7 +3965,7 @@ def fast_paths_phase(spread, seed=0, B=16, profile_dir=None):
                        "cuda")
     # the phase forms are the literal decoder's; its default on the card
     # is the lane decode
-    rcnet.decoder.lane_mode = "literal"
+    rcnet.decoder.forward = rcnet.decoder.literal
     upconvs = [m for m in rcnet.modules() if isinstance(m, UpConvBlock)]
     saved = os.environ.get("RIDERS_SML_FOLD")
     try:
@@ -3986,14 +3981,13 @@ def fast_paths_phase(spread, seed=0, B=16, profile_dir=None):
         else:
             os.environ["RIDERS_SML_FOLD"] = saved
     forms = {"sml_fold": dict(fold=True), "phase_tail": dict(tail=True),
-             "fast_2x": dict(x2=True), "fast_upsample": dict(head=True),
-             "all": dict(fold=True, tail=True, x2=True, head=True)}
+             "fast_2x": dict(x2=True),
+             "all": dict(fold=True, tail=True, x2=True)}
 
-    def call(fold=False, tail=False, x2=False, head=False):
+    def call(fold=False, tail=False, x2=False):
         rcnet.decoder.phase_tail = tail
         for m in upconvs:
             m.fast_2x = x2
-        sml.output_conv.fast_upsample = head
         return (folded if fold else literal)(batch)
 
     out, t0 = {}, time.perf_counter()

@@ -1,28 +1,20 @@
-"""Lane-major decode paths of `MultiScaleDecoder` (inference only).
+"""The lane-major decode of `MultiScaleDecoder` (inference only).
 
-* ``decode_full``: every decoder stage in the lane kernels,
-  `lane_upconv2x` (B8) for exact-x2 stages, a nearest resize +
-  `lane_conv3x3` (B7) for the irregular ones, B7 for each fusion conv,
-  and the deconv0 + output0 phase tail;
-* ``decode_tail``: the literal decoder for deconv4..2, the lane kernels
-  from deconv1 on.
-
-`MultiScaleDecoder`'s default (``lane_mode=None``) runs ``decode_full``
-where `default_path` says so: bf16 on a CUDA device, in eval with grad
-disabled, on a decoder of the structure the lane paths decode (the
-single-resolution batch-norm leaky-relu decoder of depth 5 with one
-linear output channel, no skip at full resolution, its output exactly x2
-of skips[0]; `unsupported` says why not).  The JAX package's None runs
-the literal decoder.  ``lane_mode="full"`` or ``"tail"`` asks for a path
-explicitly; `check_eligible` raises where that structure is missing and,
-as the JAX package does, where the patch batch is no multiple of 128 (a
-TPU layout rule; the CUDA kernels take any batch).  Maps are NHWC bf16;
-weights are packed once per module and re-packed only when a parameter or
-statistic changes.
+``decode_full`` runs every decoder stage in the hand-written kernels:
+`lane_upconv2x` (B8) for exact-x2 stages, a nearest resize +
+`lane_conv3x3` (B7) for the irregular ones, B7 for each fusion conv, and
+the deconv0 + output0 phase tail.  `MultiScaleDecoder.forward` runs it
+where `decode_path` says so: bf16 on a CUDA device, in eval with grad
+disabled, on a decoder of the structure it decodes (`unsupported` says
+why not); everywhere else the decoder's `literal` form, as the JAX
+package's default does everywhere.  The CUDA kernels take any patch
+batch.  Maps are NHWC bf16; weights are packed once per module and
+re-packed only when a parameter or statistic changes.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Sequence
 
 import torch
@@ -39,53 +31,39 @@ from riders_tpu_torch.ops.resize import nearest_indices
 
 SLOPE = 0.2
 
+# MultiScaleDecoder calls per path ("full", "literal"; `decode_path`);
+# reset with DECODES.clear()
+DECODES: Counter = Counter()
+
 
 def unsupported(dec, n_skips: int, skip1_hw) -> Optional[str]:
-    """Why the lane paths do not compute what the literal decoder `dec`
+    """Why `decode_full` does not compute what the literal decoder `dec`
     computes on `n_skips` skips, the first `skip1_hw` in size, or None
-    where they do: batch-norm leaky-relu stages, depth 5, one resolution,
-    one linear output channel, a skip at each of the four coarser scales
-    and none at full resolution, and the output exactly x2 of skips[0]."""
+    where it does: leaky-relu stages, depth 5, a skip at each of the four
+    coarser scales, what its phase tail needs
+    (`MultiScaleDecoder.phase_tail_unsupported`) and one output
+    channel."""
     act = dec.activation_name
-    if (not dec.use_batch_norm or "leaky_relu" not in act
-            or "linear" in act):
-        return "lane_mode requires the batch-norm leaky-relu decoder"
+    if "leaky_relu" not in act or "linear" in act:
+        return "the lane decode requires the leaky-relu decoder"
     if dec.depth != 5:
-        return (f"lane_mode only supports the depth-5 decoder, got depth "
-                f"{dec.depth}")
-    if (dec.n_resolution != 1 or not dec.linear_output
-            or dec.output0.conv.out_channels != 1):
-        return ("lane_mode decodes the single-resolution decoder with one "
-                "linear output channel only")
+        return (f"the lane decode only supports the depth-5 decoder, got "
+                f"depth {dec.depth}")
     if n_skips != dec.depth - 1:
-        return (f"lane_mode requires a skip at each of the {dec.depth - 1} "
-                f"coarser scales and none at full resolution, got "
-                f"{n_skips} skips")
-    if tuple(dec.output_shape) != (2 * skip1_hw[0], 2 * skip1_hw[1]):
-        return "lane_mode requires an exact-x2 full-resolution output"
-    return None
+        return (f"the lane decode requires a skip at each of the "
+                f"{dec.depth - 1} coarser scales, got {n_skips} skips")
+    reason = dec.phase_tail_unsupported(n_skips, skip1_hw)
+    if reason is None and dec.output0.conv.out_channels != 1:
+        reason = "the lane decode requires one output channel"
+    return reason
 
 
-def check_eligible(dec, n_batch: int, skips: Sequence[torch.Tensor]
-                   ) -> None:
-    """Raises where an explicit lane_mode cannot run: `unsupported`, and
-    the JAX package's patch batch, a multiple of 128 (a TPU layout rule);
-    `MultiScaleDecoder` refuses lane_mode with several resolutions or
-    output channels when built, as the JAX package does."""
-    reason = unsupported(dec, len(skips),
-                         tuple(skips[0].shape[-2:]) if skips else None)
-    if reason:
-        raise ValueError(reason)
-    if n_batch % 128:
-        raise ValueError(f"patch batch {n_batch} is not a multiple of 128")
-
-
-def default_path(dtype: torch.dtype, device_type: str, training: bool,
-                 grad_enabled: bool, dec, n_skips: int, skip1_hw) -> str:
-    """The path `MultiScaleDecoder`'s default takes: "full" for a bf16
-    input on a CUDA device, in eval with grad disabled, on a decoder the
-    lane paths decode (`unsupported` finds nothing); "literal" for every
-    other input."""
+def decode_path(dtype: torch.dtype, device_type: str, training: bool,
+                grad_enabled: bool, dec, n_skips: int, skip1_hw) -> str:
+    """The path `MultiScaleDecoder.forward` takes: "full" for a bf16 input
+    on a CUDA device, in eval with grad disabled, on a decoder
+    `decode_full` decodes (`unsupported` finds nothing); "literal" for
+    every other input."""
     full = (dtype == torch.bfloat16 and device_type == "cuda"
             and not training and not grad_enabled
             and unsupported(dec, n_skips, skip1_hw) is None)
@@ -136,7 +114,12 @@ def decode_full(dec, x: torch.Tensor, skips: Sequence[torch.Tensor]
                 ) -> torch.Tensor:
     """The whole decoder in the lane kernels.  x (N, C, h, w) and skips
     NCHW, shallow to deep; returns (N, 1, H, W) logits in the decoder's
-    dtype."""
+    dtype.  Raises ValueError on a decoder it does not decode
+    (`unsupported`)."""
+    reason = unsupported(dec, len(skips),
+                         tuple(skips[0].shape[-2:]) if skips else None)
+    if reason:
+        raise ValueError(reason)
     h = _lane(x)
     for i in range(dec.depth - 1):
         d = 4 - i
@@ -144,13 +127,6 @@ def decode_full(dec, x: torch.Tensor, skips: Sequence[torch.Tensor]
         up = _upsample(dec, d, h, skip.shape[-2:])
         h = _fuse(dec, d, up, _lane(skip))
     return _lane_phase_tail(dec, h)
-
-
-def decode_tail(dec, h: torch.Tensor, skip1: torch.Tensor) -> torch.Tensor:
-    """The lane kernels from deconv1 on.  h: the literal deconv2 output
-    (N, C, h2, w2); skip1: the pooled /2 skip (N, C1, 2 h2', 2 w2')."""
-    up = _upsample(dec, 1, _lane(h), skip1.shape[-2:])
-    return _lane_phase_tail(dec, _fuse(dec, 1, up, _lane(skip1)))
 
 
 def _lane_phase_tail(dec, h1: torch.Tensor) -> torch.Tensor:

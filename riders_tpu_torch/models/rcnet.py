@@ -5,8 +5,8 @@
 * ``PointEncoder``: MLP lifting each radar (u, v, z) to a token grid;
 * ``MultiScaleDecoder``: U-Net decoder from the fused latent back to a
   per-pixel logit map over the patch, at one or several resolutions
-  (the literal path, or the lane-major paths of `experiments.lane_decode`,
-  the default for bf16 inference on the card);
+  (its `literal` form, or `lane_decode.decode_full` on the hand-written
+  kernels for bf16 inference on the card);
 * ``RCNet``: encode once per frame, RoI-pool every scale around each
   point (one kernel launch per scale), LoFTR self / cross attention
   between point and patch tokens, concat fusion, decode the B*K patches.
@@ -26,14 +26,13 @@ import torch.nn as nn
 
 from riders_tpu_torch.core.config import RCNetConfig
 from riders_tpu_torch.core.device import resolve_device
-from riders_tpu_torch.experiments import lane_decode
+from riders_tpu_torch.models import lane_decode
 from riders_tpu_torch.models.attention import LocalFeatureTransformer
 from riders_tpu_torch.models.layers import (
     ConvBlock, DecoderBlock, FullyConnected, FusedStemConv, ResNetBlock,
     activation_fn, bn_fold, cached_weights, hwio, nearest2x_phase_kernel,
     oihw, phase_compose_3x3, phase_conv, phase_form_on, phases_to_space,
     place)
-from riders_tpu_torch.ops.kernels import DECODES
 from riders_tpu_torch.ops.kernels.roi_pool import roi_pool_pyramid
 from riders_tpu_torch.ops.resize import resize_nchw
 
@@ -116,20 +115,12 @@ class MultiScaleDecoder(nn.Module):
     output0).  Output convs are linear for "upsample" and any name with
     "linear", else they take that activation.
 
-    ``lane_mode`` chooses the path, on the same parameters.  None (the
-    default) runs `experiments.lane_decode.decode_full`, every stage on
-    the hand-written kernels B7 / B8, for a bf16 input on a CUDA device
-    in eval with grad disabled on a decoder it decodes
-    (`lane_decode.default_path`), and the literal path for every other
-    input; the JAX package's None is the literal path everywhere.
-    "literal" forces the literal path.  "full" / "tail" ask for a lane
-    path in eval mode, and raise where it cannot run (`lane_decode.
-    check_eligible`: the structure above, and the JAX package's patch
-    batch, a multiple of 128); in train mode the literal path runs,
-    as in the JAX package.  The lane paths have no backward, so "full" /
-    "tail" raise with grad enabled; they decode the single-resolution
-    decoder with one output channel only.  Each call counts its path in
-    `ops.kernels.DECODES`.
+    `forward` runs `lane_decode.decode_full`, every stage on the
+    hand-written kernels B7 / B8, for a bf16 input on a CUDA device in eval
+    with grad disabled on a decoder it decodes (`lane_decode.decode_path`),
+    and `literal`, the decoder in PyTorch ops, for every other input; the
+    JAX package's default is the literal decoder everywhere.  Each call
+    counts its path in `lane_decode.DECODES`.
 
     ``phase_tail`` runs the full-resolution tail (deconv0's nearest
     x2 + conv, its fusion conv and output0) in phase space at a quarter
@@ -137,17 +128,16 @@ class MultiScaleDecoder(nn.Module):
     into the upconv (`layers.nearest2x_phase_kernel`), each following 3x3
     conv composes with the depth-to-space (`layers.phase_compose_3x3`),
     exact with the BNs' running statistics, and one depth-to-space of
-    the logits ends it.  It applies in eval to the single-resolution BN
-    decoder with a linear output, an exact x2 last stage and no skip at
-    full resolution.  True forces it, False keeps the literal path, and
-    None (the default) chooses by `layers.phase_form_on`."""
+    the logits ends it.  It applies in eval where
+    `phase_tail_unsupported` finds nothing.  True forces it, False keeps
+    the literal path, and None (the default) chooses by
+    `layers.phase_form_on`."""
 
     def __init__(self, in_ch: int, skip_channels: Sequence[int],
                  n_filters: Sequence[int] = (256, 128, 64, 32, 16),
                  output_shape: Tuple[int, int] = (240, 100),
                  activation: str = "leaky_relu",
                  use_batch_norm: bool = True, n_resolution: int = 1,
-                 lane_mode: Optional[str] = None,
                  output_func: str = "linear", output_channels: int = 1,
                  phase_tail: Optional[bool] = None):
         super().__init__()
@@ -159,13 +149,6 @@ class MultiScaleDecoder(nn.Module):
         if not 1 <= n_res < depth:
             raise ValueError(f"n_resolution {n_resolution}: 1 .. "
                              f"{depth - 1} for a depth-{depth} decoder")
-        if lane_mode not in (None, "full", "tail", "literal"):
-            raise ValueError(f"lane_mode: None, 'full', 'tail' or "
-                             f"'literal', got {lane_mode!r}")
-        if lane_mode in ("full", "tail") and (n_res != 1
-                                               or output_channels != 1):
-            raise ValueError("lane_mode decodes the single-resolution "
-                             "decoder with one output channel only")
         act = activation_fn(activation)
         out_act = (None if output_func == "upsample"
                    or "linear" in output_func
@@ -174,7 +157,6 @@ class MultiScaleDecoder(nn.Module):
         self.n_resolution = n_res
         self.activation_name = activation
         self.use_batch_norm = use_batch_norm
-        self.lane_mode = lane_mode
         self.phase_tail = phase_tail
         self.linear_output = out_act is None
         self._lane_packed = {}      # packed / composed weights, by stage
@@ -202,18 +184,27 @@ class MultiScaleDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]):
         """The logits (N, output_channels, *output_shape), or with
-        n_resolution > 1 the deep -> shallow list of outputs."""
-        lane = self._path(x, skips)
-        DECODES[lane] += 1
-        if lane == "full":
+        n_resolution > 1 the deep -> shallow list of outputs; by
+        `decode_full` or `literal`, as `lane_decode.decode_path` says."""
+        path = lane_decode.decode_path(
+            x.dtype, x.device.type, self.training, torch.is_grad_enabled(),
+            self, len(skips),
+            tuple(skips[0].shape[-2:]) if len(skips) else None)
+        lane_decode.DECODES[path] += 1
+        if path == "full":
             return lane_decode.decode_full(self, x, skips)
+        return self.literal(x, skips)
+
+    def literal(self, x: torch.Tensor, skips: Sequence[torch.Tensor]):
+        """`forward` in PyTorch ops, the phase tail where `phase_tail`
+        allows it: the plain form beside B7 / B8, and the only one on the
+        CPU, in f32, in training, with grad and on every decoder that
+        `lane_decode.unsupported` names."""
         h = x
         outputs: List[torch.Tensor] = []
         up_prev = None
         for i in range(self.depth - 1):
             d = self.depth - 1 - i
-            if lane == "tail" and d == 1:
-                return lane_decode.decode_tail(self, h, skips[0])
             si = len(skips) - 1 - i
             skip = skips[si] if si >= 0 else None
             if up_prev is not None:
@@ -231,10 +222,8 @@ class MultiScaleDecoder(nn.Module):
         if self.upsample_out:
             return outputs + [up_prev]
         if (phase_form_on(self.phase_tail, h) and not self.training
-                and self.n_resolution == 1
-                and self.linear_output and self.use_batch_norm
-                and len(skips) != self.depth
-                and self.output_shape == (2 * h.shape[-2], 2 * h.shape[-1])):
+                and self.phase_tail_unsupported(
+                    len(skips), tuple(h.shape[-2:])) is None):
             return self._phase_tail(h)
         if up_prev is not None:
             skip0 = (up_prev if len(skips) != self.depth else
@@ -247,23 +236,23 @@ class MultiScaleDecoder(nn.Module):
         out0 = self.output0(h)
         return outputs + [out0] if self.n_resolution > 1 else out0
 
-    def _path(self, x: torch.Tensor, skips: Sequence[torch.Tensor]) -> str:
-        """This call's path: "full", "tail" or "literal" (see the
-        class)."""
-        if self.lane_mode is None:
-            return lane_decode.default_path(
-                x.dtype, x.device.type, self.training,
-                torch.is_grad_enabled(), self, len(skips),
-                tuple(skips[0].shape[-2:]) if len(skips) else None)
-        if self.lane_mode == "literal" or self.training:
-            return "literal"
-        if torch.is_grad_enabled():
-            raise RuntimeError("the lane-major decode has no backward: run "
-                               "it under torch.no_grad() or "
-                               "torch.inference_mode()")
-        lane_decode.check_eligible(self, x.shape[0], skips)
-        return self.lane_mode
-
+    def phase_tail_unsupported(self, n_skips: int, half_hw) -> Optional[str]:
+        """Why deconv0 + output0 cannot run in phase space (the literal
+        `phase_tail`, and `decode_full`'s tail) on `n_skips` skips with
+        deconv0's input `half_hw` in size, or None where they can: one
+        resolution, a linear output, batch norm, no skip at full
+        resolution, and the output exactly x2 of `half_hw`."""
+        if self.n_resolution != 1:
+            return "the phase tail requires the single-resolution decoder"
+        if not self.linear_output:
+            return "the phase tail requires a linear output"
+        if not self.use_batch_norm:
+            return "the phase tail requires the batch-norm decoder"
+        if n_skips == self.depth:
+            return "the phase tail takes no skip at full resolution"
+        if self.output_shape != (2 * half_hw[0], 2 * half_hw[1]):
+            return "the phase tail requires an exact-x2 output"
+        return None
 
     def _phase_tail(self, h: torch.Tensor) -> torch.Tensor:
         up, fuse, out = self.deconv0.deconv.conv, self.deconv0.conv, \

@@ -2,8 +2,7 @@
 
 A learned 3->3 stem, the EfficientNet-Lite3 encoder, four RefineNet-style
 fusion blocks (bilinear x2, align_corners=True) and the output head
-(bilinear x2, align_corners=False, on its literal full-resolution path
-unless `OutputConv.fast_upsample`).
+(bilinear x2, align_corners=False).
 The network regresses a multiplicative scale map:
 
     scales = relu(1 + out);  pred = d * scales          (scale mode)
@@ -23,8 +22,7 @@ from riders_tpu_torch.core.config import SMLConfig
 from riders_tpu_torch.core.device import resolve_device
 from riders_tpu_torch.models.efficientnet import (EfficientNetLite3,
                                                   LITE3_STAGES, LITE3_TAPS)
-from riders_tpu_torch.models.layers import (BatchNorm2d, cached_weights,
-                                            hwio, oihw, phase_kernel, place)
+from riders_tpu_torch.models.layers import BatchNorm2d, place
 from riders_tpu_torch.ops.resize import resize_nchw
 
 
@@ -68,66 +66,23 @@ class FeatureFusionBlock(nn.Module):
         return self.out_conv(out)
 
 
-# Bilinear x2 (align_corners=False) taps composed through a 3-tap conv:
-# out[2i + p] = sum_d M_p[j, d] K[d] applied to x[i + j - 1]
-# (up[2i] = 0.25 x[i - 1] + 0.75 x[i]; up[2i + 1] = 0.75 x[i] + 0.25
-# x[i + 1]), exact away from the map's 2-pixel border.
-_M_BILINEAR2 = (((0.75, 0.25, 0.0), (0.25, 0.75, 0.75), (0.0, 0.0, 0.25)),
-                ((0.25, 0.0, 0.0), (0.75, 0.75, 0.25), (0.0, 0.25, 0.75)))
-
-
 class OutputConv(nn.Module):
     """conv3 -> bilinear x2 (align_corners=False) -> conv3 -> relu -> conv1.
+    The JAX package's bf16 default composes the upsample into the second
+    conv; on the H100 that saves no device time and costs host time
+    (PERF.md §6), so the port keeps the literal head."""
 
-    With ``fast_upsample=True`` the head runs as the JAX package's fast
-    head: the bilinear x2 and the second conv compose into one conv on
-    the coarse map emitting the four output phases (`layers.phase_kernel`),
-    its bias and relu and the 1x1 apply per phase in f32, the phases
-    interleave, and the 2-pixel border strips - where the upsample's edge
-    clamp and the conv's zero padding break the interior formula - are
-    recomputed exactly by the literal head on thin slices.  The result is
-    float32.  `None` (the default) and False keep the literal head: the
-    JAX package's None takes the fast head in bf16, but on the H100 it
-    saves no device time and costs host time (PERF.md §6)."""
-
-    def __init__(self, features: int, fast_upsample: Optional[bool] = None):
+    def __init__(self, features: int):
         super().__init__()
         self.conv1 = _conv3(features, features // 2)
         self.conv2 = _conv3(features // 2, 32)
         self.conv3 = nn.Conv2d(32, 1, 1, bias=True)
-        self.fast_upsample = fast_upsample
-        self._derived = {}
-
-    def _tail(self, up: torch.Tensor) -> torch.Tensor:
-        return self.conv3(F.relu(self.conv2(up)))
-
-    def _literal(self, h: torch.Tensor, shape) -> torch.Tensor:
-        return self._tail(resize_nchw(h, shape, "bilinear", False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(x)
-        n, m = h.shape[-2:]
-        if not self.fast_upsample:
-            return self._literal(h, (2 * n, 2 * m))
-        keff, b2, w3, b3 = cached_weights(
-            self._derived, "fast_upsample", [self.conv2, self.conv3],
-            lambda: (oihw(phase_kernel(hwio(self.conv2), _M_BILINEAR2)),
-                     self.conv2.bias.float().repeat(4),
-                     self.conv3.weight.float()[0, :, 0, 0],
-                     self.conv3.bias.float()))
-        z = F.conv2d(h, keff.to(h.dtype), padding=1).float()
-        z = F.relu(z + b2[None, :, None, None])
-        cm = w3.shape[0]
-        grid = torch.einsum("npchw,c->nphw",
-                            z.reshape(z.shape[0], 4, cm, n, m), w3) + b3
-        out = grid.reshape(-1, 2, 2, n, m).permute(0, 3, 1, 4, 2).reshape(
-            -1, 1, 2 * n, 2 * m)
-        top = self._literal(h[..., :3, :], (6, 2 * m))[..., :2, :]
-        bottom = self._literal(h[..., -3:, :], (6, 2 * m))[..., -2:, :]
-        out = torch.cat([top.float(), out[..., 2:-2, :], bottom.float()], -2)
-        left = self._literal(h[..., :3], (2 * n, 6))[..., :2]
-        right = self._literal(h[..., -3:], (2 * n, 6))[..., -2:]
-        return torch.cat([left.float(), out[..., 2:-2], right.float()], -1)
+        up = resize_nchw(h, (2 * h.shape[-2], 2 * h.shape[-1]), "bilinear",
+                         False)
+        return self.conv3(F.relu(self.conv2(up)))
 
 
 class ScaleMapLearner(nn.Module):

@@ -12,9 +12,6 @@ import torch
 
 # launches per kernel name; reset with LAUNCHES.clear()
 LAUNCHES: Counter = Counter()
-# RC-Net patch-decoder calls per path ("full", "tail", "literal"; see
-# models.rcnet.MultiScaleDecoder); reset with DECODES.clear()
-DECODES: Counter = Counter()
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:

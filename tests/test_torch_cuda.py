@@ -16,11 +16,11 @@ from collections import Counter
 import pytest
 import torch
 
-from riders_tpu_torch.models import dpt
+from riders_tpu_torch.models import dpt, lane_decode
+from riders_tpu_torch.models.lane_decode import DECODES
 from riders_tpu_torch.ops import patches
-from riders_tpu_torch.ops.kernels import (DECODES, LAUNCHES, attention,
-                                          compose, lane_decoder, roi_pool,
-                                          stem)
+from riders_tpu_torch.ops.kernels import (LAUNCHES, attention, compose,
+                                          lane_decoder, roi_pool, stem)
 
 
 @pytest.fixture
@@ -585,27 +585,29 @@ def _rcnet_decoder_call(dev, preset, B=3, K=30):
 @pytest.mark.parametrize("preset", ["ntu", "zju"])
 def test_rcnet_default_decoder_is_the_lane_decode_on_card(dev, preset,
                                                          monkeypatch):
-    """bf16 eval on the card at a patch batch of 90: the default decoder
-    is the lane decode (lane_mode="full" keeps the JAX package's
-    multiple-of-128 rule and refuses this batch), counted "full" with its
-    B7 / B8 launches; each of its B7 / B8 calls within one bf16 step of
-    the plain version on the same inputs, and the whole within 5% of the
-    literal logits' max of lane_mode="literal" (chip_smoke's
+    """bf16 eval on the card at a patch batch of 90 (no multiple of the
+    JAX kernels' 128): the decoder's forward is the lane decode, counted
+    "full" with its B7 / B8 launches and bitwise `decode_full`'s; each of
+    its B7 / B8 calls within one bf16 step of the plain version on the
+    same inputs, and the whole within 5% of the max of the literal
+    logits, which `literal` computes without a launch (chip_smoke's
     LANE_DECODE_BAR)."""
-    from riders_tpu_torch.experiments import lane_decode
     dec, (x, skips) = _rcnet_decoder_call(dev, preset)
     assert x.shape[0] % 128 != 0
     out, launched = {}, {}
     with torch.inference_mode():
-        for mode in (None, "literal"):
-            dec.lane_mode = mode
+        for name, run, decodes, kernels in (
+                ("default", dec, {"full": 1},
+                 {"lane_conv3x3", "lane_upconv2x"}),
+                ("literal", dec.literal, {}, set())):
             DECODES.clear()
             before = Counter(LAUNCHES)
-            out[mode] = dec(x, skips)
-            launched[mode] = dict(LAUNCHES - before)
-            assert dict(DECODES) == {"literal" if mode else "full": 1}
-            assert set(launched[mode]) == (set() if mode else {
-                "lane_conv3x3", "lane_upconv2x"})
+            out[name] = run(x, skips)
+            launched[name] = dict(LAUNCHES - before)
+            assert dict(DECODES) == decodes
+            assert set(launched[name]) == kernels
+        assert torch.equal(lane_decode.decode_full(dec, x, skips),
+                           out["default"])
         checked = Counter()
 
         def held(name):
@@ -621,17 +623,13 @@ def test_rcnet_default_decoder_is_the_lane_decode_on_card(dev, preset,
 
         for name in ("lane_conv3x3", "lane_upconv2x"):
             monkeypatch.setattr(lane_decode, name, held(name))
-        dec.lane_mode = None
-        assert torch.equal(dec(x, skips), out[None])
-        assert dict(checked) == launched[None]
+        assert torch.equal(dec(x, skips), out["default"])
+        assert dict(checked) == launched["default"]
         monkeypatch.undo()
-        dec.lane_mode = "full"
-        with pytest.raises(ValueError, match="multiple of 128"):
-            dec(x, skips)
     lit = out["literal"].float()
-    assert out[None].shape == lit.shape == (x.shape[0], 1) + tuple(
+    assert out["default"].shape == lit.shape == (x.shape[0], 1) + tuple(
         dec.output_shape)
-    rel = float((out[None].float() - lit).abs().max() / lit.abs().max())
+    rel = float((out["default"].float() - lit).abs().max() / lit.abs().max())
     assert rel < 0.05, rel
 
 
@@ -994,29 +992,23 @@ def test_nccl_world_of_one_sharded_fused_on_card(dev):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("form", ["fast_2x", "phase_tail",
-                                  "fast_upsample"])
+@pytest.mark.parametrize("form", ["fast_2x", "phase_tail"])
 def test_fast_forms_on_card_match_literal(dev, form):
     """Each fast form in bf16 on the card against the literal form on the
     same module, within two bf16 steps of the larger magnitude plus 2^-7
     of the output's max abs (both round each op's output in bf16, at
-    different points); the default (None) is the fast form for `fast_2x`
-    and `phase_tail`, the literal one for `fast_upsample`."""
+    different points); the default (None) is the fast form."""
     from riders_tpu_torch.models import layers
     from riders_tpu_torch.models.rcnet import MultiScaleDecoder
-    from riders_tpu_torch.models.sml import OutputConv
     torch.manual_seed(0)
     if form == "fast_2x":
         m = layers.UpConvBlock(12, 16, 3, layers.activation_fn(
             "leaky_relu"), True)
         args = (torch.randn(4, 12, 75, 25), (150, 50))
-    elif form == "phase_tail":
+    else:
         m = MultiScaleDecoder(24, [8, 16], (16, 16, 8), (32, 32))
         args = (torch.randn(6, 24, 4, 4), [torch.randn(6, 8, 16, 16),
                                            torch.randn(6, 16, 8, 8)])
-    else:
-        m = OutputConv(64)
-        args = (torch.randn(2, 64, 144, 176),)
     m = layers.init_random_(m).to(dev, torch.bfloat16).eval()
     args = [a.to(dev, torch.bfloat16) if isinstance(a, torch.Tensor) else
             [t.to(dev, torch.bfloat16) for t in a] if isinstance(a, list)
@@ -1028,9 +1020,8 @@ def test_fast_forms_on_card_match_literal(dev, form):
         fast = m(*args).float()
         setattr(m, form, None)
         default = m(*args).float()
-    # None takes the fast form for bf16 on the card, except the SML head
-    assert torch.equal(default, literal if form == "fast_upsample"
-                       else fast)
+    # None takes the fast form for bf16 on the card
+    assert torch.equal(default, fast)
     assert fast.shape == literal.shape
     assert not torch.equal(fast, literal)
     limit = 2 * 2 ** -7 * torch.maximum(fast.abs(), literal.abs()) + \

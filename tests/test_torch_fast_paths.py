@@ -1,17 +1,18 @@
 """The port's phase-composed fast forms against the JAX package's same
 forms and against the port's literal forms, on the CPU:
-`UpConvBlock(fast_2x=True)`, `MultiScaleDecoder(phase_tail=True)` and
-`OutputConv(fast_upsample=True)`, on the JAX modules' variables (BN
-statistics moved away from 0 / 1) carried across by models.from_jax, at
-the shapes of tests/test_models.py's tests of these forms.
+`UpConvBlock(fast_2x=True)` and `MultiScaleDecoder(phase_tail=True)`, on
+the JAX modules' variables (BN statistics moved away from 0 / 1) carried
+across by models.from_jax, at the shapes of tests/test_models.py's tests
+of these forms; and the SML's output head, which the port keeps literal,
+against JAX's literal head (`OutputConv(fast_upsample=False)`).
 
-* f32: against JAX's fast form at rtol 1e-4 (atol 1e-5 of the output's
-  max abs); against the port's literal form at the bar of JAX's own test
-  of that form (rtol 1e-4 / atol 1e-5 for the upconv and the head,
+* f32: against JAX's form at rtol 1e-4 (atol 1e-5 of the output's max
+  abs); a fast form also against the port's literal form at the bar of
+  JAX's own test of that form (rtol 1e-4 / atol 1e-5 for the upconv,
   rtol 1e-3 / atol 2e-4 for the decoder tail).
 * bf16, on variables rounded to bf16 so both packages hold the same
-  weights: against JAX's fast form within one bf16 step (2^-7 of the
-  larger magnitude, plus 2^-7 of the output's max abs).
+  weights: against JAX's form within one bf16 step (2^-7 of the larger
+  magnitude, plus 2^-7 of the output's max abs).
 * `None` keeps the literal form off the card (on the card it takes the
   fast form for bf16 `fast_2x` and `phase_tail`, tests/test_torch_cuda.py);
   a target that is not exactly x2 falls back to it.
@@ -100,26 +101,8 @@ def _decoder(rng):
         t, [s.to(t.dtype) for s in t_skips])
 
 
-def _head(rng, hw=(15, 21)):
-    x = rng.standard_normal((2,) + hw + (64,)).astype(np.float32)
-    variables = perturbed(jax.jit(JaxOutputConv(64).init)(
-        jax.random.PRNGKey(0), jnp.asarray(x)), rng)
-
-    def port(dtype, fast):
-        m = OutputConv(64, fast_upsample=fast)
-        return load_jax_variables(m, variables).to(dtype).eval()
-
-    def jax_fn(v, dtype, x):
-        return jax.jit(JaxOutputConv(64, dtype=dtype,
-                                     fast_upsample=True).apply)(v, x)
-    return x, variables, port, jax_fn, lambda m, t: m(t)
-
-
 FORMS = {"fast_2x": (_upconv, (1e-4, 1e-5)),
-         "phase_tail": (_decoder, (1e-3, 2e-4)),
-         "fast_upsample": (_head, (1e-4, 1e-5)),
-         "fast_upsample_72x88": (lambda rng: _head(rng, (72, 88)),
-                                 (1e-4, 1e-5))}
+         "phase_tail": (_decoder, (1e-3, 2e-4))}
 
 
 @pytest.mark.parametrize("form", sorted(FORMS))
@@ -179,3 +162,30 @@ def test_phase_form_default_is_literal_on_the_cpu(dtype):
     assert layers.phase_form_on(True, x) is True
     assert layers.phase_form_on(False, x) is False
     assert layers.phase_form_on(None, x) is False
+
+
+@pytest.mark.parametrize("hw", [(15, 21), (72, 88)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_output_head_matches_jax(dtype, hw):
+    """The SML's output head against JAX's literal head in f32 (rtol 1e-4,
+    atol 1e-5 of the max) and in bf16 (one bf16 step)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2,) + hw + (64,)).astype(np.float32)
+    variables = perturbed(jax.jit(JaxOutputConv(64).init)(
+        jax.random.PRNGKey(0), jnp.asarray(x)), rng)
+    if dtype == "bfloat16":
+        variables = _to_bf16(variables)
+        x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    t_dtype, j_dtype = getattr(torch, dtype), getattr(jnp, dtype)
+    head = load_jax_variables(OutputConv(64), variables).to(t_dtype).eval()
+    with torch.no_grad():
+        got = _nhwc(head(torch.from_numpy(x).permute(0, 3, 1, 2).to(
+            t_dtype)))
+    want = np.asarray(jax.jit(JaxOutputConv(
+        64, dtype=j_dtype, fast_upsample=False).apply)(
+            variables, jnp.asarray(x, j_dtype)), np.float32)
+    assert got.shape == want.shape == (2, 2 * hw[0], 2 * hw[1], 1)
+    if dtype == "float32":
+        _check(got, want, 1e-4, 1e-5)
+    else:
+        _bf16_close(got, want)

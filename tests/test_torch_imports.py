@@ -59,7 +59,7 @@ def test_package_imports_without_cuda_nvcc_or_triton(tmp_path):
         "        'core.normalization', 'pipelines.drivers', 'models.dpt',\n"
         "        'models.factory', 'models.convert', 'models.swin2',\n"
         "        'models.levit', 'models.next_vit', 'parallel.sharding',\n"
-        "        'ops.fold', 'models.sml_folded']\n"
+        "        'ops.fold', 'models.sml_folded', 'models.lane_decode']\n"
         "assert all('riders_tpu_torch.' + m in sys.modules for m in need)\n"
         "bad = [m for m in ('jax', 'flax', 'triton', 'riders_tpu')\n"
         "       if m in sys.modules]\n"

@@ -11,20 +11,19 @@ moved first before the comparison.
 Helpers: the phase compositions and depth_to_space2 exactly (f32), the
 nearest resize bitwise.
 
-Decoder: the port's MultiScaleDecoder with lane_mode "full" and "tail",
+Decoder: `lane_decode.decode_full` on the port's MultiScaleDecoder
 holding a JAX decoder's variables, against JAX's literal bf16 decoder
 (phase_tail=False) within 5% of its max, the bar of JAX's own lane tests
-(tests/test_lane_decoder.py); at an exact-x2 patch and at NTU's
-irregular pyramid.  The tail against JAX's own lane tail is in
-tests/test_torch_lane_tail.py.
+(tests/test_lane_decoder.py); at an exact-x2 patch, at NTU's and ZJU's
+irregular pyramids, and at a patch batch that is no multiple of 128.
+decode_full refuses each decoder `lane_decode.unsupported` names.
 
-The default path: `lane_decode.default_path` is "full" for a bf16 CUDA
-input in eval with grad disabled on the decoder decode_full decodes, and
-"literal" off any of these; the default decoder on the CPU, in f32, in
-train mode, with grad enabled, with several resolutions or without BN
-runs the literal path, counts it in `ops.kernels.DECODES`, and equals
-lane_mode="literal" bit for bit.  The lane path itself on the card is in
-tests/test_torch_cuda.py.
+The path: `lane_decode.decode_path` is "full" for a bf16 CUDA input in
+eval with grad disabled on the decoder decode_full decodes, and
+"literal" off any of these; the decoder's forward on each such input
+runs `literal` without an error, counts "literal" in
+`lane_decode.DECODES`, and equals `literal` bit for bit.  The lane path
+itself on the card is in tests/test_torch_cuda.py.
 """
 
 import copy
@@ -39,16 +38,16 @@ import jax.numpy as jnp
 from riders_tpu.models import layers as JL
 from riders_tpu.models.rcnet import MultiScaleDecoder as JaxDecoder
 from riders_tpu.ops.pallas import lane_decoder as LD
-from riders_tpu_torch.experiments import lane_decode
+from riders_tpu_torch.models import lane_decode
 from riders_tpu_torch.models import layers as TL
 from riders_tpu_torch.models.from_jax import load_jax_variables
+from riders_tpu_torch.models.lane_decode import DECODES
 from riders_tpu_torch.models.rcnet import MultiScaleDecoder
-from riders_tpu_torch.ops.kernels import DECODES
 from riders_tpu_torch.ops.kernels import lane_decoder as TLD
 from riders_tpu_torch.ops.resize import resize2d
 from torch_common import perturbed
 
-N = 128                     # the smallest patch batch the lane path takes
+N = 128                     # the JAX lane kernels' smallest patch batch
 FILTERS = (16, 16, 8, 8, 8)
 SKIP_CH = (8, 8, 16, 16)
 X_CH = 16
@@ -179,10 +178,10 @@ def test_lane_nearest_gather_equals_resize2d_bitwise(rng, hw, out_hw):
     assert torch.equal(got, resize2d(x, out_hw, "nearest"))
 
 
-def _decoder_case(rng, patch, skips_hw):
+def _decoder_case(rng, patch, skips_hw, n=N):
     lh, lw = patch[0] // 32, patch[1] // 32
-    x = rng.standard_normal((N, lh, lw, X_CH)).astype(np.float32)
-    skips = [rng.standard_normal((N, h, w, c)).astype(np.float32)
+    x = rng.standard_normal((n, lh, lw, X_CH)).astype(np.float32)
+    skips = [rng.standard_normal((n, h, w, c)).astype(np.float32)
              for (h, w), c in zip(skips_hw, SKIP_CH)]
     dec = JaxDecoder(FILTERS, patch, 1, "leaky_relu", True,
                      dtype=jnp.bfloat16, phase_tail=False)
@@ -193,87 +192,97 @@ def _decoder_case(rng, patch, skips_hw):
     return variables, nchw(x), [nchw(s) for s in skips], want
 
 
-def _port_decoder(variables, patch, lane_mode):
-    port = MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch,
-                             lane_mode=lane_mode)
+def _port_decoder(variables, patch):
+    port = MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch)
     return load_jax_variables(port, variables).eval()
 
 
 GEOMETRIES = {
     "x2_64x32": ((64, 32), [(32, 16), (16, 8), (8, 4), (4, 2)]),
     "ntu_150x50": ((150, 50), [(75, 25), (37, 12), (18, 6), (9, 3)]),
+    "zju_240x100": ((240, 100), [(120, 50), (60, 25), (30, 12), (15, 6)]),
 }
+# (geometry, patch batch); 90 is no multiple of the JAX kernels' 128
+DECODE_CASES = {"x2_64x32": ("x2_64x32", N), "ntu_150x50": ("ntu_150x50", N),
+                "zju_240x100": ("zju_240x100", N),
+                "ntu_150x50_n90": ("ntu_150x50", 90)}
 
 
-@pytest.mark.parametrize("lane_mode", ["full", "tail"])
-@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
-def test_lane_decoder_matches_jax_literal_bf16(rng, geometry, lane_mode):
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_lane_decoder_matches_jax_literal_bf16(rng, case):
+    geometry, n = DECODE_CASES[case]
     patch, skips_hw = GEOMETRIES[geometry]
-    variables, x, skips, want = _decoder_case(rng, patch, skips_hw)
-    port = _port_decoder(variables, patch, lane_mode)
+    variables, x, skips, want = _decoder_case(rng, patch, skips_hw, n)
+    port = _port_decoder(variables, patch)
     with torch.no_grad():
-        got = port(x, skips).permute(0, 2, 3, 1).float().numpy()
-    assert got.shape == want.shape == (N,) + patch + (1,)
+        got = lane_decode.decode_full(port, x, skips)
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    assert got.shape == want.shape == (n,) + patch + (1,)
     assert np.isfinite(got).all()
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < 0.05, rel
 
 
-def test_lane_mode_is_eval_only_and_checks_eligibility(rng):
-    """Train mode runs the literal path (as in JAX); eval with grad
-    enabled raises (no backward); a batch that is not a multiple of 128
-    is refused, as JAX refuses it."""
-    patch, skips_hw = GEOMETRIES["x2_64x32"]
-    variables, x, skips, _ = _decoder_case(rng, patch, skips_hw)
-    port = _port_decoder(variables, patch, "full")
-    literal = _port_decoder(variables, patch, None)
-    with torch.no_grad():
-        port.train()
-        literal.train()
-        torch.testing.assert_close(port(x[:4], [s[:4] for s in skips]),
-                                   literal(x[:4], [s[:4] for s in skips]))
-    port.eval()
-    with pytest.raises(RuntimeError, match="no backward"):
-        port(x, skips)
-    with torch.no_grad(), pytest.raises(ValueError, match="multiple of 128"):
-        port(x[:64], [s[:64] for s in skips])
-    with pytest.raises(ValueError):
-        MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch, lane_mode="half")
+def test_decode_full_refuses_a_decoder_it_cannot_decode(rng):
+    """decode_full raises ValueError with `unsupported`'s reason on each
+    decoder or skip list it does not decode, before any work."""
+    x, skips = _inputs(rng, 2)
+    refused = [
+        (dict(use_batch_norm=False), skips),
+        (dict(activation="relu"), skips),
+        (dict(n_resolution=2), skips),
+        (dict(output_func="upsample"), skips),
+        (dict(output_channels=2), skips),
+        (dict(output_func="sigmoid"), skips),
+        (dict(n_filters=FILTERS[1:], skip_channels=SKIP_CH[1:]),
+         skips[1:]),
+        ({}, skips[:3]),
+        ({}, [torch.zeros(2, SKIP_CH[0], 31, 16)] + skips[1:]),
+    ]
+    for kw, given in refused:
+        dec = _decoder(**kw)
+        reason = lane_decode.unsupported(dec, len(given),
+                                         tuple(given[0].shape[-2:]))
+        assert reason, kw
+        with torch.no_grad(), pytest.raises(ValueError) as info:
+            lane_decode.decode_full(dec, x, given)
+        assert str(info.value) == reason
 
 
 def test_lane_weights_are_packed_once_and_follow_the_parameters(rng):
     patch, skips_hw = GEOMETRIES["x2_64x32"]
     variables, x, skips, _ = _decoder_case(rng, patch, skips_hw)
-    port = _port_decoder(variables, patch, "full")
+    port = _port_decoder(variables, patch)
+    decode = lambda: lane_decode.decode_full(port, x, skips)
     with torch.no_grad():
-        first = port(x, skips)
+        first = decode()
         packed = {k: id(v[1]) for k, v in port._lane_packed.items()}
         assert len(packed) == 9              # 4 upconvs, 4 fusions, tail
-        again = port(x, skips)
+        again = decode()
         assert {k: id(v[1]) for k, v in port._lane_packed.items()} == packed
         torch.testing.assert_close(first, again, rtol=0, atol=0)
         port.output0.conv.weight.mul_(2.0)
-        port(x, skips)
+        decode()
     assert id(port._lane_packed["tail"][1]) != packed["tail"]
 
 
-# ---- the default path: the lane decode for bf16 inference on the card ----
+# ---- the path: the lane decode for bf16 inference on the card ----
 
-def _decoder(**kw):
-    """A narrow depth-5 decoder at the 64x32 geometry, BN statistics
-    moved off their initial values."""
+def _decoder(n_filters=FILTERS, skip_channels=SKIP_CH, **kw):
+    """A narrow decoder at the 64x32 geometry, BN statistics moved off
+    their initial values."""
     patch = GEOMETRIES["x2_64x32"][0]
-    return TL.init_random_(MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch,
-                                             **kw), 3).eval()
+    return TL.init_random_(MultiScaleDecoder(X_CH, skip_channels, n_filters,
+                                             patch, **kw), 3).eval()
 
 
-def _inputs(rng, n, dtype=torch.float32):
-    patch, skips_hw = GEOMETRIES["x2_64x32"]
+def _inputs(rng, n, dtype=torch.float32, skips_hw=None, skip_ch=SKIP_CH):
+    patch, default_hw = GEOMETRIES["x2_64x32"]
     x = torch.from_numpy(rng.standard_normal(
         (n, X_CH, patch[0] // 32, patch[1] // 32)).astype(np.float32))
     skips = [torch.from_numpy(rng.standard_normal(
-        (n, c, h, w)).astype(np.float32)) for (h, w), c in zip(skips_hw,
-                                                              SKIP_CH)]
+        (n, c, h, w)).astype(np.float32))
+        for (h, w), c in zip(skips_hw or default_hw, skip_ch)]
     return x.to(dtype), [s.to(dtype) for s in skips]
 
 
@@ -296,28 +305,29 @@ OFF_PATH = {
 }
 
 
-def _default_path(decoder=None, n_skips=4, skip1_hw=(32, 16), **kw):
+def _decode_path(decoder=None, n_skips=4, skip1_hw=(32, 16), **kw):
     patch = GEOMETRIES["x2_64x32"][0]
     decoder = decoder or {}
     filters = decoder.pop("n_filters", FILTERS)
     dec = MultiScaleDecoder(X_CH, SKIP_CH[-(len(filters) - 1):], filters,
                             patch, **decoder)
-    return lane_decode.default_path(**dict(ELIGIBLE, **kw), dec=dec,
-                                    n_skips=n_skips, skip1_hw=skip1_hw)
+    return lane_decode.decode_path(**dict(ELIGIBLE, **kw), dec=dec,
+                                   n_skips=n_skips, skip1_hw=skip1_hw)
 
 
 def test_default_path_is_full_for_bf16_inference_on_the_card():
     """The choice is a function of what the decoder observes: a bf16
     CUDA input in eval with grad disabled, on the decoder decode_full
     decodes, whatever the patch batch (no multiple-of-128 rule)."""
-    assert _default_path() == "full"
+    assert _decode_path() == "full"
 
 
 @pytest.mark.parametrize("case", sorted(OFF_PATH))
 def test_default_path_is_literal_off_the_lane_decode(case):
-    assert _default_path(**OFF_PATH[case]) == "literal"
+    assert _decode_path(**OFF_PATH[case]) == "literal"
 
 
+X2_HW = GEOMETRIES["x2_64x32"][1]
 DEFAULT_LITERAL = {
     "cpu_bf16": dict(dtype=torch.bfloat16),
     "f32": dict(),
@@ -325,57 +335,63 @@ DEFAULT_LITERAL = {
     "grad_enabled": dict(grad=True),
     "several_resolutions": dict(decoder=dict(n_resolution=2)),
     "no_batch_norm": dict(decoder=dict(use_batch_norm=False)),
+    "relu": dict(decoder=dict(activation="relu")),
+    "two_output_channels": dict(decoder=dict(output_channels=2)),
+    "sigmoid_output": dict(decoder=dict(output_func="sigmoid")),
+    "depth_4": dict(decoder=dict(n_filters=FILTERS[1:],
+                                 skip_channels=SKIP_CH[:3]),
+                    inputs=dict(skips_hw=X2_HW[:3], skip_ch=SKIP_CH[:3])),
+    "output_not_x2": dict(inputs=dict(skips_hw=[(31, 16)] + X2_HW[1:])),
+    "full_resolution_skip": dict(
+        decoder=dict(skip_channels=(4,) + SKIP_CH),
+        inputs=dict(skips_hw=[(64, 32)] + X2_HW, skip_ch=(4,) + SKIP_CH)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(DEFAULT_LITERAL))
 def test_default_decoder_takes_the_literal_path_off_the_card(rng, case):
-    """The default decoder on each input it must not decode in full runs
-    the literal path without an error, counts "literal" in DECODES, and
-    equals lane_mode="literal" bit for bit."""
+    """The decoder's forward on each input it must not decode in full
+    runs the literal path without an error, counts "literal" in DECODES,
+    and equals `literal` bit for bit."""
     kw = DEFAULT_LITERAL[case]
     dtype = kw.get("dtype", torch.float32)
     dec = _decoder(**kw.get("decoder", {})).to(dtype)
-    forced = copy.deepcopy(dec)
-    forced.lane_mode = "literal"
     if kw.get("train"):
         dec.train()
-        forced.train()
-    x, skips = _inputs(rng, 6, dtype)
+    forced = copy.deepcopy(dec)
+    x, skips = _inputs(rng, 6, dtype, **kw.get("inputs", {}))
     with torch.set_grad_enabled(bool(kw.get("grad"))):
         DECODES.clear()
         got = dec(x, skips)
         assert dict(DECODES) == {"literal": 1}
-        want = forced(x, skips)
-        assert dict(DECODES) == {"literal": 2}
+        want = forced.literal(x, skips)
+        assert dict(DECODES) == {"literal": 1}
     for a, b in zip(got if isinstance(got, list) else [got],
                     want if isinstance(want, list) else [want]):
         assert a.dtype == dtype
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("mode", ["full", "tail", "literal"])
-def test_decodes_counts_each_call_by_path(rng, mode):
-    """An explicit lane_mode counts its path once a call, in eval with
-    grad disabled; in train mode every mode counts "literal"."""
-    dec = _decoder(lane_mode=mode)
+@pytest.mark.parametrize("mode", ["full", "literal"])
+def test_decodes_counts_each_call_by_path(rng, mode, monkeypatch):
+    """The forward counts its path once a call, in eval with grad
+    disabled; in train mode it counts "literal".  "full" is reached on
+    the CPU by asking `decode_path` as for a bf16 input on the card."""
+    real = lane_decode.decode_path
+    if mode == "full":
+        monkeypatch.setattr(lane_decode, "decode_path",
+                            lambda dtype, device, *a: real(
+                                torch.bfloat16, "cuda", *a))
+    dec = _decoder()
     x, skips = _inputs(rng, N)
     DECODES.clear()
     with torch.no_grad():
-        dec(x, skips)
+        got = dec(x, skips)
         assert dict(DECODES) == {mode: 1}
+        want = (lane_decode.decode_full if mode == "full" else
+                type(dec).literal)(dec, x, skips)
+        assert torch.equal(got, want)
         dec.train()
         dec(x[:4], [s[:4] for s in skips])
     assert dict(DECODES) == ({mode: 1, "literal": 1} if mode != "literal"
                              else {"literal": 2})
-
-
-def test_literal_lane_mode_takes_every_decoder():
-    """"literal" is the one explicit mode a multi-resolution decoder
-    takes; "full" is refused there as before."""
-    patch = GEOMETRIES["x2_64x32"][0]
-    MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch, n_resolution=3,
-                      lane_mode="literal")
-    with pytest.raises(ValueError, match="single-resolution"):
-        MultiScaleDecoder(X_CH, SKIP_CH, FILTERS, patch, n_resolution=3,
-                          lane_mode="full")

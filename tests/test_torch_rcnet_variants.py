@@ -215,18 +215,11 @@ def test_multiscale_decoder_matches_jax(rng, depth, n_res, output_func,
                                    atol=1e-5 * np.abs(b).max())
 
 
-def test_decoder_refuses_lane_mode_with_several_resolutions():
-    """JAX's lane decode asserts n_resolution == 1 and one output
-    channel; the port refuses either when the decoder is built, and an
-    n_resolution past depth - 1 as JAX does."""
-    with pytest.raises(ValueError, match="single-resolution"):
-        MultiScaleDecoder(64, [8, 16, 32, 32], n_resolution=3,
-                          lane_mode="full")
-    with pytest.raises(ValueError, match="one output channel"):
-        MultiScaleDecoder(64, [8, 16, 32, 32], output_channels=2,
-                          lane_mode="tail")
-    with pytest.raises(ValueError, match="n_resolution"):
-        MultiScaleDecoder(64, [8, 16, 32, 32], n_resolution=5)
+def test_decoder_refuses_an_n_resolution_outside_its_depth():
+    """n_resolution runs from 1 to depth - 1, as in the JAX package."""
+    for n_resolution in (0, 5):
+        with pytest.raises(ValueError, match="n_resolution"):
+            MultiScaleDecoder(64, [8, 16, 32, 32], n_resolution=n_resolution)
 
 
 def test_rcnet_all_scales_match_jax(rng):
