@@ -30,6 +30,8 @@ pipeline on the card against the CPU's goldens.
                                           # rank a card
     python3 chip_smoke.py --bench         # phase 1, then phase 15 alone
     python3 chip_smoke.py --goldens       # phase 1, then phase 16 alone
+    python3 chip_smoke.py --golden-section  # phase 1, then phase 17
+                                          # alone
     python3 chip_smoke.py --determinism   # phase 1, then 13d alone: the
                                           # f64 SML step's run-to-run
                                           # spread in five determinism
@@ -243,14 +245,28 @@ Phases, each fatal on failure:
      run and the stage-2 maps' card-vs-CPU deviation; beside it, reported
      and not judged, the fused phases' He-normal SML through the same
      tool and the bf16 drift of both SMLs at the backbone's four taps.
+  17. stage 1's golden-section search (csrc/golden_section.cu): (a) the
+     kernel at the cells' rows, (64, 512) and (16, 512) with 96 and 64
+     returns a frame, against the plain loop on the card (the float64
+     objective at the kernel's scale within 1e-6 relative of the one at
+     the loop's), an all-zero-mask batch bitwise the loop's, one launch
+     a call; graph-replay (the device alone), back-to-back and
+     synchronised us of the kernel beside the loop's synchronised and
+     back-to-back ms; (b) the fused call at the
+     lite cells' shapes (NTU and ZJU, B=64, 96 and 64 returns a frame,
+     bf16, full width): one launch a call and no plain loop on the card,
+     then host ms (call to return) and synchronised ms a call with the
+     kernel and with the plain loop patched in, in alternating pairs.
 Report lines: the card's name and power limit, one {"kernels": [...]}
 line, one fused line, one lane_decoder line, one training line, one
 staged line, one training_cli line, one dpt line, one dpt_families line,
 one rcnet_variants line, one parallel line, one bench line, one
-goldens line; the last line is {"ok": true, "device": {...}}.  Details go to
+goldens line, one golden_section line; the last line is {"ok": true,
+"device": {...}}.  Details go to
 chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import copy
 import inspect
 import json
@@ -4586,6 +4602,178 @@ def goldens_only(smi):
     return 0
 
 
+GOLDEN_ROWS = ((64, 96), (16, 96), (64, 64))   # (frames, returns), N=512
+GOLDEN_BOUNDS = (0.01, 0.3)                    # the presets' bounds_inv
+GOLDEN_CELLS = {"ntu": (FRAME, 96), "zju": (ZJU_FRAME, 64)}
+
+
+def golden_rows(g, B, valid, n=512):
+    """(p, t, m) rows on the card as the fused call gathers them: `valid`
+    returns (the prior (1 / z) / 0.05 with 5% noise against the radar's
+    inverse depth with 2%), the rest of the bucket prior values under a
+    zero mask."""
+    import torch
+    z = 5.0 + 50.0 * torch.rand((B, n), generator=g, device="cuda")
+    p = (1.0 / z) / 0.05 * (1.0 + 0.05 * torch.randn(
+        (B, n), generator=g, device="cuda"))
+    m = torch.zeros((B, n), device="cuda")
+    m[:, :valid] = 1.0
+    t = (1.0 / z) * (1.0 + 0.02 * torch.randn(
+        (B, n), generator=g, device="cuda")) * m
+    return p, t, m
+
+
+def check_golden_section(seed=0, iterations=64):
+    """Phase 17a: the kernel against the plain loop at GOLDEN_ROWS."""
+    import torch
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.ops.kernels.golden_section import (
+        golden_section, golden_section_plain)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for B, valid in GOLDEN_ROWS:
+        p, t, m = golden_rows(g, B, valid)
+        args = (GOLDEN_BOUNDS, iterations)
+        n0 = LAUNCHES["golden_section"]
+        got = golden_section(p, t, m, *args)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["golden_section"] - n0
+        plain = golden_section_plain(p, t, m, *args)
+        f64 = [(m.double() * (s.double()[:, None] * p.double()
+                              - t.double()).abs()).sum(1)
+               for s in (got, plain)]
+        obj_rel = float(((f64[0] - f64[1]).abs() / f64[1]).max())
+        zero = torch.zeros_like(m)
+        zero_bitwise = torch.equal(golden_section(p, t, zero, *args),
+                                   golden_section_plain(p, t, zero, *args))
+        rec = dict(
+            frames=B, n=p.shape[1], returns=valid, iterations=iterations,
+            launches=launches, objective_max_rel=obj_rel,
+            scale_max_rel=float(((got - plain).abs() / plain).max()),
+            zero_mask_bitwise=zero_bitwise,
+            b2b_us=1e3 * device_ms(lambda: golden_section(p, t, m, *args),
+                                   n=200),
+            sync_us=1e3 * time_ms(lambda: golden_section(p, t, m, *args),
+                                  n=50),
+            graph_us=1e3 * graph_ms(lambda: golden_section(p, t, m, *args)),
+            plain_sync_ms=time_ms(lambda: golden_section_plain(p, t, m,
+                                                               *args),
+                                  n=10),
+            plain_b2b_ms=device_ms(lambda: golden_section_plain(p, t, m,
+                                                                *args),
+                                   n=10))
+        log(f"golden section {B}x{p.shape[1]} ({valid} returns): "
+            f"{json.dumps(rec)}")
+        out[f"{B}x{p.shape[1]}_{valid}"] = rec
+        if launches != 1 or obj_rel > 1e-6 or not zero_bitwise:
+            raise AssertionError(f"golden section {B}x{valid}: {rec}")
+    return out
+
+
+def golden_fused(preset, B=64, n=20, seed=0):
+    """Phase 17b: the fused call at a lite cell's shapes, the kernel
+    against the plain loop patched into `alignment`."""
+    import dataclasses
+    import torch
+    from unittest import mock
+    from riders_tpu_torch.core.config import ntu_config, zju_config
+    from riders_tpu_torch.ops import alignment
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.ops.kernels import golden_section as gs
+    from riders_tpu_torch.pipelines.fused import make_fused_fn
+    frame, bucket = GOLDEN_CELLS[preset]
+    cfg = (ntu_config if preset == "ntu" else zju_config)()
+    cfg = cfg.replace(dataset=dataclasses.replace(
+        cfg.dataset, image_shape=frame, max_points=bucket))
+    rcnet, sml = build_models(cfg, seed, None, torch.bfloat16)
+    fn = make_fused_fn(cfg, rcnet, sml)
+    batch = make_batch(seed + 30, B, bucket, bucket, frame, "cuda")
+    plain_calls = []
+
+    def plain(*args):
+        plain_calls.append(args[0].device.type)
+        return gs.golden_section_plain(*args)
+
+    with torch.inference_mode():
+        fn(batch)
+        torch.cuda.synchronize()
+        n0 = LAUNCHES["golden_section"]
+        with mock.patch.object(gs, "golden_section_plain", plain):
+            fn(batch)
+            torch.cuda.synchronize()
+        launches = LAUNCHES["golden_section"] - n0
+        if launches != 1 or plain_calls:
+            raise AssertionError(f"golden section [{preset}]: {launches} "
+                                 f"launches a fused call, plain loop on "
+                                 f"{plain_calls}")
+        times = {"kernel": ([], []), "plain": ([], [])}
+        for i in range(2 * n + 2):
+            side = ("kernel", "plain")[(i + i // 2) % 2]
+            patch = (mock.patch.object(alignment, "golden_section",
+                                       gs.golden_section_plain)
+                     if side == "plain" else contextlib.nullcontext())
+            with patch:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(batch)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            if i >= 2:
+                times[side][0].append(1e3 * (t1 - t0))
+                times[side][1].append(1e3 * (t2 - t0))
+    rec = dict(preset=preset, batch=B, frame=list(frame), returns=bucket,
+               launches_per_call=launches, calls_each=n)
+    for side, (host, sync) in times.items():
+        rec[f"{side}_host_ms"] = statistics.median(host)
+        rec[f"{side}_sync_ms"] = statistics.median(sync)
+    rec["host_ms_saved"] = rec["plain_host_ms"] - rec["kernel_host_ms"]
+    rec["sync_ms_saved"] = rec["plain_sync_ms"] - rec["kernel_sync_ms"]
+    log(f"golden section fused [{preset}]: {json.dumps(rec)}")
+    del fn, rcnet, sml, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def golden_section_phase():
+    """Phase 17: 17a, then 17b at NTU and ZJU."""
+    t0 = time.perf_counter()
+    out = dict(kernel=check_golden_section(),
+               fused={p: golden_fused(p) for p in GOLDEN_CELLS})
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def golden_section_line(smi, gsec):
+    """The phase-17 summary line."""
+    return {"golden_section": dict(
+        card=smi, replaces="riders_tpu/ops/alignment.py:_golden_section "
+                           "(lax.fori_loop)",
+        source="riders_tpu_torch/csrc/golden_section.cu",
+        kernel={k: {f: r[f] for f in ("graph_us", "b2b_us", "sync_us",
+                                      "plain_sync_ms", "plain_b2b_ms",
+                                      "objective_max_rel", "scale_max_rel",
+                                      "zero_mask_bitwise")}
+                for k, r in gsec["kernel"].items()},
+        fused={p: {f: r[f] for f in (
+            "launches_per_call", "kernel_host_ms", "plain_host_ms",
+            "host_ms_saved", "kernel_sync_ms", "plain_sync_ms",
+            "sync_ms_saved")} for p, r in gsec["fused"].items()},
+        seconds=gsec["seconds"])}
+
+
+def golden_section_only(smi):
+    """`--golden-section`: phase 1, then phase 17 alone."""
+    gsec = golden_section_phase()
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_golden_section.json").write_text(
+        json.dumps(gsec, indent=1))
+    log(json.dumps(golden_section_line(smi, gsec)))
+    log(smi)
+    return 0
+
+
 def profile(fn, batch, path):
     """Device time by kernel for one call of `fn` (torch.profiler), and
     the same by operator and input shapes (written to `path` only)."""
@@ -4698,6 +4886,8 @@ def main(argv):
         return determinism_only(smi)
     if "--lane" in argv:
         return lane_only(smi)
+    if "--golden-section" in argv:
+        return golden_section_only(smi)
 
     kernels = {g: check_kernels(g) for g in GEOMETRIES}
     for g, recs in kernels.items():
@@ -4778,6 +4968,7 @@ def main(argv):
     bench_rec = bench_phase(agree["cpu_bf16_vs_cpu_f32"])
     torch.cuda.empty_cache()
     golden = goldens_phase(smi)
+    gsec = golden_section_phase()
 
     sources = {"stem": "riders_tpu_torch/csrc/stem.cu",
                "roi_pool": "riders_tpu_torch/csrc/roi_pool.cu",
@@ -4833,7 +5024,7 @@ def main(argv):
                    training_agreement=train_agree, staged=staged,
                    cli=cli_runs, dpt=dpt, dpt_families=families,
                    rcnet_variants=variants, parallel=par, fast_paths=fast,
-                   bench=bench_rec, goldens=golden)
+                   bench=bench_rec, goldens=golden, golden_section=gsec)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
@@ -4895,6 +5086,7 @@ def main(argv):
     log(json.dumps({"parallel": parallel_line(smi, par, fast)}))
     log(json.dumps({"bench": bench_line(smi, bench_rec)}))
     log(json.dumps({"goldens": goldens_line(smi, golden)}))
+    log(json.dumps(golden_section_line(smi, gsec)))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

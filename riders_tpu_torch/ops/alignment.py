@@ -4,9 +4,10 @@ Batched over frames: maps are (B, H, W) and each frame gets its own
 scale (and shift).  The bounded scale-only L1 solve is a golden-section
 search with a fixed iteration count, the same update rule (`fc < fd`)
 and the same valid-pixel gather as the JAX package, so both converge to
-the same point.  `scale_shift_ls` is the closed-form scale and shift
-least squares; `scale_shift_ransac` fits it to random 5-pixel samples
-and keeps the hypothesis with the most inliers.
+the same point; on the card the search is one kernel
+(`ops/kernels/golden_section.py`).  `scale_shift_ls` is the closed-form
+scale and shift least squares; `scale_shift_ransac` fits it to random
+5-pixel samples and keeps the hypothesis with the most inliers.
 """
 
 from __future__ import annotations
@@ -15,9 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-# 1/phi and 1/phi^2 for golden-section interval reduction.
-_INVPHI = 0.6180339887498949
-_INVPHI2 = 0.3819660112501051
+from riders_tpu_torch.ops.kernels.golden_section import golden_section
 
 
 def scale_shift_ls(prediction: torch.Tensor, target: torch.Tensor,
@@ -89,12 +88,6 @@ def scale_shift_ransac(prediction: torch.Tensor, target: torch.Tensor,
     return scale[best], shift[best]
 
 
-def _l1_objective(s: torch.Tensor, p: torch.Tensor, t: torch.Tensor,
-                  m: torch.Tensor) -> torch.Tensor:
-    """sum(m * |s * p - t|) per frame; s is (B,), p/t/m are (B, N)."""
-    return torch.sum(m * torch.abs(s[:, None] * p - t), dim=1)
-
-
 def optimize_scale(prediction: torch.Tensor,
                    target: torch.Tensor,
                    mask: torch.Tensor,
@@ -119,35 +112,8 @@ def optimize_scale(prediction: torch.Tensor,
         idx = torch.sort(m, dim=1, descending=True,
                          stable=True).indices[:, :gather_bucket]
         p, t, m = p.gather(1, idx), t.gather(1, idx), m.gather(1, idx)
-    return _golden_section(p, t, m, bounds, iterations)
-
-
-def _golden_section(p, t, m, bounds, iterations) -> torch.Tensor:
-    B = p.shape[0]
-    lo = torch.full((B,), bounds[0], dtype=torch.float32, device=p.device)
-    hi = torch.full((B,), bounds[1], dtype=torch.float32, device=p.device)
-    c = lo + _INVPHI2 * (hi - lo)
-    d = lo + _INVPHI * (hi - lo)
-    fc = _l1_objective(c, p, t, m)
-    fd = _l1_objective(d, p, t, m)
-    for _ in range(iterations):
-        left = fc < fd
-        new_lo = torch.where(left, lo, c)
-        new_hi = torch.where(left, d, hi)
-        # One interior point carries over; the other is recomputed.
-        new_d = torch.where(left, c, d)
-        new_fd = torch.where(left, fc, fd)
-        new_c = new_lo + _INVPHI2 * (new_hi - new_lo)
-        new_fc = _l1_objective(new_c, p, t, m)
-        # Keep c < d: after shrinking right the carried point is c.
-        c_out = torch.where(left, new_c, new_d)
-        fc_out = torch.where(left, new_fc, new_fd)
-        d_probe = new_lo + _INVPHI * (new_hi - new_lo)
-        fd_probe = _l1_objective(d_probe, p, t, m)
-        d = torch.where(left, new_d, d_probe)
-        fd = torch.where(left, new_fd, fd_probe)
-        lo, hi, c, fc = new_lo, new_hi, c_out, fc_out
-    return 0.5 * (lo + hi)
+    return golden_section(p.contiguous(), t.contiguous(), m.contiguous(),
+                          bounds, iterations)
 
 
 def clamp_inverse_depth(output: torch.Tensor,

@@ -809,10 +809,42 @@ def test_fused_server_on_card_equals_direct_calls(dev):
         assert np.array_equal(a, b)
 
 
+def test_fused_call_launches_the_scale_search_once(dev, monkeypatch):
+    """Stage 1's golden-section search is one kernel launch a fused call,
+    and its plain loop never runs on the card's tensors."""
+    from riders_tpu_torch.models.layers import init_random_
+    from riders_tpu_torch.models.rcnet import RCNet
+    from riders_tpu_torch.models.sml import ScaleMapLearner
+    from riders_tpu_torch.ops.kernels import golden_section
+    from riders_tpu_torch.pipelines.fused import make_fused_fn
+
+    def refuse(p, *args):
+        raise AssertionError(f"the plain loop ran on {p.device}")
+
+    monkeypatch.setattr(golden_section, "golden_section_plain", refuse)
+    cfg = _narrow_cfg()
+    rcnet = init_random_(RCNet(cfg.rcnet, dtype=torch.bfloat16), 0)
+    sml = init_random_(ScaleMapLearner(cfg.sml, dtype=torch.bfloat16), 1)
+    fn = make_fused_fn(cfg, rcnet, sml)
+    H, W = cfg.dataset.image_shape
+    g = torch.Generator(device=dev).manual_seed(25)
+    pts, mask = _points(g, dev, 3, cfg.dataset.max_points, (H, W), 6)
+    depth = 5 + 40 * torch.rand((3, H, W), generator=g, device=dev)
+    batch = {"image": torch.rand((3, H, W, 3), generator=g, device=dev),
+             "mono_pred": (1.0 / depth) / 0.05, "radar_points": pts,
+             "point_mask": mask}
+    for _ in range(2):
+        before = LAUNCHES["golden_section"]
+        out = fn(batch)
+        torch.cuda.synchronize()
+        assert LAUNCHES["golden_section"] == before + 1
+    assert bool(torch.isfinite(out).all())
+
+
 def test_bench_chain_graph_replay_equals_eager(dev):
     """The fused call captured as a CUDA graph (`bench.Chain`): one stem,
-    one RoI pool and one compose launch and one decode_full's B7 / B8
-    launches counted during capture, the
+    one RoI pool, one compose and one golden-section launch and one
+    decode_full's B7 / B8 launches counted during capture, the
     replayed depth bitwise an eager call's on the same input, and each
     replay carrying 1e-12 * depth.sum() into the first pixel alone."""
     from riders_tpu_torch import bench
@@ -836,7 +868,8 @@ def test_bench_chain_graph_replay_equals_eager(dev):
     # the patch decoder on B7 / B8 (66x34 patches: three exact-x2 stages,
     # one irregular, four fusions, the three-conv tail), as eagerly
     assert chain.launches == {"stem": 1, "roi_pool": 1, "compose": 1,
-                              "lane_conv3x3": 8, "lane_upconv2x": 3}
+                              "golden_section": 1, "lane_conv3x3": 8,
+                              "lane_upconv2x": 3}
     assert dict(DECODES) == {"full": bench.WARMUP + 1}
     for _ in range(3):
         image = chain.batch["image"].clone()
