@@ -28,8 +28,9 @@ Span names on the served path (`pipelines/serving.py`,
 `server.wait_upload`, `fused.call` and its stages `fused.inputs`,
 `fused.rcnet`, `fused.compose`, `fused.stage1`, `fused.sml`,
 `fused.upsample`, then `server.download` and `server.wait_result`.
-Inside the SML (`models/dpt.py`): `dpt.attn`, mirrored, once per BEiT
-block, from after the qkv projection up to the output projection.
+Inside the SML: `dpt.attn`, mirrored, once per BEiT block
+(`models/dpt.py`) and once per Swin V2 block (`models/swin2.py`), from
+after the qkv projection up to the output projection.
 """
 
 from __future__ import annotations

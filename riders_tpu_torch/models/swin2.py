@@ -22,6 +22,13 @@ as the JAX package's `models/swin2.py` has them:
 directly learned relative position bias table, full qkv bias, and the
 norm before the reduction in patch merging.
 
+Under a profiler each V2 window attention opens the DPT SML's mirrored
+attention span `dpt.attn` (`core.tracing`), as BEiT's attention does,
+from after its qkv projection up to its output projection: the L2
+norms, the logit scale, the position bias, the mask, the softmax and
+attn v.  `COUNTS["cpb_tables"]` counts the position-bias tables
+computed (one a V2 block call).
+
 The logits, the position bias and the softmax stay float32 in a bf16
 model, and so do the parameters used only in that arithmetic (the logit
 scale, the position-bias MLP, V1's table: `layers.KeepF32`).  Module and
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,7 +49,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from riders_tpu_torch.core.tracing import span
 from riders_tpu_torch.models.layers import KeepF32, PatchEmbed
+
+# "cpb_tables", the continuous position-bias tables computed by the V2
+# attention's MLP (`WindowAttentionV2.position_bias`)
+COUNTS: Counter = Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +205,7 @@ class WindowAttentionV2(KeepF32):
     def position_bias(self) -> torch.Tensor:
         """(heads, N, N) float32: 16 sigmoid of the MLP over the log
         coordinate table, gathered by relative position."""
+        COUNTS["cpb_tables"] += 1
         w, nh = self.window, self.num_heads
         device = self.cpb_fc1.weight.device
         table = _on_device(self._coords, lambda: _log_coords_table(
@@ -218,12 +232,15 @@ class WindowAttentionV2(KeepF32):
             n = torch.sqrt((t32 * t32).sum(-1, keepdim=True))
             return (t32 / torch.clamp(n, min=1e-12)).to(t.dtype)
 
-        scale = torch.exp(torch.clamp(self.logit_scale,
-                                      max=math.log(100.0)))
-        attn = (l2n(q) @ l2n(k).transpose(-2, -1)).to(torch.float32)
-        attn = attn * scale[None] + self.position_bias()[None]
-        attn = _masked_softmax(attn, mask).to(x.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(Bw, N, C)
+        # everything between the two projections, so that the SML's first
+        # and last kernels stay outside every `dpt.attn` range
+        with span("dpt.attn", mirror=True):
+            scale = torch.exp(torch.clamp(self.logit_scale,
+                                          max=math.log(100.0)))
+            attn = (l2n(q) @ l2n(k).transpose(-2, -1)).to(torch.float32)
+            attn = attn * scale[None] + self.position_bias()[None]
+            attn = _masked_softmax(attn, mask).to(x.dtype)
+            out = (attn @ v).transpose(1, 2).reshape(Bw, N, C)
         return self.proj(out)
 
 
