@@ -18,6 +18,8 @@ pipeline on the card against the CPU's goldens.
                                           # 11 alone on a dataset of
                                           # their own
     python3 chip_smoke.py --attention     # phase 1, then phase 10d alone
+    python3 chip_smoke.py --swin2-attention  # phase 1, then phase 10e
+                                          # alone
     python3 chip_smoke.py --variants      # phase 1, then phase 12 alone
     python3 chip_smoke.py --stem-plans    # phase 1, then every plan of
                                           # B1's general kernel timed at
@@ -2800,12 +2802,211 @@ def attention_only(smi, profile_dir):
     return 0
 
 
+# phase 10e: the Swin V2 window attention kernel (csrc/swin2_attention.cu)
+# at the Swin2 cell's shapes (Swin2-L at 384x384, B=16: each stage's
+# windows, shifted where its blocks shift) and Swin2-T's w = 16 and 8:
+# name: (frames, grid, window, shift, heads, blocks a forward)
+SWIN2_ATTENTION_SHAPES = {
+    "L0_96x96_w24": (16, (96, 96), 24, 0, 6, 1),
+    "L0_96x96_w24_shifted": (16, (96, 96), 24, 12, 6, 1),
+    "L1_48x48_w24": (16, (48, 48), 24, 0, 12, 1),
+    "L1_48x48_w24_shifted": (16, (48, 48), 24, 12, 12, 1),
+    "L2_24x24_w24": (16, (24, 24), 24, 0, 24, 18),
+    "L3_12x12_w12": (16, (12, 12), 12, 0, 48, 2),
+    "T0_64x64_w16_shifted": (16, (64, 64), 16, 8, 3, 0),
+    "T3_8x8_w8": (16, (8, 8), 8, 0, 24, 0),
+}
+
+
+def check_swin2_attention(seed=0):
+    """Phase 10e (a): the Swin V2 attention kernel on seeded N(0, 1) qkv
+    rows (bf16), an N(0, 4) position-bias MLP output and logit scales
+    from 3 to 900 (the last heads clamped at 100), at each of
+    SWIN2_ATTENTION_SHAPES, against float32 attention on the same bf16
+    inputs (q and k normalised and rounded as both versions do) within
+    two bf16 steps of the output's largest value (one for the output's
+    and P's rounding, one for a q^ or k^ element that rounds to the next
+    bf16 value where the two norms' sums of squares differ in their last
+    bit, which a logit scale of 100 turns into ~1 step of a near one-hot
+    row's output), with a mean error no larger than the plain version's,
+    and against `swin2_attention_plain` within those steps beyond the
+    plain version's own distance from the float32 attention (it rounds
+    q^ k^^T to bf16, which the logit scale multiplies).  Device ms back
+    to back of the kernel, the plain version and, as a yardstick the port
+    never calls, SDPA on q^ scaled per head, k^, v and the bias plus mask
+    as one bf16 (Bw, H, N, N) tensor (`library_ms`), beside the bound
+    (4 Bw H N^2 d operations at the bf16 rate); and a Swin2-L forward's
+    attention ms (the shapes' ms times their blocks a forward)."""
+    import torch
+    import torch.nn.functional as F
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    from riders_tpu_torch.ops.kernels import swin2_attention as sw
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out, forward_ms = {}, 0.0
+    for name, (B, grid, w, shift, H, blocks) in \
+            SWIN2_ATTENTION_SHAPES.items():
+        Bw = B * (grid[0] // w) * (grid[1] // w)
+        N, C = w * w, H * sw.HEAD_DIM
+        qkv = torch.randn((Bw, N, 3 * C), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        table = 2 * torch.randn((H, (2 * w - 1) ** 2), generator=g,
+                                device="cuda")
+        scale = torch.clamp(torch.logspace(math.log10(3.0),
+                                           math.log10(900.0), H,
+                                           device="cuda"), max=100.0)
+        args = (qkv, table, scale, w, shift, grid, H)
+        n0 = LAUNCHES["swin2_attention"]
+        got = sw.swin2_attention(*args)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["swin2_attention"] - n0
+        plain = sw.swin2_attention_plain(*args)
+        q, k, v = (sw.split_heads(t, H) for t in qkv.chunk(3, dim=-1))
+        qn, kn = sw.l2_normalize(q), sw.l2_normalize(k)
+        bias = 16 * torch.sigmoid(table.t()[sw.pair_index(w, "cuda")]
+                                  ).reshape(N, N, H).permute(2, 0, 1)
+        mask = sw.grid_mask(grid, w, shift, "cuda")
+        logits = (qn.float() @ kn.float().transpose(-2, -1)
+                  * scale[:, None, None] + bias)
+        ref = (sw.masked_softmax(logits, mask) @ v.float()).transpose(
+            1, 2).reshape(Bw, N, C)
+        del logits
+        err = float((got.float() - plain.float()).abs().max())
+        tol = 2 * bf16_step(ref)
+        rec = dict(
+            frames=B, grid=list(grid), window=w, shift=shift, heads=H,
+            windows=Bw, tokens=N, blocks_a_swin2l_forward=blocks,
+            launches=launches, max_abs_err=err, tolerance=tol,
+            finite=bool(torch.isfinite(got).all()),
+            kernel_vs_f32_max_abs=float((got.float() - ref).abs().max()),
+            plain_vs_f32_max_abs=float((plain.float() - ref).abs().max()),
+            kernel_vs_f32_rel_l1=float((got.float() - ref).abs().sum()
+                                       / ref.abs().sum()),
+            plain_vs_f32_rel_l1=float((plain.float() - ref).abs().sum()
+                                      / ref.abs().sum()))
+        del ref, plain, got
+        qs = (qn.float() * scale[:, None, None]).to(torch.bfloat16)
+        full = bias[None] if mask is None else (
+            bias[None] + mask[:, None]).repeat(B, 1, 1, 1)
+        full = full.to(torch.bfloat16)
+        rec.update(
+            ms=device_ms(lambda: sw.swin2_attention(*args)),
+            plain_ms=device_ms(lambda: sw.swin2_attention_plain(*args),
+                               n=3, warmup=1),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qs, kn, v, attn_mask=full, scale=1.0), n=10),
+            bound_ms=4.0 * Bw * H * N * N * sw.HEAD_DIM
+            / BF16_FLOP_PER_S * 1e3)
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        forward_ms += blocks * rec["ms"]
+        log(f"swin2 attention {name}: {json.dumps(rec)}")
+        out[name] = rec
+        del qkv, table, scale, bias, q, k, v, qn, kn, qs, full, mask
+        torch.cuda.empty_cache()
+        if (launches != 1 or not rec["finite"]
+                or rec["kernel_vs_f32_max_abs"] > tol
+                or rec["kernel_vs_f32_rel_l1"] > rec["plain_vs_f32_rel_l1"]
+                or err > rec["plain_vs_f32_max_abs"] + tol):
+            raise AssertionError(f"swin2 attention {name}: {rec}")
+    out["swin2l_forward_attention_ms"] = forward_ms
+    log(f"swin2 attention, a Swin2-L forward's 24 blocks: {forward_ms} ms")
+    return out
+
+
+def swin2_sml_forward(B=16, net=(384, 384), seed=0, profile_dir=None):
+    """Phase 10e (b): a Swin2-L SML (built on the card, bf16, its initial
+    weights) at the Swin2 cell's net, grad off: one forward must launch
+    the attention kernel 24 times and count 24 "attn_kernel", no
+    "attn_plain" and 24 "cpb_tables" in `models.swin2.COUNTS`; the
+    forward's device ms back to back and its peak memory, beside the same
+    forward with every block's attention on the plain version, and the
+    relative L1 distance of the two forwards' last encoder taps.  With
+    `profile_dir`, a torch.profiler table of one forward."""
+    import torch
+    from unittest import mock
+    from riders_tpu_torch.models import swin2
+    from riders_tpu_torch.models.factory import build_sml_model
+    from riders_tpu_torch.ops.kernels import LAUNCHES
+    cfg = dpt_config(FAMILY_MAIN, net_shape=net)
+    model = build_sml_model(cfg, "cuda", torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, *net, 3), generator=g, device="cuda")
+    d = torch.rand((B, *net, 1), generator=g, device="cuda") + 0.5
+    taps = []
+    model.pretrained.register_forward_hook(
+        lambda m, i, o: taps.append(o[-1].float()))
+    plain = mock.patch.object(swin2, "swin2_attention_path",
+                              lambda *a: "plain")
+    with torch.inference_mode():
+        swin2.COUNTS.clear()
+        n0 = LAUNCHES["swin2_attention"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pred = model(x, d)[0]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = dict(swin2.COUNTS)
+        launches = LAUNCHES["swin2_attention"] - n0
+        with plain:
+            torch.cuda.reset_peak_memory_stats()
+            model(x, d)
+            torch.cuda.synchronize()
+            plain_peak = torch.cuda.max_memory_allocated() / 1e9
+        kernel_tap, plain_tap = taps[:2]
+        taps.clear()
+        ms = device_ms(lambda: model(x, d), n=5, warmup=1)
+        with plain:
+            plain_ms = device_ms(lambda: model(x, d), n=3, warmup=1)
+        taps.clear()
+        if profile_dir is not None:
+            log(profile(lambda _: model(x, d), None,
+                        profile_dir / "profile_swin2_sml.txt"))
+    rec = dict(batch=B, net=list(net), launches=launches, counts=counts,
+               ms=ms, plain_ms=plain_ms, peak_mem_gb=peak,
+               plain_peak_mem_gb=plain_peak,
+               finite=bool(torch.isfinite(pred).all()),
+               last_tap_rel_l1=float((kernel_tap - plain_tap).abs().sum()
+                                     / plain_tap.abs().sum()))
+    log(f"swin2 sml forward: {json.dumps(rec)}")
+    if (launches != 24 or counts.get("attn_kernel") != 24
+            or counts.get("attn_plain", 0) != 0
+            or counts.get("cpb_tables") != 24 or not rec["finite"]):
+        raise AssertionError(f"swin2 sml forward: {rec}")
+    return rec
+
+
+def swin2_attention_phase(profile_dir=None):
+    """Phase 10e: the kernel's checks and times, then the SML forward."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = dict(kernel=check_swin2_attention(),
+               sml_forward=swin2_sml_forward(profile_dir=profile_dir))
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+def swin2_attention_only(smi, profile_dir):
+    """`--swin2-attention`: phase 1, then phase 10e alone."""
+    out = swin2_attention_phase(profile_dir)
+    out_dir = HERE / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_swin2_attention.json").write_text(
+        json.dumps(out, indent=1))
+    log(json.dumps({"swin2_attention": dict(card=smi, **out)}))
+    log(smi)
+    return 0
+
+
 def dpt_phase(root, seed=0, profile_dir=None):
     """Phase 10: the DPT SML at full width on the card (10d the BEiT
-    attention kernel first, then 10a inference, 10b training and its
-    agreement with the CPU, 10c the drivers on the NTU mini-dataset under
-    `root`), the launch counters reset just before; of the hand-written
-    kernels only the BEiT attention lies on the DPT paths, in bf16
+    attention kernel and 10e the Swin V2 attention kernel first, then 10a
+    inference, 10b training and its agreement with the CPU, 10c the
+    drivers on the NTU mini-dataset under `root`), the launch counters
+    reset just before; of the hand-written kernels only the BEiT
+    attention lies on the DPT paths of these BEiT and ViT rows, in bf16
     inference (10a's BEiT-L call launches it once a block, the ViT rows
     not at all).  With `profile_dir`, torch.profiler tables of a BEiT-L
     inference call and training step."""
@@ -2816,7 +3017,8 @@ def dpt_phase(root, seed=0, profile_dir=None):
     torch.cuda.empty_cache()
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    out = {"attention": attention_phase(profile_dir)}
+    out = {"attention": attention_phase(profile_dir),
+           "swin2_attention": swin2_attention_phase(profile_dir)}
     weights = {DPT_MAIN: sml_weights(dpt_config(DPT_MAIN), seed)}
     out["inference"] = {DPT_MAIN: dpt_inference(
         DPT_MAIN, weights[DPT_MAIN], profile_dir=profile_dir)}
@@ -2920,6 +3122,10 @@ def family_validate(root, seed=0):
     return out
 
 
+# the hand-written kernels that phase 11's paths launch
+OWN_KERNELS = ("swin2_attention", "golden_section")
+
+
 def family_phase(root, seed=0, profile_dir=None):
     """Phase 11: the Swin2 / Swin-V1, LeViT and Next-ViT DPT SMLs at full
     width on the card, each on weights calibrated by `sml_weights` (drawn
@@ -2929,8 +3135,11 @@ def family_phase(root, seed=0, profile_dir=None):
     other five rows, 3 calls each at their nets; (d) one B=2 step per
     family on the card against the host CPU (Swin2-T at 128x128, LeViT at
     64x64, Next-ViT at 64x96); (e) validate_sml at step 0 on the NTU
-    mini-dataset under `root`, bf16 card vs f32 host CPU.  None of the
-    hand-written kernels lies on these paths: a launch fails the phase.
+    mini-dataset under `root`, bf16 card vs f32 host CPU.  Of the
+    hand-written kernels only the Swin V2 attention (bf16 inference of the
+    Swin V2 rows) and stage 1's scale search (`make_infer_fn`,
+    `validate_sml`) lie on these paths: a launch of another fails the
+    phase.
     With `profile_dir`, torch.profiler tables of Swin2-L's call and
     step."""
     import gc
@@ -2979,9 +3188,9 @@ def family_phase(root, seed=0, profile_dir=None):
     out["seconds"]["validate"] = time.perf_counter() - t
     out["launches"] = dict(LAUNCHES)
     out["seconds"]["total"] = time.perf_counter() - t0
-    if any(out["launches"].values()):
-        raise AssertionError(f"phase 11 launched hand-written kernels: "
-                             f"{out['launches']}")
+    if any(v for k, v in out["launches"].items() if k not in OWN_KERNELS):
+        raise AssertionError(f"phase 11 launched other hand-written "
+                             f"kernels: {out['launches']}")
     return out
 
 
@@ -4870,6 +5079,8 @@ def main(argv):
         return dpt_only(smi, profile_dir)
     if "--attention" in argv:
         return attention_only(smi, profile_dir)
+    if "--swin2-attention" in argv:
+        return swin2_attention_only(smi, profile_dir)
     if "--variants" in argv:
         return variants_only(smi)
     if "--stem-plans" in argv:

@@ -26,8 +26,11 @@ Under a profiler each V2 window attention opens the DPT SML's mirrored
 attention span `dpt.attn` (`core.tracing`), as BEiT's attention does,
 from after its qkv projection up to its output projection: the L2
 norms, the logit scale, the position bias, the mask, the softmax and
-attn v.  `COUNTS["cpb_tables"]` counts the position-bias tables
-computed (one a V2 block call).
+attn v.  Between the two projections bf16 inference on the card runs
+one hand-written kernel (`ops.kernels.swin2_attention`), everything else
+its plain version.  `COUNTS["cpb_tables"]` counts the position-bias
+tables computed (one a V2 block call), "attn_kernel" / "attn_plain" the
+path each call took.
 
 The logits, the position bias and the softmax stay float32 in a bf16
 model, and so do the parameters used only in that arithmetic (the logit
@@ -51,9 +54,14 @@ import torch.nn.functional as F
 
 from riders_tpu_torch.core.tracing import span
 from riders_tpu_torch.models.layers import KeepF32, PatchEmbed
+from riders_tpu_torch.ops.kernels.swin2_attention import (
+    grid_mask, masked_softmax, pair_index, split_heads, swin2_attention,
+    swin2_attention_path, swin2_attention_plain)
 
 # "cpb_tables", the continuous position-bias tables computed by the V2
-# attention's MLP (`WindowAttentionV2.position_bias`)
+# attention's MLP (`WindowAttentionV2.position_table`); "attn_kernel" /
+# "attn_plain", the path of each V2 attention call
+# (`ops.kernels.swin2_attention.swin2_attention_path`)
 COUNTS: Counter = Counter()
 
 
@@ -75,19 +83,6 @@ class Swin2Config:
 SWIN1_LARGE = Swin2Config(window_size=12, version=1)
 
 
-def _rel_pos_index(wh: int, ww: int) -> np.ndarray:
-    """Swin's relative position index of a (wh, ww) window, (wh*ww,
-    wh*ww), into a table of (2wh-1)(2ww-1) rows."""
-    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww),
-                                  indexing="ij"))
-    flat = coords.reshape(2, -1)
-    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0).copy()
-    rel[:, :, 0] += wh - 1
-    rel[:, :, 1] += ww - 1
-    rel[:, :, 0] *= 2 * ww - 1
-    return rel.sum(-1).astype(np.int32)
-
-
 def _log_coords_table(window: int, pretrained_window: int) -> np.ndarray:
     """(2w-1, 2w-1, 2) log-spaced normalised relative coordinates, scaled
     by the pretrained window (the window itself when that is 0)."""
@@ -99,23 +94,6 @@ def _log_coords_table(window: int, pretrained_window: int) -> np.ndarray:
     table = (np.sign(table) * np.log2(np.abs(table) + 1.0)
              / np.log2(8.0))
     return table.astype(np.float32)
-
-
-def _shift_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
-    """(nW, win^2, win^2) additive mask of the shifted windows: 0 within
-    a region, -100 across regions."""
-    img = np.zeros((h, w), np.int32)
-    cnt = 0
-    for hs in (slice(0, -window), slice(-window, -shift),
-               slice(-shift, None)):
-        for ws in (slice(0, -window), slice(-window, -shift),
-                   slice(-shift, None)):
-            img[hs, ws] = cnt
-            cnt += 1
-    win = img.reshape(h // window, window, w // window, window)
-    win = win.transpose(0, 2, 1, 3).reshape(-1, window * window)
-    diff = win[:, :, None] - win[:, None, :]
-    return np.where(diff == 0, 0.0, -100.0).astype(np.float32)
 
 
 def _partition(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -135,34 +113,13 @@ def _unpartition(x: torch.Tensor, window: int, B: int, H: int,
 def _on_device(cache: Dict[str, torch.Tensor], make, device
                ) -> torch.Tensor:
     """A module's numpy constant `make()` as a tensor on `device`, made
-    once per device."""
+    once per device, outside inference mode (a later call under autograd
+    may save it for backward)."""
     key = str(device)
     if key not in cache:
-        cache[key] = torch.from_numpy(make()).to(device)
+        with torch.inference_mode(False):
+            cache[key] = torch.from_numpy(make()).to(device)
     return cache[key]
-
-
-def _rel_index(cache: Dict[str, torch.Tensor], window: int, device
-               ) -> torch.Tensor:
-    return _on_device(cache, lambda: _rel_pos_index(
-        window, window).reshape(-1).astype(np.int64), device)
-
-
-def _masked_softmax(attn: torch.Tensor, mask: Optional[torch.Tensor]
-                    ) -> torch.Tensor:
-    """Add the (nW, N, N) window mask to (Bw, heads, N, N) logits, then
-    softmax over the last axis."""
-    if mask is not None:
-        Bw, nh, N, _ = attn.shape
-        nW = mask.shape[0]
-        attn = (attn.reshape(Bw // nW, nW, nh, N, N)
-                + mask[None, :, None]).reshape(Bw, nh, N, N)
-    return attn.softmax(-1)
-
-
-def _heads(t: torch.Tensor, nh: int) -> torch.Tensor:
-    Bw, N, C = t.shape
-    return t.reshape(Bw, N, nh, C // nh).transpose(1, 2)
 
 
 class WindowAttentionV2(KeepF32):
@@ -189,7 +146,6 @@ class WindowAttentionV2(KeepF32):
         self.cpb_fc2 = nn.Linear(512, num_heads, bias=False)
         self.proj = nn.Linear(dim, dim)
         self._coords: Dict[str, torch.Tensor] = {}
-        self._index: Dict[str, torch.Tensor] = {}
         self.reset_jax_init_(None)
 
     @torch.no_grad()
@@ -202,45 +158,41 @@ class WindowAttentionV2(KeepF32):
         self.v_bias.zero_()
         self.logit_scale.fill_(math.log(10.0))
 
-    def position_bias(self) -> torch.Tensor:
-        """(heads, N, N) float32: 16 sigmoid of the MLP over the log
-        coordinate table, gathered by relative position."""
+    def position_table(self) -> torch.Tensor:
+        """(heads, (2w-1)^2) float32: the MLP over the log coordinate
+        table, one row a head, before its 16 sigmoid (applied by the
+        attention, `swin2_attention_plain` after its gather)."""
         COUNTS["cpb_tables"] += 1
-        w, nh = self.window, self.num_heads
         device = self.cpb_fc1.weight.device
         table = _on_device(self._coords, lambda: _log_coords_table(
-            w, self.pretrained_window).reshape(-1, 2), device)
+            self.window, self.pretrained_window).reshape(-1, 2), device)
         f32 = torch.float32
         h = F.relu(F.linear(table, self.cpb_fc1.weight.to(f32),
                             self.cpb_fc1.bias.to(f32)))
-        bias = F.linear(h, self.cpb_fc2.weight.to(f32))
-        N = w * w
-        bias = bias[_rel_index(self._index, w, device)].reshape(N, N, nh)
-        return (16.0 * torch.sigmoid(bias)).permute(2, 0, 1)
+        return F.linear(h, self.cpb_fc2.weight.to(f32)).t().contiguous()
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]
+    def forward(self, x: torch.Tensor, shift: int, grid: Tuple[int, int]
                 ) -> torch.Tensor:
+        """Bw windows (Bw, w^2, C) of (gh, gw) `grid`s rolled by `shift`
+        (0: unshifted, no mask), row major a frame after another."""
         Bw, N, C = x.shape
         nh = self.num_heads
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias]).to(x.dtype)
         qkv = F.linear(x, self.qkv_kernel.to(x.dtype), bias)
-        q, k, v = (_heads(t, nh) for t in qkv.chunk(3, dim=-1))
-
-        def l2n(t):
-            t32 = t.to(torch.float32)
-            n = torch.sqrt((t32 * t32).sum(-1, keepdim=True))
-            return (t32 / torch.clamp(n, min=1e-12)).to(t.dtype)
-
         # everything between the two projections, so that the SML's first
         # and last kernels stay outside every `dpt.attn` range
         with span("dpt.attn", mirror=True):
             scale = torch.exp(torch.clamp(self.logit_scale,
-                                          max=math.log(100.0)))
-            attn = (l2n(q) @ l2n(k).transpose(-2, -1)).to(torch.float32)
-            attn = attn * scale[None] + self.position_bias()[None]
-            attn = _masked_softmax(attn, mask).to(x.dtype)
-            out = (attn @ v).transpose(1, 2).reshape(Bw, N, C)
+                                          max=math.log(100.0))).reshape(-1)
+            table = self.position_table()
+            path = swin2_attention_path(x.dtype, x.device.type,
+                                        self.training,
+                                        torch.is_grad_enabled(), C // nh, N)
+            COUNTS[f"attn_{path}"] += 1
+            attend = swin2_attention if path == "kernel" else \
+                swin2_attention_plain
+            out = attend(qkv, table, scale, self.window, shift, grid, nh)
         return self.proj(out)
 
 
@@ -258,7 +210,6 @@ class WindowAttentionV1(KeepF32):
         self.rel_pos_bias_table = nn.Parameter(
             torch.empty((2 * window - 1) ** 2, num_heads))
         self.proj = nn.Linear(dim, dim)
-        self._index: Dict[str, torch.Tensor] = {}
         self.reset_jax_init_(None)
 
     @torch.no_grad()
@@ -267,17 +218,19 @@ class WindowAttentionV1(KeepF32):
         self.rel_pos_bias_table.copy_(0.02 * torch.randn(
             self.rel_pos_bias_table.shape, generator=g))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]
+    def forward(self, x: torch.Tensor, shift: int, grid: Tuple[int, int]
                 ) -> torch.Tensor:
+        """As `WindowAttentionV2.forward`."""
         Bw, N, C = x.shape
         nh = self.num_heads
-        q, k, v = (_heads(t, nh) for t in self.qkv(x).chunk(3, dim=-1))
+        q, k, v = (split_heads(t, nh) for t in self.qkv(x).chunk(3, dim=-1))
         attn = (q @ k.transpose(-2, -1)).to(torch.float32)
         attn = attn * (C // nh) ** -0.5
-        idx = _rel_index(self._index, self.window, x.device)
+        idx = pair_index(self.window, x.device)
         bias = self.rel_pos_bias_table[idx].reshape(N, N, nh)
         attn = attn + bias.permute(2, 0, 1)[None].to(torch.float32)
-        attn = _masked_softmax(attn, mask).to(x.dtype)
+        mask = grid_mask(tuple(grid), self.window, shift, x.device)
+        attn = masked_softmax(attn, mask).to(x.dtype)
         out = (attn @ v).transpose(1, 2).reshape(Bw, N, C)
         return self.proj(out)
 
@@ -303,19 +256,15 @@ class SwinBlockV2(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
         self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
-        self._mask: Dict[str, torch.Tensor] = {}
 
     def attention(self, tokens: torch.Tensor) -> torch.Tensor:
         H, W = self.resolution
         B, _, C = tokens.shape
         s, w = self.shift, self.window
         h = tokens.reshape(B, H, W, C)
-        mask = None
         if s > 0:
             h = torch.roll(h, (-s, -s), dims=(1, 2))
-            mask = _on_device(self._mask, lambda: _shift_mask(H, W, w, s),
-                              tokens.device)
-        h = _unpartition(self.attn(_partition(h, w), mask), w, B, H, W)
+        h = _unpartition(self.attn(_partition(h, w), s, (H, W)), w, B, H, W)
         if s > 0:
             h = torch.roll(h, (s, s), dims=(1, 2))
         return h.reshape(B, H * W, C)

@@ -23,7 +23,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "riders_tpu_torch"
 KERNELS = ("stem", "stem_general", "roi_pool", "compose", "lane_decoder",
-           "beit_attention", "golden_section")
+           "beit_attention", "golden_section", "swin2_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

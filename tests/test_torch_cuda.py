@@ -11,6 +11,8 @@ on the card with
 the card need not have.)
 """
 
+import copy
+import math
 from collections import Counter
 
 import pytest
@@ -1191,3 +1193,147 @@ def test_beit_block_takes_the_kernel_for_bf16_inference_only(dev):
     assert LAUNCHES["beit_attention"] == before + 1
     assert dpt.COUNTS == {"bias_tables": 3, "attn_kernel": 1,
                           "attn_plain": 2}
+
+
+def _swin2_inputs(dev, windows, w, heads, seed=0):
+    """N(0, 1) qkv rows in bf16, an N(0, 4) position-bias MLP output and
+    logit scales from 3 to 900 (the last heads clamped at 100)."""
+    from riders_tpu_torch.ops.kernels import swin2_attention as sw
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((windows, w * w, 3 * heads * sw.HEAD_DIM),
+                      generator=g, device=dev).to(torch.bfloat16)
+    table = 2 * torch.randn((heads, (2 * w - 1) ** 2), generator=g,
+                            device=dev)
+    scale = torch.clamp(torch.logspace(math.log10(3.0), math.log10(900.0),
+                                       heads, device=dev), max=100.0)
+    return qkv, table, scale
+
+
+def _swin2_f32(qkv, table, scale, w, shift, grid, heads):
+    """Float32 attention on the same bf16 inputs: q and k normalised in
+    float32 and rounded to bf16 as both versions do, every later step in
+    float32."""
+    from riders_tpu_torch.ops.kernels import swin2_attention as sw
+    Bw, N, C3 = qkv.shape
+    q, k, v = (sw.split_heads(t, heads) for t in qkv.chunk(3, dim=-1))
+    logits = sw.l2_normalize(q).float() @ sw.l2_normalize(k).float().transpose(-2, -1)
+    bias = 16 * torch.sigmoid(table.t()[sw.pair_index(w, table.device)])
+    logits = logits * scale[:, None, None] + bias.reshape(
+        N, N, heads).permute(2, 0, 1)
+    mask = sw.grid_mask(tuple(grid), w, shift, qkv.device)
+    probs = sw.masked_softmax(logits, mask)
+    return (probs @ v.float()).transpose(1, 2).reshape(Bw, N, C3 // 3)
+
+
+@pytest.mark.parametrize("frames,grid,w,shift,heads", [
+    (2, (96, 96), 24, 0, 6), (2, (96, 96), 24, 12, 6),
+    (2, (48, 48), 24, 0, 12), (2, (48, 48), 24, 12, 12),
+    (2, (24, 24), 24, 0, 24), (2, (12, 12), 12, 0, 48),
+    (2, (64, 64), 16, 8, 3), (2, (32, 32), 16, 0, 6), (2, (8, 8), 8, 0, 24),
+    (3, (8, 12), 4, 2, 2), (1, (5, 5), 5, 0, 1), (2, (1, 1), 1, 0, 2)],
+    ids=["L0", "L0_shifted", "L1", "L1_shifted", "L2", "L3", "T0_shifted",
+         "T1", "T3", "w4_shifted", "w5", "w1"])
+def test_swin2_attention_kernel_matches_f32_attention(dev, frames, grid, w,
+                                                      shift, heads):
+    """Each Swin2-L stage's shape (B=2), shifted and unshifted, Swin2-T's
+    w = 16 and w = 8, and windows whose rows and keys the kernel pads;
+    the last heads' logit scales at the clamp.  One launch a call, within
+    two bf16 steps of the output's largest value of float32 attention on
+    the same bf16 inputs, and of the plain version beyond its own
+    distance from it (the plain version rounds q^ k^^T to bf16, an error
+    the logit scale multiplies: 14 steps at Swin2-L's stage 0, B=16).
+    One step is the output's and P's rounding; the other a q^ or k^
+    element that rounds to the next bf16 value: the kernel's norm and the
+    float32 attention's sum their squares in other orders, and at a
+    logit scale of 100 one such element moves a near one-hot row's
+    output by up to ~1.1 steps (1.03 seen at stage 0, B=16), while its
+    mean error stays at the plain version's seventh."""
+    from riders_tpu_torch.ops.kernels import swin2_attention as sw
+    windows = frames * (grid[0] // w) * (grid[1] // w)
+    qkv, table, scale = _swin2_inputs(dev, windows, w, heads)
+    before = LAUNCHES["swin2_attention"]
+    got = sw.swin2_attention(qkv, table, scale, w, shift, grid,
+                             heads).float()
+    assert LAUNCHES["swin2_attention"] == before + 1
+    plain = sw.swin2_attention_plain(qkv, table, scale, w, shift, grid,
+                                     heads).float()
+    ref = _swin2_f32(qkv, table, scale, w, shift, grid, heads)
+    tol = 2.0 ** (int(torch.log2(ref.abs().max()).floor()) - 6)
+    assert float((got - ref).abs().max()) <= tol
+    assert float((got - plain).abs().max()) <= (
+        float((plain - ref).abs().max()) + tol)
+    assert float((got - ref).abs().sum()) <= float((plain - ref).abs().sum())
+
+
+def test_swin2_attention_kernel_refuses_what_it_does_not_take(dev):
+    from riders_tpu_torch.ops.kernels import swin2_attention as sw
+    qkv, table, scale = _swin2_inputs(dev, 8, 4, 2)
+    args = (4, 2, (8, 8), 2)
+    with pytest.raises(TypeError):
+        sw.swin2_attention(qkv.float(), table, scale, *args)
+    with pytest.raises(TypeError):
+        sw.swin2_attention(qkv, table.double(), scale, *args)
+    with pytest.raises(ValueError):
+        sw.swin2_attention(qkv, table, scale, 4, 2, (8, 8), 4)  # width 16
+    with pytest.raises(ValueError):
+        sw.swin2_attention(qkv, table[:, 1:].contiguous(), scale, *args)
+    with pytest.raises(ValueError):
+        sw.swin2_attention(qkv, table, scale[:1], *args)
+    with pytest.raises(ValueError):
+        sw.swin2_attention(qkv, table, scale, 3, 1, (6, 6), 2)  # tokens
+    with pytest.raises(ValueError):
+        sw.swin2_attention(qkv[:6], table, scale, *args)   # 6 of 4 a grid
+    big, big_table, big_scale = _swin2_inputs(dev, 1, 25, 1)
+    with pytest.raises(ValueError):
+        sw.swin2_attention(big, big_table, big_scale, 25, 0, (25, 25), 1)
+
+
+def test_swin2_block_takes_the_kernel_for_bf16_inference_only(dev):
+    """A bf16 Swin V2 block on the card runs the kernel in eval with grad
+    off, and the plain version in training mode or with grad on."""
+    from riders_tpu_torch.models import swin2
+    block = swin2.SwinBlockV2(64, 2, (8, 8), 4, 2, 2).to(
+        dev, torch.bfloat16).eval()
+    x = torch.randn((2, 64, 64), device=dev).to(torch.bfloat16)
+    swin2.COUNTS.clear()
+    before = LAUNCHES["swin2_attention"]
+    with torch.inference_mode():
+        block(x)
+    with torch.no_grad():
+        block.train()(x)
+    block.eval()(x)
+    assert LAUNCHES["swin2_attention"] == before + 1
+    assert swin2.COUNTS == {"cpb_tables": 3, "attn_kernel": 1,
+                            "attn_plain": 2}
+
+
+def test_swin2_backbone_on_the_kernel_matches_the_plain_path(dev):
+    """A bf16 SwinV2Backbone (head width 32, windows 8 / 8 / 8 / 4,
+    stages 0 and 1 shifted) at 128x128 on its initial weights: one launch
+    a block in inference, and each tap within twice the plain path's own
+    relative L1 distance from the float32 model (plain path, same
+    weights) of the plain path's taps."""
+    from unittest import mock
+    from riders_tpu_torch.models import swin2
+    config = swin2.Swin2Config(embed_dim=64, depths=(2, 2, 2, 2),
+                               num_heads=(2, 4, 8, 16), window_size=8,
+                               pretrained_window_sizes=(4, 4, 4, 2))
+    torch.manual_seed(0)
+    f32 = swin2.SwinV2Backbone(config, (128, 128)).to(dev).eval()
+    bf16 = copy.deepcopy(f32).to(torch.bfloat16)
+    x = torch.randn((2, 3, 128, 128), device=dev)
+    before = LAUNCHES["swin2_attention"]
+    swin2.COUNTS.clear()
+    with torch.inference_mode():
+        want = f32(x)
+        assert LAUNCHES["swin2_attention"] == before
+        got = bf16(x.to(torch.bfloat16))
+        assert LAUNCHES["swin2_attention"] == before + 8
+        assert swin2.COUNTS["attn_kernel"] == 8
+        with mock.patch.object(swin2, "swin2_attention_path",
+                               lambda *a: "plain"):
+            plain = bf16(x.to(torch.bfloat16))
+    for g, p, w in zip(got, plain, want):
+        g, p = g.float(), p.float()
+        plain_err = float((p - w).abs().sum() / w.abs().sum())
+        assert float((g - p).abs().sum() / p.abs().sum()) <= 2 * plain_err

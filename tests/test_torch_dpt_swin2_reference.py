@@ -20,6 +20,7 @@ from benchmark.loader import load_file_module
 from benchmark.reference import chain
 from riders_tpu_torch.models import dpt, swin2
 from riders_tpu_torch.models.factory import build_sml_model
+from riders_tpu_torch.ops.kernels import swin2_attention
 
 ROOT = Path(__file__).resolve().parents[1]
 REF = load_file_module(ROOT / "benchmark" / "reference" / "sml"
@@ -115,13 +116,13 @@ def test_port_matches_the_reference():
 def test_the_helpers_equal_the_ports(H, W, w, s):
     """The reference's own shift mask, coordinate table and pair index,
     built from their definitions, equal the port's numpy helpers."""
-    assert torch.equal(REF.shift_mask(H, W, w, s),
-                       torch.from_numpy(swin2._shift_mask(H, W, w, s)))
+    assert torch.equal(REF.shift_mask(H, W, w, s), torch.from_numpy(
+        swin2_attention.shift_mask(H, W, w, s)))
     for pretrained in (0, w // 2):
         assert torch.equal(REF.log_coords(w, pretrained), torch.from_numpy(
             swin2._log_coords_table(w, pretrained)).reshape(-1, 2))
     assert torch.equal(REF.pair_rows(w), torch.from_numpy(
-        swin2._rel_pos_index(w, w)).long())
+        swin2_attention.rel_pos_index(w, w)).long())
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
@@ -139,10 +140,13 @@ def test_window_attention_matches_the_reference(top_scale, masked):
     block, want_block = port.pretrained.stage0_block1, \
         ref.pretrained.stage0_block1
     g = torch.Generator().manual_seed(3)
-    x = torch.randn(8, TINY["window"] ** 2, TINY["embed"], generator=g)
-    mask = REF.shift_mask(16, 16, 4, 2)[:4] if masked else None
+    # the 16 windows of one 16x16 grid: the port's attention takes the
+    # shift and the grid, the reference's the mask made from them
+    x = torch.randn(16, TINY["window"] ** 2, TINY["embed"], generator=g)
+    shift = 2 if masked else 0
+    mask = REF.shift_mask(16, 16, 4, shift) if masked else None
     with torch.no_grad():
-        got = block.attn(x, mask)
+        got = block.attn(x, shift, (16, 16))
         want = want_block.attn(x, mask)
     _assert_close(got, want)
 
@@ -217,14 +221,14 @@ def test_attention_spans_and_counts():
     """Under a profiler each block's window attention is one
     `dpt.attn` user range (the DPT SML's attention span, as BEiT's), the forward's first and last ops lie
     outside every one of them, and `COUNTS` counts one position-bias
-    table a block."""
+    table and one plain attention (the CPU's path) a block."""
     port, _ = _models()
     x, d = _inputs(1)
     swin2.COUNTS.clear()
     dpt.COUNTS.clear()
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
         port(x, d)
-    assert swin2.COUNTS == {"cpb_tables": BLOCKS}
+    assert swin2.COUNTS == {"cpb_tables": BLOCKS, "attn_plain": BLOCKS}
     assert dpt.COUNTS["forwards"] == 1
     events = list(prof.profiler.kineto_results.events())
     ranges = [(e.start_ns(), e.start_ns() + e.duration_ns())

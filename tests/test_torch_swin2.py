@@ -32,6 +32,7 @@ from riders_tpu.models import swin2 as jswin
 from riders_tpu_torch.models import dpt as tdpt
 from riders_tpu_torch.models import swin2 as tswin
 from riders_tpu_torch.models.from_jax import load_jax_variables
+from riders_tpu_torch.ops.kernels import swin2_attention as tattn
 from test_torch_dpt import (check_dpt_step, dpt_forwards, dpt_inputs,
                             jax_variables)
 
@@ -55,7 +56,7 @@ def _close(got, want):
 @pytest.mark.parametrize("window,pretrained", [(4, 2), (6, 3), (7, 0),
                                                (24, 12)])
 def test_swin_helpers_are_jax_s_bitwise(window, pretrained):
-    np.testing.assert_array_equal(tswin._rel_pos_index(window, window),
+    np.testing.assert_array_equal(tattn.rel_pos_index(window, window),
                                   jswin._rel_pos_index(window, window))
     got = tswin._log_coords_table(window, pretrained)
     want = jswin._log_coords_table(window, pretrained)
@@ -66,7 +67,7 @@ def test_swin_helpers_are_jax_s_bitwise(window, pretrained):
                                              ((12, 8), 4, 2),
                                              ((24, 24), 12, 6)])
 def test_shift_mask_is_jax_s_bitwise(hw, window, shift):
-    got = tswin._shift_mask(*hw, window, shift)
+    got = tattn.shift_mask(*hw, window, shift)
     want = jswin._shift_mask(*hw, window, shift)
     assert got.dtype == want.dtype and np.array_equal(got, want)
     assert set(np.unique(got)) == {0.0, -100.0}
@@ -84,7 +85,7 @@ def test_window_attention_matches_jax(rng, version, masked):
     straddle the clamp: two heads under log(100), two over it."""
     dim, heads, window = 16, 4, 4
     x = _tokens(rng, 8, window * window, dim)
-    mask = tswin._shift_mask(8, 8, window, 2) if masked else None
+    mask = tattn.shift_mask(8, 8, window, 2) if masked else None
     if version == 2:
         jmod = jswin.WindowAttentionV2(dim, heads, window, 2)
         port = tswin.WindowAttentionV2(dim, heads, window, 2)
@@ -97,9 +98,8 @@ def test_window_attention_matches_jax(rng, version, masked):
             [3.0, 30.0, 150.0, 900.0], np.float32)).reshape(heads, 1, 1)
     want = jmod.apply(variables, jnp.asarray(x), mask)
     load_jax_variables(port, variables)
-    with torch.no_grad():
-        got = port(torch.from_numpy(x),
-                   None if mask is None else torch.from_numpy(mask))
+    with torch.no_grad():       # the port's attention takes shift and grid
+        got = port(torch.from_numpy(x), 2 if masked else 0, (8, 8))
     _close(got.numpy(), want)
 
 
